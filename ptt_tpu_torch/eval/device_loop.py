@@ -1,0 +1,272 @@
+"""Device-resident tracking (the JAX package's ``eval/device_loop.py``): a batch of
+tracklets is uploaded once, and the autoregressive per-frame loop (crop,
+resample, PTT forward, best proposal, box decode) runs on the device. Only the
+(B, T, 4) predicted boxes come back for scoring.
+
+The JAX package compiles the loop into one ``lax.scan``; here it is a Python
+loop over frames that enqueues device work and never waits for it, so the
+host reads nothing until ``finish_batch``. Every primitive is batched over a
+leading tracklet axis. Ported modes: ``TEST.REF_BOX = previous_result`` and
+``TEST.SHAPE_AGGREGATION = firstandprevious`` (those of ``ptt.yaml``); the
+others raise ``NotImplementedError``.
+
+Resampling draws its picks from a ``torch.Generator``, so the stream differs
+from the JAX tracker's; ``masked_resample`` also takes explicit ``picks``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import geometry as geo
+from .metrics import Evaluator
+
+QUANT_SCALE = 1.0 / 256.0  # int16 fixed-point grid for the upload: 3.9 mm, range +-128 m
+FRAME_BUCKET = 32  # tracklet lengths are padded to a multiple of this
+
+
+def _rot_z(yaw: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 3, 3) rotation about z."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack(
+        [torch.stack([c, -s, zero], -1), torch.stack([s, c, zero], -1), torch.stack([zero, zero, one], -1)],
+        -2,
+    )
+
+
+def crop_canonical(pts, valid, box_vec, wlh, offset, scale: float):
+    """Points in the box's canonical frame and the mask of those inside the
+    scaled box's AABB there. pts (B, N, 3), valid (B, N) bool, box_vec (B, 4) =
+    [cx, cy, cz, yaw], wlh (B, 3), offset a float or (B,) -> (canon (B, N, 3),
+    mask (B, N))."""
+    canon = torch.matmul(pts - box_vec[:, None, :3], _rot_z(box_vec[:, 3]))
+    offset = torch.as_tensor(offset, dtype=pts.dtype, device=pts.device).reshape(-1, 1)
+    w, l, h = wlh.unbind(-1)
+    half = torch.stack([l / 2 * scale, w / 2 * scale, h / 2 * scale], -1) + offset  # (B, 3)
+    mask = (canon.abs() <= half[:, None, :]).all(-1) & valid
+    return canon, mask
+
+
+def precrop_mask(pts, box_vec, wlh, offset: float, scale: float):
+    """The loose world-frame pre-crop: inside the AABB of the 4*scale-scaled
+    box's corners padded by 2*offset. The search crop is this mask AND the
+    slacked canonical crop. -> (B, N) bool."""
+    yaw = box_vec[:, 3]
+    c, s = torch.cos(yaw).abs(), torch.sin(yaw).abs()
+    hx = 2.0 * scale * wlh[:, 1]
+    hy = 2.0 * scale * wlh[:, 0]
+    hz = 2.0 * scale * wlh[:, 2]
+    half = torch.stack([c * hx + s * hy, s * hx + c * hy, hz], -1) + 2.0 * offset
+    d = pts - box_vec[:, None, :3]
+    half = half[:, None, :]
+    return ((d < half) & (d > -half)).all(-1)
+
+
+def masked_resample(pts, mask, n_out: int, generator=None, picks=None):
+    """Uniform-with-replacement resample of each row's masked points to exactly
+    ``n_out`` (rows with <= 2 valid points give zeros). The pick-th valid point
+    is found through a stable sort that moves valid points first. ``picks``
+    (B, n_out), when given, replaces the draws from ``generator``.
+    pts (B, L, 3), mask (B, L) -> (out (B, n_out, 3), count (B,))."""
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+    count = mask.sum(-1)
+    if picks is None:  # uniform in [0, count) per row
+        hi = count[:, None].clamp_min(1)
+        u = torch.rand(mask.shape[0], n_out, generator=generator, device=mask.device)
+        picks = torch.minimum((u * hi).long(), hi - 1)
+    rows = torch.gather(order, 1, picks.long())
+    out = torch.gather(pts, 1, rows[..., None].expand(-1, -1, pts.shape[-1]))
+    return torch.where((count > 2)[:, None, None], out, torch.zeros_like(out)), count
+
+
+def decode_box_offset(box_vec, offset4, use_z: bool):
+    """Apply the network's canonical-frame offset [dx, dy, dz, dtheta_deg] to the
+    reference boxes: (B, 4), (B, 4) -> (B, 4)."""
+    dz = offset4[:, 2] if use_z else torch.zeros_like(offset4[:, 2])
+    delta = torch.stack([offset4[:, 0], offset4[:, 1], dz], -1)
+    new_center = box_vec[:, :3] + torch.matmul(delta[:, None, :], _rot_z(box_vec[:, 3]).transpose(1, 2))[:, 0]
+    new_yaw = box_vec[:, 3] + offset4[:, 3] * (math.pi / 180.0)
+    return torch.cat([new_center, new_yaw[:, None]], -1)
+
+
+def _check_modes(test_cfg: dict) -> None:
+    ref = str(test_cfg.get("REF_BOX", "previous_result")).upper()
+    agg = str(test_cfg.get("SHAPE_AGGREGATION", "firstandprevious")).upper()
+    if "PREVIOUS_RESULT" not in ref:
+        raise NotImplementedError(f"TEST.REF_BOX {ref.lower()!r} is not ported yet (previous_result is)")
+    if "FIRSTANDPREVIOUS" not in agg:
+        raise NotImplementedError(
+            f"TEST.SHAPE_AGGREGATION {agg.lower()!r} is not ported yet (firstandprevious is)")
+
+
+def make_device_tracker(model, data_cfg: dict, test_cfg: dict):
+    """The batched whole-tracklet tracker. ``model`` maps {"search_points" (B, S, 3),
+    "template_points" (B, P, 3)} to a dict with "pred_box_data" (B, np, 5).
+
+    Returns ``track(pcs, counts, init_boxes, wlhs, generator) -> (boxes, scores)``:
+      pcs (B, T, N, 3) padded clouds, float32 or int16 on the QUANT_SCALE grid;
+      counts (B, T) valid points per frame; init_boxes (B, 4) frame-0 boxes
+      [cx, cy, cz, yaw]; wlhs (B, 3) box sizes (every predicted box keeps its
+      tracklet's frame-0 size) -> boxes (B, T, 4) with frame 0 = init_boxes,
+      scores (B, T) best-proposal logits with frame 0 = +inf.
+    """
+    _check_modes(test_cfg)
+    search_size = int(data_cfg["SEARCH_INPUT_SIZE"])
+    template_size = int(data_cfg["TEMPLATE_INPUT_SIZE"])
+    search_offset = float(data_cfg.get("SEARCH_BB_OFFSET", 0.0))
+    search_scale = float(data_cfg.get("SEARCH_BB_SCALE", 1.25))
+    model_offset = float(data_cfg.get("MODEL_BB_OFFSET", 0.0))
+    model_scale = float(data_cfg.get("MODEL_BB_SCALE", 1.25))
+    use_z = bool(data_cfg.get("USE_Z_AXIS", False))
+
+    @torch.no_grad()
+    def track(pcs, counts, init_boxes, wlhs, generator=None):
+        B, T, N = pcs.shape[:3]
+        # the search crop's slack of 0.6 * length (the reference evaluator's
+        # crop_center_pc gt branch), per tracklet
+        search_offsets = search_offset + 0.6 * wlhs[:, 1]
+        valid = torch.arange(N, device=pcs.device)[None, None, :] < counts[:, :, None]
+
+        def frame(t):
+            f = pcs[:, t]
+            return f.float() * QUANT_SCALE if f.dtype == torch.int16 else f
+
+        first_canon, first_mask = crop_canonical(frame(0), valid[:, 0], init_boxes, wlhs,
+                                                 model_offset, model_scale)
+        boxes, scores = [init_boxes], [torch.full((B,), math.inf, device=pcs.device)]
+        prev_boxes, prev_pts = init_boxes, frame(0)
+        for t in range(1, T):
+            cur_pts = frame(t)
+            search_canon, search_mask = crop_canonical(cur_pts, valid[:, t], prev_boxes, wlhs,
+                                                       search_offsets, search_scale)
+            search_mask &= precrop_mask(cur_pts, prev_boxes, wlhs, search_offset, search_scale)
+            search, _ = masked_resample(search_canon, search_mask, search_size, generator)
+
+            prev_canon, prev_mask = crop_canonical(prev_pts, valid[:, t - 1], prev_boxes, wlhs,
+                                                   model_offset, model_scale)
+            template, _ = masked_resample(torch.cat([first_canon, prev_canon], 1),
+                                          torch.cat([first_mask, prev_mask], 1),
+                                          template_size, generator)
+
+            data = model({"search_points": search, "template_points": template})["pred_box_data"]
+            best_idx = torch.argmax(data[:, :, 4], dim=1)  # first of equal maxima
+            best = torch.gather(data, 1, best_idx[:, None, None].expand(-1, 1, data.shape[-1]))[:, 0]
+            new_boxes = decode_box_offset(prev_boxes, best[:, :4], use_z)
+            boxes.append(new_boxes)
+            scores.append(best[:, 4])
+            prev_boxes, prev_pts = new_boxes, cur_pts
+        return torch.stack(boxes, 1), torch.stack(scores, 1)
+
+    return track
+
+
+class DeviceTrackingEvaluator:
+    """Pads tracklets to (B, T, N) batches, runs the device tracker, and scores
+    Success/Precision on the host with the numpy metrics.
+
+    ``cfg`` holds the ``DATA_CONFIG`` and ``TEST`` sections (``config.ptt_config()``).
+    ``model`` is the tracker, already on ``device``. Clouds go up as int16 on the
+    QUANT_SCALE grid. Frames with more than ``max_points`` points are subsampled
+    once on the host; tracklet lengths are padded to a multiple of FRAME_BUCKET
+    and the batch to ``batch_size`` (last tracklet repeated, not scored).
+    """
+
+    def __init__(self, cfg: dict, model, max_points: int = 16384, batch_size: int = 8,
+                 seed: int = 1, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_points = int(max_points)
+        self.batch_size = int(batch_size)
+        self.seed = seed
+        self.track_fn = make_device_tracker(model, cfg["DATA_CONFIG"], cfg["TEST"])
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.evaluator = Evaluator(ref_coord=str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")))
+
+    @staticmethod
+    def box_to_vec(box) -> np.ndarray:
+        yaw = np.arctan2(box.rotation_matrix[1, 0], box.rotation_matrix[0, 0])
+        return np.array([*box.center, yaw], np.float32)
+
+    def _pad_tracklet(self, pcs, T_pad, n_pad):
+        rng = np.random.default_rng(self.seed)
+        out = np.zeros((T_pad, n_pad, 3), np.int16)
+        counts = np.zeros((T_pad,), np.int32)
+        for t, pc in enumerate(pcs):
+            pc = np.asarray(pc, np.float32)
+            if pc.shape[0] > n_pad:
+                pc = pc[rng.choice(pc.shape[0], n_pad, replace=False)]
+            out[t, : pc.shape[0]] = np.clip(np.round(pc / QUANT_SCALE), -32768, 32767)
+            counts[t] = pc.shape[0]
+        return out, counts
+
+    def dispatch_batch(self, tracklets):
+        """Pack a batch of ``(pcs, boxes, annos)`` tracklets, upload it and enqueue
+        the whole loop on the device. Returns a handle for ``finish_batch``; the
+        host can score an earlier batch while the device runs this one."""
+        if len(tracklets) > self.batch_size:
+            raise ValueError(f"dispatch_batch got {len(tracklets)} tracklets > batch_size={self.batch_size}")
+        T_max = max(len(pcs) for pcs, _, _ in tracklets)
+        T_pad = max(2, -(-T_max // FRAME_BUCKET) * FRAME_BUCKET)
+        n_real = len(tracklets)
+        B = max(n_real, self.batch_size)
+        # the point axis is padded to the batch's largest frame (multiples of 256)
+        n_max = max(min(len(pc), self.max_points) for pcs, _, _ in tracklets for pc in pcs)
+        n_pad = min(self.max_points, max(256, -(-n_max // 256) * 256))
+
+        pcs_arr = np.zeros((B, T_pad, n_pad, 3), np.int16)
+        counts = np.zeros((B, T_pad), np.int32)
+        init_boxes = np.zeros((B, 4), np.float32)
+        wlhs = np.zeros((B, 3), np.float32)
+        for b in range(B):
+            pcs, boxes, _ = tracklets[min(b, n_real - 1)]
+            pcs_arr[b], counts[b] = self._pad_tracklet(pcs, T_pad, n_pad)
+            init_boxes[b] = self.box_to_vec(boxes[0])
+            wlhs[b] = boxes[0].wlh
+
+        dev = self.device
+        boxes_dev, _ = self.track_fn(
+            torch.from_numpy(pcs_arr).to(dev), torch.from_numpy(counts).to(dev),
+            torch.from_numpy(init_boxes).to(dev), torch.from_numpy(wlhs).to(dev), self.generator,
+        )
+        return boxes_dev, wlhs, tracklets
+
+    def finish_batch(self, handle):
+        """Wait for a dispatched batch, score it, and return per-tracklet lists of
+        predicted ``Box``es."""
+        boxes_dev, wlhs, tracklets = handle
+        return self._score(boxes_dev.cpu().numpy(), tracklets)
+
+    def track_batch(self, tracklets):
+        """Track and score ``tracklets`` in chunks of ``batch_size``."""
+        results = []
+        for i in range(0, len(tracklets), self.batch_size):
+            results.extend(self.finish_batch(self.dispatch_batch(tracklets[i: i + self.batch_size])))
+        return results
+
+    def _score(self, boxes_out, tracklets):
+        all_results = []
+        for b, (pcs, gt_boxes, _) in enumerate(tracklets):
+            results = [
+                geo.Box(center=boxes_out[b, t, :3].astype(np.float64),
+                        wlh=np.asarray(gt_boxes[0].wlh, np.float64),
+                        orientation=geo.Quaternion(axis=[0, 0, 1], radians=float(boxes_out[b, t, 3])))
+                for t in range(len(pcs))
+            ]
+            with self.evaluator:
+                for gt, pred in zip(gt_boxes, results):
+                    self.evaluator.update_iou(gt, pred)
+            all_results.append(results)
+        return all_results
+
+    def summary(self) -> dict:
+        return {
+            "success": self.evaluator.Success_main.average,
+            "precision": self.evaluator.Precision_main.average,
+            "frames": self.evaluator.Success_main.count,
+        }
