@@ -11,15 +11,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      ``tests/assets/ptt_synth_trained.npz``, kernel path against plain path;
   4. the device tracker (``DeviceTrackingEvaluator``) on 8 x 24 synthetic
      tracklets with the trained weights: Success/Precision, launch counts, then
-     frames/s over pipelined batches of the benchmark workload (8 x 64 frames).
+     frames/s over pipelined batches of the benchmark workload (8 x 64 frames);
+  5. a profile of one tracker batch: device busy and idle shares, top kernels;
+  6. the training kernels (``csrc/group.cu``, forward and backward) against
+     their plain versions at the 7 shapes of a ptt_synth train step (B = 48):
+     forward error, neighbour table, dZ and the four input gradients, and two
+     backward runs bit-equal; with time, bound and the index_add_ yardstick;
+  7. training at full width from the trained weights, B = 48: 5 steps on the
+     kernel path, each also taken by the plain path from the same state with
+     the same FPS picks, both FPS calls of each step held against the plain
+     FPS; the plain path's own 5 steps, reported beside two witnesses (the
+     plain path again, and from weights moved by one ulp); launch counts per
+     step, ms per step with and without the loader, a profile of the step, and
+     ``Trainer`` for one epoch, a checkpoint and a resume.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -34,6 +49,14 @@ ASSET = os.path.join(REPO, "tests", "assets", "ptt_synth_trained.npz")
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SA_RTOL = SA_ATOL = 1e-4  # kernel vs plain: float32 sums in another order
+# group kernels vs plain versions, relative to each tensor's largest entry: the
+# forward adds Z[j] + O[m] where the plain version multiplies the grouped
+# offsets, dZ sums rows in another order, and the input gradients go through
+# the fold algebra instead of autograd of the composite
+GROUP_FWD_TOL = 1e-5
+GROUP_BWD_TOL = 1e-5
+GROUP_GRAD_TOL = 5e-4
+TRAIN_B = 48
 
 
 def log(msg):
@@ -77,6 +100,29 @@ def fps_bound(xyz, npoint):
     return nbytes, ops
 
 
+def scanned_points(xyz, new_xyz, radius, nsample, point_ops):
+    """Points the ball query scans: each center's points up to its nsample-th hit."""
+    N = xyz.shape[1]
+    d2 = point_ops.square_distance(new_xyz, xyz)
+    hits = (d2 < point_ops.radius_sq(radius)).cumsum(-1)
+    reached = hits >= nsample
+    return int(torch.where(reached.any(-1), reached.float().argmax(-1) + 1,
+                           torch.full_like(hits[..., 0], N)).sum())
+
+
+def group_fwd_bound(xyz, new_xyz, H, radius, nsample, point_ops):
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    nbytes = 4 * (B * N * 3 + B * M * 3 + B * N * H + B * M * H + B * nsample * M * H + B * M * nsample)
+    ops = 14 * scanned_points(xyz, new_xyz, radius, nsample, point_ops) + B * nsample * M * H
+    return nbytes, ops
+
+
+def group_bwd_bound(B, N, M, nsample, H):
+    nbytes = 4 * (B * nsample * M * H + B * M * nsample + B * N * H)
+    return nbytes, B * nsample * M * H
+
+
 def sa_bound(xyz, new_xyz, features, radius, nsample, weights, biases, point_ops):
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
@@ -84,12 +130,7 @@ def sa_bound(xyz, new_xyz, features, radius, nsample, weights, biases, point_ops
     widths = [w.shape[1] for w in weights]
     nbytes = 4 * (B * N * (3 + cf) + B * M * 3 + sum(w.numel() for w in weights)
                   + sum(b.numel() for b in biases) + B * M * widths[-1])
-    # the ball query scans each center's points up to its nsample-th hit
-    d2 = point_ops.square_distance(new_xyz, xyz)
-    hits = (d2 < point_ops.radius_sq(radius)).cumsum(-1)
-    reached = hits >= nsample
-    scanned = torch.where(reached.any(-1), reached.float().argmax(-1) + 1, torch.full_like(hits[..., 0], N))
-    ops = 14 * int(scanned.sum())
+    ops = 14 * scanned_points(xyz, new_xyz, radius, nsample, point_ops)
     h1 = widths[0]
     ops += 2 * B * N * (3 + cf) * h1 + 2 * B * M * 3 * h1  # layer 0 over points, center offsets
     ops += 2 * B * M * nsample * h1  # gather + offset + relu
@@ -224,12 +265,363 @@ def profile_batch(ev, tracklets, n_frames):
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
+def relerr(got, ref) -> float:
+    """max |got - ref| over the largest |ref|."""
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
+
+
+def train_batches(data_cfg, n, seed=0):
+    """The first ``n`` batches of TRAIN_B synthetic train items of an epoch,
+    built by the port's loader (8 threads)."""
+    from ptt_tpu_torch.data.loader import DataLoader
+    from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
+
+    loader = DataLoader(SyntheticTrackingDataset(data_cfg), TRAIN_B, shuffle=True, drop_last=True,
+                        seed=seed, num_workers=8)
+    out = []
+    for batch in loader:
+        out.append(batch)
+        if len(out) == n:
+            break
+    return loader, out
+
+
+def capture_group_calls(model, batch, device):
+    """One train-mode forward on the kernel path, recording the inputs of every
+    grouped_first_linear call (the model's BatchNorm statistics move; pass a copy)."""
+    from ptt_tpu_torch.ops import group
+    from ptt_tpu_torch.train.train_step import to_device
+
+    calls = []
+    orig = group.grouped_first_linear
+
+    def rec(xyz, new_xyz, features, w1, radius, nsample, normalize_xyz=True, use_xyz=True):
+        calls.append(dict(xyz=xyz.detach().clone(), new_xyz=new_xyz.detach().clone(),
+                          features=None if features is None else features.detach().clone(),
+                          w1=w1.detach().clone(), radius=radius, nsample=nsample,
+                          normalize_xyz=normalize_xyz, use_xyz=use_xyz))
+        return orig(xyz, new_xyz, features, w1, radius, nsample, normalize_xyz, use_xyz)
+
+    group.grouped_first_linear = rec
+    try:
+        with torch.no_grad():
+            model.train()(to_device(batch, device))
+    finally:
+        group.grouped_first_linear = orig
+    return calls
+
+
+def input_grads(fn, call, probe):
+    """Gradients of sum(fn(...) * probe) with respect to xyz, new_xyz, features
+    and w1 (features skipped when absent)."""
+    ts = {k: call[k].clone().requires_grad_(True) for k in ("xyz", "new_xyz", "features", "w1")
+          if call[k] is not None}
+    out = fn(ts["xyz"], ts["new_xyz"], ts.get("features"), ts["w1"], call["radius"], call["nsample"],
+             call["normalize_xyz"], call["use_xyz"])
+    (out * probe).sum().backward()
+    return {k: t.grad for k, t in ts.items()}
+
+
+def check_group_kernels(calls):
+    """Phase 6: each captured call through both kernels and their plain versions."""
+    from ptt_tpu_torch.ops import group, point_ops
+
+    rows = []
+    gen = torch.Generator(device=calls[0]["xyz"].device).manual_seed(1)
+    for c in calls:
+        xyz, new_xyz, feats, w1 = c["xyz"], c["new_xyz"], c["features"], c["w1"]
+        r, ns = c["radius"], c["nsample"]
+        B, N, _ = xyz.shape
+        M, H = new_xyz.shape[1], w1.shape[1]
+        shape = f"{N}->{M} ns{ns} H{H} C{0 if feats is None else feats.shape[-1]}"
+        z, off = group.fold_inputs(xyz, new_xyz, feats, w1, r, c["normalize_xyz"], c["use_xyz"])
+        d, idx = group.group_forward(xyz, new_xyz, z, off, r, ns)
+        ref_idx = point_ops.ball_query(r, ns, xyz, new_xyz)
+        with torch.no_grad():
+            d_full = group.grouped_first_linear(xyz, new_xyz, feats, w1, r, ns, c["normalize_xyz"], c["use_xyz"])
+            d_plain = group.grouped_first_linear_plain(xyz, new_xyz, feats, w1, r, ns,
+                                                       c["normalize_xyz"], c["use_xyz"])
+        dd = torch.randn(d.shape, device=d.device, generator=gen)
+        dz = group.group_backward(dd, idx, N)
+        dz_again = group.group_backward(dd, idx, N)
+        dz_plain = group.group_backward_plain(dd, idx, N)
+        gk = input_grads(group.grouped_first_linear, c, dd)
+        gp = input_grads(group.grouped_first_linear_plain, c, dd)
+        torch.cuda.synchronize()
+        mismatch = int((idx != ref_idx).sum())
+        fwd_err, bwd_err = relerr(d_full, d_plain), relerr(dz, dz_plain)
+        grad_err = {k: relerr(gk[k], gp[k]) for k in gp}
+        log(f"  group {shape}: forward rel err {fwd_err:.2e} (abs {float((d_full - d_plain).abs().max()):.2e}), "
+            f"idx disagreements {mismatch}, dZ rel err {bwd_err:.2e} (abs {float((dz - dz_plain).abs().max()):.2e}), "
+            f"dZ bit-equal on repeat {torch.equal(dz, dz_again)}, input grads rel err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items()))
+        if mismatch:
+            fail(f"group forward's neighbour table differs from point_ops.ball_query at {shape}")
+        if fwd_err > GROUP_FWD_TOL or not torch.equal(d, d_full):
+            fail(f"group forward differs from its plain version at {shape}")
+        if bwd_err > GROUP_BWD_TOL:
+            fail(f"group backward differs from index_add_ at {shape}")
+        if not torch.equal(dz, dz_again):
+            fail(f"group backward is not bit-equal on repeat at {shape}")
+        if max(grad_err.values()) > GROUP_GRAD_TOL:
+            fail(f"group input gradients differ from the composite's autograd at {shape}: {grad_err}")
+
+        fwd_ms = cuda_ms(lambda: group.group_forward(xyz, new_xyz, z, off, r, ns), 20)
+        fwd_plain_ms = cuda_ms(lambda: group.group_forward_plain(xyz, new_xyz, z, off, r, ns), 5)
+        bwd_ms = cuda_ms(lambda: group.group_backward(dd, idx, N), 20)
+        bwd_plain_ms = cuda_ms(lambda: group.group_backward_plain(dd, idx, N), 5)
+        flat = (idx.long() + N * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
+        src = dd.permute(0, 2, 1, 3).reshape(B * M * ns, H).contiguous()
+        acc = torch.zeros(B * N, H, device=dd.device)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, src), 20)
+        fb, fkind = bound_ms(*group_fwd_bound(xyz, new_xyz, H, r, ns, point_ops))
+        bb, bkind = bound_ms(*group_bwd_bound(B, N, M, ns, H))
+        rows.append(dict(shape=shape, fwd_err=float((d_full - d_plain).abs().max()),
+                         bwd_err=float((dz - dz_plain).abs().max()), fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                         fwd_bound=fb, fwd_by=fkind, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, lib_ms=lib_ms,
+                         bwd_bound=bb, bwd_by=bkind))
+        log(f"    forward {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, bound {fb:.4f} {fkind}); backward {bwd_ms:.4f} ms "
+            f"(plain {bwd_plain_ms:.4f}, index_add_ {lib_ms:.4f}, bound {bb:.4f} {bkind})")
+    return rows
+
+
+def median_step_ms(step, model, opt, batches):
+    """Wall time of each step, from taking its batch to the device's end."""
+    times = []
+    it = iter(batches)
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_train(step, model, opt, batch, n_steps=3):
+    """A few train steps under torch.profiler: wall time, device busy and idle
+    shares, and the kernels by device time."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"[7] profile of {n_steps} train steps: wall {wall * 1e3 / n_steps:.1f} ms/step, device busy "
+        f"{busy_us / 1e3 / n_steps:.1f} ms/step ({100 * busy_us / 1e6 / wall:.1f}% busy, "
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle), {sum(e.count for e in kernels) // n_steps} device "
+        f"operations per step")
+    if busy_us == 0:
+        log("  the profiler saw no device time: busy share not measured")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.2f} ms/step  {e.count // n_steps:5d}x  {e.key[:90]}")
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    log("[7] the same steps by operator (device time of the kernels each operator launched itself):")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.2f} ms/step  {e.count // n_steps:5d}x  {e.key[:90]}")
+
+
+class FpsReplay:
+    """Within the block, the FPS kernel's inputs and results are recorded; after
+    ``start()``, the plain FPS returns them in the same order. Each replayed
+    call also runs the plain version on the kernel's own input, which must give
+    the kernel's result, and on the plain step's input, whose picks that differ
+    from the kernel's are counted in ``changed`` (the discrete choice the replay
+    holds fixed)."""
+
+    def __init__(self, fps, point_ops):
+        self.fps, self.point_ops = fps, point_ops
+        self.kernel, self.plain = fps.furthest_point_sample, point_ops.furthest_point_sample
+        self.recorded = []
+        self.checked, self.changed = [], []
+
+    def __enter__(self):
+        def record(xyz, npoint):
+            out = self.kernel(xyz, npoint)
+            self.recorded.append((xyz.clone(), out))
+            return out
+
+        self.fps.furthest_point_sample = record
+        return self
+
+    def start(self):
+        def replay(xyz, npoint):
+            if not self.recorded:
+                fail("FPS replay: the plain step made more FPS calls than the kernel step")
+            ref_xyz, out = self.recorded.pop(0)
+            if ref_xyz.shape != xyz.shape or out.shape[1] != npoint:
+                fail("FPS replay: the plain step's FPS calls do not match the kernel step's")
+            shape = f"{tuple(xyz.shape)}->{npoint}"
+            if not torch.equal(self.plain(ref_xyz, npoint), out):
+                fail(f"FPS kernel differs from its plain version at {shape} in training")
+            self.checked.append(shape)
+            own = out if torch.equal(ref_xyz, xyz) else self.plain(xyz, npoint)
+            self.changed.append(int((own != out).sum()))
+            return out
+
+        self.fps.furthest_point_sample = self.kernel
+        self.point_ops.furthest_point_sample = replay
+
+    def __exit__(self, *exc):
+        self.fps.furthest_point_sample, self.point_ops.furthest_point_sample = self.kernel, self.plain
+        if exc[0] is None and self.recorded:
+            fail("FPS replay: the plain step made fewer FPS calls than the kernel step")
+
+
+def train_phase(cfg, device, card):
+    """Phases 6 and 7. Returns the launch counts of the kernel path's 5 steps
+    and phase 6's rows."""
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.data.loader import DataLoader
+    from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
+    from ptt_tpu_torch.nn import build_network, set_use_kernels
+    from ptt_tpu_torch.ops import fps, group, point_ops, sa
+    from ptt_tpu_torch.train.optim import Adam
+    from ptt_tpu_torch.train.train_step import make_train_step
+    from ptt_tpu_torch.train.trainer import Trainer
+
+    model_cfg, optim_cfg = cfg["MODEL"], cfg["OPTIMIZATION"]
+    t0 = time.perf_counter()
+    loader, batches = train_batches(cfg["DATA_CONFIG"], 5)
+    log(f"[6] dataset {len(loader.dataset)} train items, {len(loader)} steps per epoch; 5 batches of "
+        f"{TRAIN_B} built in {time.perf_counter() - t0:.1f} s")
+    weights = state_dict_from_npz(ASSET)
+    step = make_train_step(model_cfg, device=device)
+
+    def fresh(use_kernels):
+        model = build_network(model_cfg, device=device, train=True)
+        model.load_state_dict(weights, strict=True)
+        set_use_kernels(model, use_kernels)
+        return model, Adam(model.parameters(), optim_cfg, len(loader))
+
+    # 6. group kernels at the train step's shapes
+    calls = capture_group_calls(fresh(True)[0], batches[0], device)
+    if len(calls) != 7:
+        fail(f"a train forward made {len(calls)} grouped_first_linear calls, not 7")
+    log(f"[6] group kernels vs plain versions at the train step's shapes (B = {TRAIN_B}), rel tol forward "
+        f"{GROUP_FWD_TOL}, dZ {GROUP_BWD_TOL}, input grads {GROUP_GRAD_TOL}")
+    group_rows = check_group_kernels(calls)
+    del calls
+
+    # 7. the training main path: 5 steps on the kernels; before each, the plain
+    # path takes the same step from the same state (weights, statistics, Adam)
+    # with the kernel step's FPS picks, so that a near-tie among the votes,
+    # which differ by rounding, cannot make the two steps pick other points
+    model, opt = fresh(True)
+    same_model, same_opt = fresh(False)
+    fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+    kernel_losses, per_step, stepwise, checked, changed = [], [], [], [], []
+    for batch in batches:
+        same_model.load_state_dict(model.state_dict())
+        same_opt.load_state_dict(opt.state_dict())
+        before = (fps.launches, group.fwd_launches, group.bwd_launches)
+        with FpsReplay(fps, point_ops) as replay:
+            k = step(model, opt, batch)
+            replay.start()
+            p = step(same_model, same_opt, batch)
+        per_step.append(tuple(a - b for a, b in zip((fps.launches, group.fwd_launches, group.bwd_launches), before)))
+        kernel_losses.append(float(k["loss"]))
+        stepwise.append(tuple(abs(float(k[m]) - float(p[m])) / abs(float(p[m])) for m in ("loss", "grad_norm")))
+        checked.append(replay.checked)
+        changed.append(replay.changed)
+    launches = {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches,
+                "group_bwd": group.bwd_launches}
+    del same_model, same_opt
+    def rel(xs, ys):
+        return [f"{abs(a - b) / abs(b):.1e}" for a, b in zip(xs, ys)]
+
+    plain_model, plain_opt = fresh(False)
+    plain_losses = [float(step(plain_model, plain_opt, b)["loss"]) for b in batches]
+    # witnesses for the free runs: the plain path again from the same start, and
+    # from the same weights moved by one ulp each
+    again_model, again_opt = fresh(False)
+    again_losses = [float(step(again_model, again_opt, b)["loss"]) for b in batches]
+    nudged_model, nudged_opt = fresh(False)
+    with torch.no_grad():
+        for prm in nudged_model.parameters():
+            prm.copy_(torch.nextafter(prm, torch.full_like(prm, float("inf"))))
+    nudged_losses = [float(step(nudged_model, nudged_opt, b)["loss"]) for b in batches]
+    del again_model, again_opt, nudged_model, nudged_opt
+    log(f"[7] 5 train steps from the trained weights, kernel path losses "
+        f"{[f'{x:.6f}' for x in kernel_losses]}; the plain path from the same state with the same FPS picks "
+        f"at each step, rel diff (loss, grad_norm) {[(f'{x:.1e}', f'{y:.1e}') for x, y in stepwise]}; "
+        f"launches per step (fps, group fwd, group bwd) {per_step}, totals {launches}")
+    log(f"[7] FPS kernel = plain on the kernel step's own input at {checked[0]} in each step; picks the plain "
+        f"step's own FPS would change, per step and call: {changed}")
+    log(f"[7] the plain path running free from the same start: losses {[f'{x:.6f}' for x in plain_losses]}, "
+        f"rel diff to the kernel path {rel(kernel_losses, plain_losses)}")
+    log(f"[7] witnesses, rel diff to that plain run: the plain path again {rel(again_losses, plain_losses)}; "
+        f"from weights moved by 1 ulp {rel(nudged_losses, plain_losses)}")
+    if not all(np.isfinite(kernel_losses)):
+        fail("training: non-finite loss on the kernel path")
+    if max(stepwise[0]) > 1e-4 or max(max(x) for x in stepwise[1:]) > 5e-3:
+        fail("training: from the same state, kernel and plain steps differ beyond rel 1e-4 (step 0 loss and "
+             "grad_norm) / 5e-3 (steps 1-4)")
+    if any(len(c) != 2 for c in checked):
+        fail(f"training: FPS held against its plain version at {checked}, not at both calls of every step")
+    if any(c != (2, 7, 7) for c in per_step) or launches["sa"] != 0:
+        fail(f"training: launches per step {per_step} (sa {launches['sa']}), expected (2, 7, 7) and no SA")
+
+    # time per step: one pre-made batch, then the loader
+    median_step_ms(step, model, opt, batches[:2])  # warm-up
+    premade_ms = median_step_ms(step, model, opt, [batches[0]] * 20)
+    loader.set_epoch(1)
+    it = iter(loader)
+    median_step_ms(step, model, opt, [next(it) for _ in range(2)])
+    loader_ms = median_step_ms(step, model, opt, (next(it) for _ in range(20)))
+    del it
+    plain_ms = median_step_ms(step, plain_model, plain_opt, [batches[0]] * 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[7] train step at B = {TRAIN_B}, median of 20 after warm-up: {premade_ms:.1f} ms on one pre-made batch, "
+        f"{loader_ms:.1f} ms with the loader (8 threads); plain path {plain_ms:.1f} ms; peak device memory "
+        f"{peak:.1f} GiB; card {card}")
+    profile_train(step, model, opt, batches[0])
+    del plain_model, plain_opt
+
+    # Trainer: one epoch on a small set, checkpoint, resume, one more step
+    out_dir = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    small = dict(cfg["DATA_CONFIG"], NUM_TRACKLETS=8, FRAMES_PER_TRACKLET=6)
+    logger = logging.getLogger("chip_smoke")
+
+    def trainer(total_epochs):
+        net = copy.deepcopy(model)
+        small_loader = DataLoader(SyntheticTrackingDataset(small), TRAIN_B, shuffle=True, drop_last=True, num_workers=8)
+        return Trainer(net, model_cfg, optim_cfg, small_loader, out_dir, logger, total_epochs=total_epochs,
+                       device=device)
+
+    first = trainer(1).resume()
+    first.train()
+    n_iters = first.accumulated_iter
+    resumed = trainer(2).resume()
+    same = all(torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                                 first.model.state_dict().values()))
+    metrics = resumed.train_step(resumed.model, resumed.optimizer, batches[1])
+    loss = float(metrics["loss"])
+    log(f"[7] Trainer: 1 epoch of {n_iters} steps, checkpoint epochs {first.ckpt.epochs()}; resumed at epoch "
+        f"{resumed.start_epoch} step {resumed.accumulated_iter}, weights equal {same}; one more step loss "
+        f"{loss:.4f}, optimizer count {resumed.optimizer.count}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if (resumed.start_epoch, resumed.accumulated_iter) != (1, n_iters) or not same or not np.isfinite(loss) \
+            or resumed.optimizer.count != n_iters + 1:
+        fail("Trainer: checkpoint resume did not continue where the first run stopped")
+    return launches, group_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a GPU")
         return 1
     sys.path.insert(0, REPO)
-    from ptt_tpu_torch.config import ptt_config
+    from ptt_tpu_torch.config import ptt_config, ptt_synth_config
     from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
     from ptt_tpu_torch.data.synthetic import make_tracklets
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
@@ -332,6 +724,11 @@ def main() -> int:
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); "
         f"plain path {plain_rate:.1f} frames/s; card {card}")
     profile_batch(ev, bench, n_frames)
+    del ev, model
+    torch.cuda.empty_cache()
+
+    # 6 and 7: the training path
+    train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
 
     record = {"kernels": []}
     for name, src, replaces in (("fps", "ptt_tpu_torch/csrc/fps.cu", "ptt_tpu/ops/pallas_fps.py:37"),
@@ -343,6 +740,16 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": summary[name]["max_abs_err"],
             "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"], "bound_ms": bms,
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
+        })
+    for name, replaces, pre in (("group_fwd", "ptt_tpu/ops/pallas_group.py:65", "fwd"),
+                                ("group_bwd", "ptt_tpu/ops/pallas_group.py:98", "bwd")):
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": "ptt_tpu_torch/csrc/group.cu", "replaces": replaces,
+            "launches": train_launches[name], "max_abs_err": max(r[f"{pre}_err"] for r in group_rows),
+            "ms": sum(r[f"{pre}_ms"] for r in group_rows), "plain_ms": sum(r[f"{pre}_plain_ms"] for r in group_rows),
+            "bound_ms": sum(r[f"{pre}_bound"] for r in group_rows),
+            "bound_by": max(group_rows, key=lambda r: r[f"{pre}_bound"])[f"{pre}_by"],
+            "library_ms": sum(r["lib_ms"] for r in group_rows) if pre == "bwd" else None,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)

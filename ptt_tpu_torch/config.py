@@ -1,9 +1,11 @@
-"""The settings of ``tools/cfgs/kitti_models/ptt.yaml`` that the port runs on, as a
-plain dict (no YAML parser is needed where the port runs).
+"""The settings of ``tools/cfgs/kitti_models/ptt.yaml`` and
+``tools/cfgs/synthetic_models/ptt_synth.yaml`` that the port runs on, as plain
+dicts (no YAML parser is needed where the port runs).
 
 ``PTT_CFG`` holds the whole MODEL and TEST sections and the DATA_CONFIG keys the
-device tracker reads; ``tests/test_torch_port_model.py`` holds it equal to the
-YAML as the JAX package's loader reads it.
+device tracker reads; ``ptt_synth_config()`` adds the OPTIMIZATION and TRAIN
+sections and the DATA_CONFIG keys of synthetic training. The tests hold both
+equal to the YAML as the JAX package's loader reads it.
 """
 
 from __future__ import annotations
@@ -104,3 +106,50 @@ PTT_CFG = {
 def ptt_config() -> dict:
     """A fresh deep copy of ``PTT_CFG`` that the caller may edit."""
     return copy.deepcopy(PTT_CFG)
+
+
+# ptt.yaml's OPTIMIZATION with ptt_synth.yaml's NUM_EPOCHS and STEP_SIZE
+_SYNTH_OPTIMIZATION = {
+    "DEBUG": False,
+    "BATCH_SIZE_PER_GPU": 48,
+    "NUM_EPOCHS": 30,
+    "OPTIMIZER": "adam",
+    "LR": 0.001,
+    "WEIGHT_DECAY": 0,
+    "BETAS": [0.5, 0.999],
+    "EPS": 1e-06,
+    "SCHEDULER": "step",
+    "STEP_SIZE": 12,
+    "GAMMA": 0.2,
+    "GRAD_NORM_CLIP": 10,
+    "STEPS_PER_DISPATCH": 1,
+}
+
+# the DATA_CONFIG keys of ptt.yaml that training reads, and ptt_synth.yaml's own
+_SYNTH_DATA_CONFIG = {
+    "DATASET": "SyntheticTrackingDataset",
+    "NUM_CANDIDATES_PERFRAME": 4,
+    "SAMPLED_INTERVAL": 1,
+    "REFINE_BOX_SIZE": True,
+    "POINT_FEATURE_ENCODING": {
+        "encoding_type": "absolute_coordinates_encoding",
+        "used_feature_list": ["x", "y", "z"],
+        "src_feature_list": ["x", "y", "z", "intensity"],
+    },
+    "NUM_TRACKLETS": 64,
+    "FRAMES_PER_TRACKLET": 24,
+    "POINTS_PER_FRAME": 600,
+    "CLUTTER_POINTS": 400,
+    "SYNTH_SEED": 1234,
+}
+
+
+def ptt_synth_config() -> dict:
+    """ptt.yaml trained on the synthetic tracklets (ptt_synth.yaml): a fresh
+    dict with MODEL, TEST, OPTIMIZATION (Adam betas (0.5, 0.999), eps 1e-6,
+    StepLR 12 epochs x 0.2, clip 10, batch 48), TRAIN and DATA_CONFIG."""
+    cfg = ptt_config()
+    cfg["DATA_CONFIG"].update(copy.deepcopy(_SYNTH_DATA_CONFIG))
+    cfg["OPTIMIZATION"] = copy.deepcopy(_SYNTH_OPTIMIZATION)
+    cfg["TRAIN"] = {"WITH_EVAL": {"ENABLE": True, "START_EPOCH": 0, "INTERVAL": 5}}
+    return cfg

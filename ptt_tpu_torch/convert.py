@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's variables -> this package's ``state_dict``.
+"""Weight bridge between the JAX package's variables and this package's
+``state_dict``, both ways.
 
 The JAX package stores a model as a flat numpy dict (``train/checkpoint.py``
 ``save_variables_npz``; ``tests/assets/ptt_synth_trained.npz``), keyed by flax
@@ -11,6 +12,8 @@ Flax ``Dense`` kernels are (in, out) and are transposed to ``nn.Linear``'s
 (out, in); BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var`` (plus a zero
 ``num_batches_tracked``); ``__meta__/*`` entries are metadata, not weights.
+``variables_from_state_dict`` is the reverse: a ``state_dict`` -> the flat
+``params/...`` and ``batch_stats/...`` dict of numpy arrays of such a file.
 """
 
 from __future__ import annotations
@@ -36,6 +39,21 @@ _RENAMES = (
     (r"(fc1|fc2|w_qs|w_ks|w_vs)/Dense_0", r"\1"),
     (r"(^|/)Dense_(\d+)$", r"\1linears/\2"),
     (r"(^|/)BatchNorm_(\d+)$", r"\1bns/\2"),
+)
+
+# torch module path -> flax module path, the reverse of _RENAMES
+_RENAMES_BACK = (
+    (r"(^|/)linears/(\d+)$", r"\1Dense_\2"),
+    (r"(^|/)bns/(\d+)$", r"\1BatchNorm_\2"),
+    (r"(fc_delta|fc_gamma)/0$", r"\1/Linear_0/Dense_0"),
+    (r"(fc_delta|fc_gamma)/2$", r"\1/Linear_1/Dense_0"),
+    (r"(^|/)(fc1|fc2|w_qs|w_ks|w_vs)$", r"\1\2/Dense_0"),
+    (r"box_voting_head/fc/", r"box_voting_head/ConvStack_0/"),
+    (r"centroid_voting_head/reg_fc/", r"centroid_voting_head/ConvStack_1/"),
+    (r"centroid_voting_head/cls_fc/", r"centroid_voting_head/ConvStack_0/"),
+    (r"similarity_module/conv/", r"similarity_module/ConvStack_0/"),
+    (r"(^|/)mlp/", r"\1SharedMLP_0/"),
+    (r"sa_stages/(\d+)", r"sa_stages_\1"),
 )
 
 _LEAVES = {
@@ -98,6 +116,38 @@ def state_dict_from_variables(variables: Mapping, prefix: str = "") -> dict:
         if tkey.endswith(".running_mean"):
             state[tkey[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+def _flax_key(torch_key_: str) -> str | None:
+    """A torch state_dict key -> its ``params/...`` or ``batch_stats/...`` key;
+    None for ``num_batches_tracked``, which flax does not keep."""
+    module, name = torch_key_.rsplit(".", 1)
+    if name == "num_batches_tracked":
+        return None
+    path = module.replace(".", "/")
+    for pattern, repl in _RENAMES_BACK:
+        path = re.sub(pattern, repl, path)
+    is_bn = re.search(r"(^|/)BatchNorm_\d+$", path) is not None
+    leaf = {("weight", True): ("params", "scale"), ("bias", True): ("params", "bias"),
+            ("running_mean", True): ("batch_stats", "mean"), ("running_var", True): ("batch_stats", "var"),
+            ("weight", False): ("params", "kernel"), ("bias", False): ("params", "bias")}.get((name, is_bn))
+    if leaf is None:
+        raise KeyError(f"no flax counterpart for {torch_key_!r}")
+    return f"{leaf[0]}/{path}/{leaf[1]}"
+
+
+def variables_from_state_dict(state_dict: Mapping) -> dict:
+    """A torch state_dict -> the flat dict of float32 numpy arrays that
+    ``train/checkpoint.py`` ``save_variables_npz`` of the JAX package writes
+    (Linear weights transposed back to (in, out) kernels)."""
+    out = {}
+    for key, value in state_dict.items():
+        fkey = _flax_key(key)
+        if fkey is None:
+            continue
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        out[fkey] = arr.T if fkey.endswith("/kernel") else arr
+    return out
 
 
 def state_dict_from_npz(path) -> dict:

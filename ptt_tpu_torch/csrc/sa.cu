@@ -23,16 +23,12 @@
 // thread keeps an 8-row x 4-column tile of outputs in registers; a later
 // redesign would move the tail to wgmma on tensor cores.
 //
-// Membership must be exact: the squared distance is
-// max((c2 + p2) - 2*cross, 0) with c2, p2 and cross summed in the order
-// ((x*x + y*y) + z*z), each product and sum rounded on its own (no FMA), the
-// arithmetic of ops/point_ops.py:square_distance, compared with
-// r2 = float32(radius^2). A warp scans the cloud in chunks of 32 points per
-// center; __ballot_sync/__popc give each in-ball point its slot in index order,
-// and the scan stops once ns points are found. Short rows repeat the first hit;
-// an empty ball uses point 0.
+// The ball query (one warp per center, exact membership) is ball_query.cuh's,
+// shared with the training kernels of group.cu.
 
 #include <cuda_runtime.h>
+
+#include "ball_query.cuh"
 
 namespace {
 
@@ -41,7 +37,6 @@ constexpr int kRows = 64;      // rows (center, slot) per block
 constexpr int kRowsPerThread = 8;
 constexpr int kColsPerThread = 4;
 constexpr int kMaxTail = 4;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 static_assert(kRows == (kThreads / 32) * kRowsPerThread, "one warp per 8-row slab");
 
@@ -51,10 +46,6 @@ struct Tail {
   int c[kMaxTail + 1];       // c[0] = H1, c[l + 1] = width of tail layer l
   int n;                     // number of tail layers (0 = layer 0 is the output)
 };
-
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
 
 // max over the rows of one center, into cmax (all values are >= 0 after the
 // ReLU, so their int bit patterns order like the floats)
@@ -91,32 +82,8 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ ctr,
       for (int s = lane; s < ns; s += 32) row[s] = 0;
       continue;
     }
-    const float* c = ctr + (static_cast<size_t>(b) * m_total + m) * 3;
-    const float cx = c[0], cy = c[1], cz = c[2];
-    const float c2 = sq_norm(cx, cy, cz);
-    int count = 0;
-    for (int j0 = 0; j0 < n && count < ns; j0 += 32) {
-      const int j = j0 + lane;
-      bool in = false;
-      if (j < n) {
-        const float* p = xyz + (static_cast<size_t>(b) * n + j) * 3;
-        const float px = p[0], py = p[1], pz = p[2];
-        const float cross =
-            __fadd_rn(__fadd_rn(__fmul_rn(cx, px), __fmul_rn(cy, py)), __fmul_rn(cz, pz));
-        const float d2 = fmaxf(__fsub_rn(__fadd_rn(c2, sq_norm(px, py, pz)), __fmul_rn(2.0f, cross)), 0.0f);
-        in = d2 < r2;
-      }
-      const unsigned hits = __ballot_sync(kFullMask, in);
-      if (in) {
-        const int slot = count + __popc(hits & ((1u << lane) - 1u));
-        if (slot < ns) row[slot] = j;
-      }
-      count += __popc(hits);
-    }
-    __syncwarp();
-    const int used = count < ns ? count : ns;
-    const int pad = used > 0 ? row[0] : 0;
-    for (int s = used + lane; s < ns; s += 32) row[s] = pad;
+    ptt::warp_ball_query(xyz + static_cast<size_t>(b) * n * 3, n,
+                         ctr + (static_cast<size_t>(b) * m_total + m) * 3, r2, ns, row, lane);
   }
   __syncthreads();
 

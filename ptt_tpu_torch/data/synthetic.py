@@ -3,8 +3,9 @@ visible faces, with ground and pole clutter around them.
 
 A copy of the JAX package's ``data/synthetic.py`` generator with the same numpy
 draw order, so the same config and seed give the same clouds and boxes bit for
-bit. Only the eval split is ported: ``make_tracklets`` returns what the
-evaluator consumes, a list of ``(pcs, boxes, annos)`` per tracklet.
+bit. ``make_tracklets`` returns the eval split as the evaluator consumes it, a
+list of ``(pcs, boxes, annos)`` per tracklet; ``SyntheticTrackingDataset``
+serves the train split's items to the trainer.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.geometry import Box, Quaternion
+from .dataset import TrackingDataset
 
 # the eval split draws from a disjoint stream (the JAX dataset's test offset)
 _EVAL_SEED_OFFSET = 100003
@@ -73,13 +75,30 @@ def _make_tracklet(rng, n_frames, n_pts, n_clutter, tid):
     return pcs, boxes, annos
 
 
-def make_tracklets(data_cfg: dict) -> list:
-    """Eval-split tracklets for the optional config keys NUM_TRACKLETS,
-    FRAMES_PER_TRACKLET, POINTS_PER_FRAME, CLUTTER_POINTS and SYNTH_SEED.
-    Returns a list of ``(pcs, boxes, annos)``, one per tracklet."""
+def _generate(data_cfg: dict, seed_offset: int) -> list:
     n_trk = int(data_cfg.get("NUM_TRACKLETS", 4))
     n_frames = int(data_cfg.get("FRAMES_PER_TRACKLET", 12))
     n_pts = int(data_cfg.get("POINTS_PER_FRAME", 600))
     n_clutter = int(data_cfg.get("CLUTTER_POINTS", 400))
-    rng = np.random.default_rng(int(data_cfg.get("SYNTH_SEED", 1234)) + _EVAL_SEED_OFFSET)
+    rng = np.random.default_rng(int(data_cfg.get("SYNTH_SEED", 1234)) + seed_offset)
     return [_make_tracklet(rng, n_frames, n_pts, n_clutter, tid) for tid in range(n_trk)]
+
+
+class SyntheticTrackingDataset(TrackingDataset):
+    """The train-split tracklets of ``dataset_cfg`` (optional keys
+    NUM_TRACKLETS, FRAMES_PER_TRACKLET, POINTS_PER_FRAME, CLUTTER_POINTS,
+    SYNTH_SEED) as train items."""
+
+    def __init__(self, dataset_cfg: dict, seed: int = 0):
+        super().__init__(dataset_cfg, seed)
+        tracklets = _generate(dataset_cfg, 0)
+        self.tracklets = [[{"pc": pc, "box": box, "anno": anno} for pc, box, anno in zip(*trk)]
+                          for trk in tracklets]
+        self._finalize()
+
+
+def make_tracklets(data_cfg: dict) -> list:
+    """Eval-split tracklets for the optional config keys NUM_TRACKLETS,
+    FRAMES_PER_TRACKLET, POINTS_PER_FRAME, CLUTTER_POINTS and SYNTH_SEED.
+    Returns a list of ``(pcs, boxes, annos)``, one per tracklet."""
+    return _generate(data_cfg, _EVAL_SEED_OFFSET)

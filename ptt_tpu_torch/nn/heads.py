@@ -1,4 +1,5 @@
-"""VoteNet-style voting heads (the JAX package's ``nn/heads.py``), forward only."""
+"""VoteNet-style voting heads (the JAX package's ``nn/heads.py``); their losses
+are functions of the output dict in ``nn/losses.py``."""
 
 from __future__ import annotations
 

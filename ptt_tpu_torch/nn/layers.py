@@ -1,5 +1,16 @@
-"""Pointwise MLP stacks with eval-mode BatchNorm, channel-last like the JAX
-package's ``nn/layers.py``: input (..., C_in) -> (..., C_out).
+"""Pointwise MLP stacks with BatchNorm, channel-last like the JAX package's
+``nn/layers.py``: input (..., C_in) -> (..., C_out).
+
+BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, which is
+not ``torch.nn.BatchNorm1d``'s training rule: the running variance is updated
+with the biased batch variance, where torch would use the unbiased one (the gap
+is n / (n - 1)). The modules keep ``nn.BatchNorm1d`` as the holder of the
+weights and running statistics (its ``momentum`` is the torch-convention weight
+of the new batch, 1 - flax's); in train mode the normalization and the update
+are written out. Flax computes the batch variance as E[x^2] - E[x]^2;
+``torch.var_mean`` gives the same statistic, rounded more accurately. (PyTorch's
+own ``batch_norm`` is not used in train mode: on the CPU it puts the tracker's
+features 1e-4 from a float64 run, which the tests could not tell from a fault.)
 
 Linear layers inside BatchNorm stacks get kaiming-normal weights (fan_in, ReLU
 gain) and no bias when BatchNorm follows, as in the JAX package; the bare
@@ -26,8 +37,18 @@ def _bn_linear(c_in: int, c_out: int, bias: bool) -> nn.Linear:
 
 
 def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm over the last axis of a channel-last tensor."""
-    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    """BatchNorm over the last axis of a channel-last tensor: flax's train rule
+    (batch statistics, running-stat update in place) when ``bn.training``, the
+    running statistics otherwise."""
+    flat = x.reshape(-1, x.shape[-1])
+    if not bn.training:
+        return bn(flat).reshape(x.shape)
+    var, mean = torch.var_mean(flat, dim=0, unbiased=False)
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum  # flax momentum: the weight of the old statistics
+        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+    return torch.addcmul(bn.bias, x - mean, torch.rsqrt(var + bn.eps) * bn.weight)
 
 
 def mlp2(c_in: int, hidden: int, c_out: int) -> nn.Sequential:

@@ -1,6 +1,13 @@
-"""PointNet++ set-abstraction module, eval mode (the JAX package's
-``nn/sa_module.py``): sample centers, then one fused SA stage with the MLP's
-BatchNorm folded in — the CUDA kernel on the GPU, its plain version on the CPU.
+"""PointNet++ set-abstraction module (the JAX package's ``nn/sa_module.py``):
+sample centers, group each center's neighbourhood, run the shared MLP and take
+the max over the neighbourhood.
+
+- eval: one fused SA stage with the MLP's BatchNorm folded in — the CUDA kernel
+  ``csrc/sa.cu`` on the GPU, its plain version on the CPU;
+- train on the GPU: ball query + group + the bias-free layer 0 as the CUDA
+  kernels of ``csrc/group.cu`` (``ops/group.py``), slot-major (B, ns, M, H),
+  then BatchNorm and the other layers in plain PyTorch and the max over axis 1;
+- train on the CPU: the plain composite, query_and_group -> SharedMLP -> max.
 
 ``use_kernels = False`` routes FPS and the SA stage through their plain
 PyTorch versions on any device, so a run on the GPU can hold the kernel path
@@ -14,7 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import fps, point_ops, sa
+from ..ops import fps, group, point_ops, sa
 from .layers import SharedMLP
 
 
@@ -23,7 +30,7 @@ def sample_indices(method: str, xyz: torch.Tensor, npoint: int, use_kernels: boo
     as in the reference). -> (B, npoint) int32."""
     if method == "fps":
         fn = fps.furthest_point_sample if use_kernels else point_ops.furthest_point_sample
-        return fn(xyz, npoint)
+        return fn(xyz.detach(), npoint)
     if method in ("rs", "sequence"):
         ar = torch.arange(npoint, dtype=torch.int32, device=xyz.device)
         return ar[None, :].expand(xyz.shape[0], npoint)
@@ -52,14 +59,25 @@ class PointnetSAModule(nn.Module):
         self.use_kernels = True
 
     def forward(self, xyz, features=None, npoint: int | None = None, inds=None):
-        if self.training:
-            raise NotImplementedError("the SA module's training path is not ported yet; call .eval()")
         xyz = xyz.contiguous()
         if inds is None:
             inds = sample_indices(self.sample_method, xyz, npoint, self.use_kernels)
         new_xyz = point_ops.gather_points(xyz, inds)
+        if self.training:
+            return new_xyz, self._train_features(xyz, new_xyz, features), inds
         weights, biases = self.mlp.folded()
         sa_fn = sa.fused_sa_inference if self.use_kernels else sa.fused_sa_plain
         new_features = sa_fn(xyz, new_xyz, features, self.radius, self.nsample, weights, biases,
                              normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
         return new_xyz, new_features, inds
+
+    def _train_features(self, xyz, new_xyz, features):
+        if self.use_kernels and self.mlp.bn and xyz.device.type == "cuda":
+            def first_linear(w1):
+                return group.grouped_first_linear(xyz, new_xyz, features, w1, self.radius, self.nsample,
+                                                  normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
+
+            return self.mlp(None, first_linear_apply=first_linear).amax(dim=1)
+        grouped, _, _ = point_ops.query_and_group(self.radius, self.nsample, xyz, new_xyz, features,
+                                                  use_xyz=self.use_xyz, normalize_xyz=self.normalize_xyz)
+        return self.mlp(grouped).amax(dim=2)

@@ -1,5 +1,7 @@
 """Top-level tracker (the JAX package's ``nn/tracker.py``): the batch dict flows
-backbone -> similarity -> centroid head -> box head."""
+backbone -> similarity -> centroid head -> box head. ``model.train()`` selects
+the training path (batch statistics in every BatchNorm, the grouped-first-linear
+kernels in every SA stage), ``model.eval()`` the inference path."""
 
 from __future__ import annotations
 
@@ -36,17 +38,18 @@ class PTT(nn.Module):
         return self.box_voting_head(out)
 
 
-def build_network(model_cfg: dict, input_channels: int = 3, device="cuda") -> PTT:
-    """The tracker of ``model_cfg`` (MODEL section), in eval mode, on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+def build_network(model_cfg: dict, input_channels: int = 3, device="cuda", train: bool = False) -> PTT:
+    """The tracker of ``model_cfg`` (MODEL section) on ``device`` (CUDA unless
+    the caller asks for the CPU), in eval mode unless ``train``."""
     if model_cfg["NAME"] != "PTT":
         raise NotImplementedError(f"MODEL.NAME {model_cfg['NAME']!r} is not ported yet")
-    return PTT(model_cfg, input_channels).eval().to(resolve_device(device))
+    return PTT(model_cfg, input_channels).train(train).to(resolve_device(device))
 
 
 def set_use_kernels(model: nn.Module, use_kernels: bool) -> None:
-    """Route every FPS and SA call of ``model`` through the CUDA kernels
-    (True, the default) or through their plain PyTorch versions (False)."""
+    """Route every FPS, SA and grouped-first-linear call of ``model`` through
+    the CUDA kernels (True, the default) or through their plain PyTorch
+    versions (False)."""
     for m in model.modules():
         if hasattr(m, "use_kernels"):
             m.use_kernels = use_kernels

@@ -6,8 +6,8 @@ pointers and the stream are passed as integers. (No source includes PyTorch's
 headers: a file that does takes minutes to compile, these take seconds.)
 
 Libraries go to ``build/ptt_tpu_torch/`` beside the package, named by a hash of
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.
+source, the shared headers (``csrc/*.cuh``) and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptt_tpu_torch"
-SOURCES = ("fps", "sa")
+SOURCES = ("fps", "sa", "group")
 NVCC_FLAGS = [
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -34,13 +34,17 @@ NVCC_FLAGS = [
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = {
-    "fps": ("fps_forward", [_p, _p, _i, _i, _i, _p]),
-    "sa": (
-        "sa_forward",
+# entry point -> (source, ctypes argument types); every entry point returns int
+_FUNCTIONS = {
+    "fps_forward": ("fps", [_p, _p, _i, _i, _i, _p]),
+    "sa_forward": (
+        "sa",
         [_p, _p, _p, _p, _i, ctypes.POINTER(_p), ctypes.POINTER(_p), ctypes.POINTER(_i),
          _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],
     ),
+    "group_forward": ("group", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, ctypes.c_float, _p]),
+    "group_backward": ("group", [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
+    "group_backward_chunks": ("group", [_i, _i, _i]),
 }
 
 _loaded: dict = {}
@@ -58,6 +62,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -89,17 +95,17 @@ def build(names=SOURCES) -> None:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
 
 
-def library(name: str):
-    """The kernel entry point of ``csrc/<name>.cu`` with its ctypes signature,
-    building every source that needs it on the first call."""
-    if name not in _loaded:
+def function(fn_name: str):
+    """The C entry point ``fn_name`` of its ``csrc/*.cu`` library with its ctypes
+    signature, building every source that needs it on the first call."""
+    if fn_name not in _loaded:
         build()
-        fn_name, argtypes = _ARGTYPES[name]
+        name, argtypes = _FUNCTIONS[fn_name]
         fn = getattr(ctypes.CDLL(str(_target(name))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+        _loaded[fn_name] = fn
+    return _loaded[fn_name]
 
 
 def check_launch(err: int, what: str) -> None:

@@ -37,7 +37,7 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if N * 16 > _MAX_SHARED_BYTES:
         raise ValueError(f"furthest_point_sample: N = {N} points do not fit in shared memory")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    fn = _build.library("fps")
+    fn = _build.function("fps_forward")
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)

@@ -1,0 +1,203 @@
+"""Grouped first linear layer of a training set-abstraction stage: the CUDA
+kernels ``csrc/group.cu`` behind the port of the JAX package's
+``ops/pallas_group.py``, with their plain PyTorch versions for tensors on the
+CPU.
+
+The function (``grouped_first_linear``): ball-query each center's ``nsample``
+neighbours, group [relative xyz (/ radius) | features] and apply the bias-free
+layer 0 of the stage's MLP, returning the pre-BatchNorm activations slot-major,
+(B, nsample, M, H). Layer 0 commutes with the gather (``fold_inputs``), so the
+forward kernel only gathers rows of Z and adds the per-center offset O, and the
+backward kernel scatters the output gradient back onto Z's rows; every dense
+product stays ``torch.matmul`` in full float32, as the JAX package leaves it to
+XLA outside its kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .point_ops import ball_query, group_points, query_and_group, radius_sq
+
+# launches made through group_forward / group_backward (a run resets them to 0):
+# one per call each; a backward call is three kernels (CSR build, chunk sums,
+# combine), counted as one
+fwd_launches = 0
+bwd_launches = 0
+
+
+def fold_inputs(xyz, new_xyz, features, w1, radius: float, normalize_xyz: bool = True,
+                use_xyz: bool = True):
+    """Z over the source points and the per-center offset O (pallas_group.py
+    ``_fold_inputs``), so that layer 0 of neighbour j of center m is Z[j] + O[m].
+    The xyz terms cancel down to the radius-scale offset and need full float32:
+    TF32 is off in this package."""
+    r = radius if normalize_xyz else 1.0
+    if use_xyz:
+        w1x = w1[:3] / r
+        z = torch.matmul(xyz, w1x)
+        if features is not None:
+            z = z + torch.matmul(features, w1[3:])
+        off = -torch.matmul(new_xyz, w1x)
+    else:
+        z = torch.matmul(features, w1)
+        off = z.new_zeros((new_xyz.shape[0], new_xyz.shape[1], w1.shape[1]))
+    return z.contiguous(), off.contiguous()
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def grouped_first_linear_plain(xyz, new_xyz, features, w1, radius: float, nsample: int,
+                               normalize_xyz: bool = True, use_xyz: bool = True):
+    """The composite: query_and_group -> x @ w1 -> slot-major (B, ns, M, H)."""
+    grouped, _, _ = query_and_group(radius, nsample, xyz, new_xyz, features,
+                                    use_xyz=use_xyz, normalize_xyz=normalize_xyz)
+    return torch.matmul(grouped, w1).permute(0, 2, 1, 3)
+
+
+def group_forward_plain(xyz, new_xyz, z, off, radius: float, nsample: int):
+    """The forward kernel's function: (D (B, ns, M, H), idx (B, M, ns) int32)
+    with D[b, s, m] = z[b, idx[b, m, s]] + off[b, m]."""
+    idx = ball_query(radius, nsample, xyz, new_xyz)
+    d = group_points(z, idx) + off[:, :, None, :]
+    return d.permute(0, 2, 1, 3).contiguous(), idx
+
+
+def group_backward_plain(dd, idx, n: int):
+    """The backward kernel's function: dz (B, N, H), the sum of dd's rows
+    (B, ns, M, H) onto the points idx (B, M, ns) names, by ``index_add_``."""
+    B, ns, M, H = dd.shape
+    rows = dd.permute(0, 2, 1, 3).reshape(B * M * ns, H)
+    flat = (idx.long() + n * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
+    return dd.new_zeros((B * n, H)).index_add_(0, flat, rows).reshape(B, n, H)
+
+
+# ---------------------------------------------------------------------- wrappers
+
+
+def group_forward(xyz, new_xyz, z, off, radius: float, nsample: int):
+    """(B, N, 3) points, (B, M, 3) centers, Z (B, N, H), O (B, M, H) ->
+    (D (B, nsample, M, H), idx (B, M, nsample) int32): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if xyz.device.type == "cpu":
+        return group_forward_plain(xyz, new_xyz, z, off, radius, nsample)
+    return _launch_fwd(xyz, new_xyz, z, off, radius, nsample)
+
+
+def group_backward(dd, idx, n: int):
+    """dD (B, ns, M, H), idx (B, M, ns) int32 -> dZ (B, n, H), summed in a fixed
+    order: the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if dd.device.type == "cpu":
+        return group_backward_plain(dd, idx, n)
+    return _launch_bwd(dd, idx, n)
+
+
+def _check(name, t, dtype=torch.float32):
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"grouped_first_linear: {name} must be a contiguous {dtype} CUDA tensor, "
+                         f"got {t.dtype} on {t.device}")
+
+
+def _launch_fwd(xyz, new_xyz, z, off, radius, nsample):
+    global fwd_launches
+    for name, t in (("xyz", xyz), ("new_xyz", new_xyz), ("z", z), ("off", off)):
+        _check(name, t)
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    H = z.shape[-1]
+    if xyz.shape[-1] != 3 or new_xyz.shape != (B, M, 3) or z.shape != (B, N, H) or off.shape != (B, M, H):
+        raise ValueError("grouped_first_linear: inconsistent shapes")
+    if nsample < 1:
+        raise ValueError("grouped_first_linear: nsample must be positive")
+    out = torch.empty((B, nsample, M, H), dtype=torch.float32, device=xyz.device)
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    fn = _build.function("group_forward")
+    with torch.cuda.device(xyz.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xyz.data_ptr(), new_xyz.data_ptr(), z.data_ptr(), off.data_ptr(), out.data_ptr(),
+                 idx.data_ptr(), B, N, M, nsample, H, radius_sq(radius), stream)
+    _build.check_launch(err, "group_forward")
+    fwd_launches += 1
+    return out, idx
+
+
+def _launch_bwd(dd, idx, n):
+    global bwd_launches
+    _check("dD", dd)
+    _check("idx", idx, torch.int32)
+    B, ns, M, H = dd.shape
+    if idx.shape != (B, M, ns):
+        raise ValueError("grouped_first_linear: idx does not match dD")
+    dev = dd.device
+    fn = _build.function("group_backward")
+    with torch.cuda.device(dev):
+        max_chunks = _build.function("group_backward_chunks")(n, M, ns)  # the scratch layout is group.cu's
+        if max_chunks == -1:
+            raise ValueError(f"grouped_first_linear: backward of N = {n}, M * ns = {M * ns} "
+                             "does not fit in shared memory")
+        if max_chunks < 0:
+            raise RuntimeError("grouped_first_linear: cannot query the device's shared memory")
+        dz = torch.empty((B, n, H), dtype=torch.float32, device=dev)
+        rows = torch.empty((B, M * ns), dtype=torch.int32, device=dev)
+        chunk_start = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
+        chunks = torch.empty((B, max_chunks, 2), dtype=torch.int32, device=dev)
+        partial = torch.empty((B, max_chunks, H), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(dd.data_ptr(), idx.data_ptr(), rows.data_ptr(), chunk_start.data_ptr(), chunks.data_ptr(),
+                 partial.data_ptr(), dz.data_ptr(), B, n, M, ns, H, stream)
+    _build.check_launch(err, "group_backward")
+    bwd_launches += 1
+    return dz
+
+
+# ------------------------------------------------------------------- the function
+
+
+class GroupedFirstLinear(torch.autograd.Function):
+    """``grouped_first_linear`` with its backward (pallas_group.py
+    ``_grouped_first_linear_bwd``): dZ from the backward kernel, then
+    dO = sum over slots and the dense algebra for dxyz, dnew_xyz, dfeatures and
+    dW1 in full float32."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, features, w1, radius, nsample, normalize_xyz, use_xyz):
+        z, off = fold_inputs(xyz, new_xyz, features, w1, radius, normalize_xyz, use_xyz)
+        out, idx = group_forward(xyz, new_xyz, z, off, radius, nsample)
+        ctx.save_for_backward(xyz, new_xyz, features, w1, idx)
+        ctx.radius = radius if normalize_xyz else 1.0
+        ctx.use_xyz = use_xyz
+        return out
+
+    @staticmethod
+    def backward(ctx, dd):
+        xyz, new_xyz, features, w1, idx = ctx.saved_tensors
+        dz = group_backward(dd.contiguous(), idx, xyz.shape[1])
+        dxyz = dnew_xyz = dfeats = None
+        if ctx.use_xyz:
+            do = dd.sum(dim=1)  # (B, M, H): every slot carries O once
+            w1x = w1[:3] / ctx.radius
+            dxyz = torch.matmul(dz, w1x.t())
+            dnew_xyz = -torch.matmul(do, w1x.t())
+            dw1 = (torch.matmul(xyz.reshape(-1, 3).t(), dz.reshape(-1, dz.shape[-1]))
+                   - torch.matmul(new_xyz.reshape(-1, 3).t(), do.reshape(-1, do.shape[-1]))) / ctx.radius
+            if features is not None:
+                dfeats = torch.matmul(dz, w1[3:].t())
+                dw1f = torch.matmul(features.reshape(-1, features.shape[-1]).t(), dz.reshape(-1, dz.shape[-1]))
+                dw1 = torch.cat([dw1, dw1f], dim=0)
+        else:
+            dfeats = torch.matmul(dz, w1.t())
+            dw1 = torch.matmul(features.reshape(-1, features.shape[-1]).t(), dz.reshape(-1, dz.shape[-1]))
+        return dxyz, dnew_xyz, dfeats, dw1, None, None, None, None
+
+
+def grouped_first_linear(xyz, new_xyz, features, w1, radius: float, nsample: int,
+                         normalize_xyz: bool = True, use_xyz: bool = True):
+    """Fused ball query + group + bias-free first linear layer.
+    xyz (B, N, 3), new_xyz (B, M, 3), features (B, N, C) or None, w1 (C + 3, H)
+    when ``use_xyz`` else (C, H), the (in, out) kernel of the stage MLP's layer 0
+    -> (B, nsample, M, H) pre-BatchNorm activations, slot-major (pool over
+    axis 1). Differentiable in xyz, new_xyz, features and w1."""
+    return GroupedFirstLinear.apply(xyz, new_xyz, features, w1, float(radius), int(nsample),
+                                    bool(normalize_xyz), bool(use_xyz))

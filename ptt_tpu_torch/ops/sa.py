@@ -106,7 +106,7 @@ def _launch(xyz, new_xyz, z, off, tail_w, tail_b, radius, nsample, idx_out):
     w_ptrs = (ctypes.c_void_p * max(n_tail, 1))(*[w.data_ptr() for w in ws])
     b_ptrs = (ctypes.c_void_p * max(n_tail, 1))(*[b.data_ptr() for b in bs])
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    fn = _build.library("sa")
+    fn = _build.function("sa_forward")
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xyz.data_ptr(), new_xyz.data_ptr(), z.data_ptr(), off.data_ptr(), n_tail,
