@@ -6,7 +6,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   1. device and build: the card's name and power limit, then the CUDA kernels of
      ``ptt_tpu_torch/csrc`` compiled from source (one nvcc per file, in parallel);
   2. every kernel against its plain PyTorch version on the card, at each shape the
-     tracker's forward gives it (B = 8), with time, bound and error per call;
+     tracker's forward gives it (B = 8), with time, bound and error per call; per
+     SA shape also the neighbour table, layer 0 against its plain version, the
+     plain emulation of the tensor-core tail, and two hard cases (the trained
+     weights scaled until activations reach ~1e3, and random weights); FPS with
+     the bound that counts its chain of rounds (cycle counts below), and beside
+     it the time of a probe kernel that runs the present design's chain alone;
   3. the whole forward at full ``ptt.yaml`` width on the trained weights of
      ``tests/assets/ptt_synth_trained.npz``, kernel path against plain path;
   4. the device tracker (``DeviceTrackingEvaluator``) on 8 x 24 synthetic
@@ -15,8 +20,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   5. a profile of one tracker batch: device busy and idle shares, top kernels;
   6. the training kernels (``csrc/group.cu``, forward and backward) against
      their plain versions at the 7 shapes of a ptt_synth train step (B = 48):
-     forward error, neighbour table, dZ and the four input gradients, and two
-     backward runs bit-equal; with time, bound and the index_add_ yardstick;
+     forward error, neighbour table, dZ and the four input gradients, two
+     backward runs bit-equal and equal to the documented summation order; with
+     time, device time per backward kernel, bound and the index_add_ yardstick;
+     and the same checks on a heavy-duplication cloud (resampled from 32 points);
   7. training at full width from the trained weights, B = 48: 5 steps on the
      kernel path, each also taken by the plain path from the same state with
      the same FPS picks, both FPS calls of each step held against the plain
@@ -45,9 +52,21 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(REPO, "tests", "assets", "ptt_synth_trained.npz")
 
-# published H100 SXM peaks (dense): float32 on CUDA cores, device memory
+# published H100 SXM peaks (dense): float32 on CUDA cores, device memory, and
+# the SM clock behind the first (132 SMs x 128 lanes x 2 x 1.98 GHz)
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_CLOCK = 1.98e9
+SMS = 132
+# Least cycles from one dependent instruction to the next, for the bound of a
+# chain that no rate shortens (FPS). Taken low on purpose: published
+# microbenchmarks of Volta to Hopper read 4 for float32 and integer arithmetic,
+# 23 or more for a warp shuffle and for a shared-memory access, and more than 10
+# for a barrier that every warp has already reached.
+CYC_ALU = 4
+CYC_SHFL = 20
+CYC_SMEM = 20
+CYC_BAR = 10
 SA_RTOL = SA_ATOL = 1e-4  # kernel vs plain: float32 sums in another order
 # group kernels vs plain versions, relative to each tensor's largest entry: the
 # forward adds Z[j] + O[m] where the plain version multiplies the grouped
@@ -90,6 +109,52 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Device time of one call: the stream is first held busy (~0.1 s) so that
+    the host has enqueued every call before the first one starts; the events
+    around them then read device time only, where ``cuda_ms`` reads the larger
+    of host and device time."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int, names):
+    """Device time of one call by kernel, from torch.profiler: for each of
+    ``names`` the summed time of the kernels whose name contains it, per call.
+    A window in which the profiler reports no device time is taken again; the
+    run fails when five in a row are empty."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                for n in names:
+                    if n in e.key:
+                        out[n] += e.self_device_time_total / iters / 1e3
+        if any(out.values()):
+            return out
+    fail(f"torch.profiler reported no device time for {names} in five windows")
+
+
+def by_kernel(parts) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+
+
 # ---------------------------------------------------------------- bounds (least time)
 
 
@@ -98,6 +163,42 @@ def fps_bound(xyz, npoint):
     nbytes = 4 * (B * N * 3 + B * npoint)
     ops = 10 * B * N * npoint  # per point and round: 3 sub, 3 mul, 2 add, min, compare
     return nbytes, ops
+
+
+def fps_round_cycles(n):
+    """Least cycles of one FPS round over n points, for the block size that makes
+    it least: round k needs round k - 1's choice, so whatever the design, a
+    round reads the chosen point (one shared-memory load), updates distances (a
+    chain of sub, mul, add, add, min; a warp's p points a thread at 10
+    instructions each share an issue slot with the other warps of its SM
+    quarter), takes the argmax over a warp (5 levels of shuffle, compare,
+    select) and, with several warps, crosses one barrier (store, barrier, load)
+    and reduces the warps' results by shuffles again. Returns (cycles, warps)."""
+    best = None
+    for warps in (1, 2, 4, 8, 16, 32):
+        p = -(-n // (32 * warps))
+        cycles = CYC_SMEM + 5 * CYC_ALU + 10 * p * -(-warps // 4) + 5 * (CYC_SHFL + 2 * CYC_ALU)
+        if warps > 1:
+            cycles += 2 * CYC_SMEM + CYC_BAR + (warps.bit_length() - 1) * (CYC_SHFL + 2 * CYC_ALU)
+        if best is None or cycles < best[0]:
+            best = (cycles, warps)
+    return best
+
+
+def fps_chain_bound_ms(xyz, npoint):
+    """The bound that counts FPS's chain, from the inputs: npoint - 1 dependent
+    rounds of ``fps_round_cycles`` at the SM clock; batch rows run side by side,
+    one wave of blocks per SMS rows."""
+    B, N, _ = xyz.shape
+    return -(-B // SMS) * (npoint - 1) * fps_round_cycles(N)[0] / PEAK_CLOCK * 1e3
+
+
+def fps_chain_probe_ms(xyz, npoint, fps):
+    """Time of the present design's chain alone (``fps.chain_probe``: its rounds
+    and launch geometry with no per-point work). Not a bound of the function:
+    another block size or a round with one barrier has a shorter chain."""
+    B, N, _ = xyz.shape
+    return cuda_ms(lambda: fps.chain_probe(B, N, npoint, xyz.device), 20)
 
 
 def scanned_points(xyz, new_xyz, radius, nsample, point_ops):
@@ -196,6 +297,23 @@ def capture_kernel_calls(model, batch):
     return calls
 
 
+def sa_hard_cases(args, kwargs):
+    """Two more weight sets for one SA call: the trained weights with layer 0 and
+    every later bias scaled by s, which scales the whole ReLU network by s, with
+    s chosen so that the output reaches ~1e3; and random weights (He-scaled
+    normal, unit normal biases) from a seed."""
+    from ptt_tpu_torch.ops import sa
+
+    xyz, new_xyz, features, radius, nsample, weights, biases = args
+    peak = float(sa.fused_sa_plain(*args, **kwargs).abs().max())
+    s = 1e3 / max(peak, 1e-6)
+    scaled = ([weights[0] * s] + list(weights[1:]), [b * s for b in biases])
+    gen = torch.Generator(device=xyz.device).manual_seed(7)
+    rand_w = [torch.randn(w.shape, device=w.device, generator=gen) * (2.0 / w.shape[0]) ** 0.5 for w in weights]
+    rand_b = [torch.randn(b.shape, device=b.device, generator=gen) for b in biases]
+    return {"scaled to 1e3": scaled, "random weights": (rand_w, rand_b)}
+
+
 def check_kernels(calls):
     from ptt_tpu_torch.ops import fps, point_ops, sa
 
@@ -209,34 +327,73 @@ def check_kernels(calls):
                  f"{int((got != ref).sum())} indices")
         ms = cuda_ms(lambda: fps.furthest_point_sample(xyz, npoint), 20)
         plain_ms = cuda_ms(lambda: point_ops.furthest_point_sample(xyz, npoint), 3, warmup=1)
-        b, kind = bound_ms(*fps_bound(xyz, npoint))
+        rate_ms, kind = bound_ms(*fps_bound(xyz, npoint))
+        chain = fps_chain_bound_ms(xyz, npoint)
+        probe = fps_chain_probe_ms(xyz, npoint, fps)
+        cycles, warps = fps_round_cycles(xyz.shape[1])
+        log(f"  fps {tuple(xyz.shape)}->{npoint}: bound by rates {rate_ms:.5f} ms ({kind}), by latency {chain:.4f} ms "
+            f"({npoint - 1} dependent rounds of at least {cycles} cycles, at {warps} warps a row, "
+            f"{cycles / PEAK_CLOCK * 1e6:.3f} us a round); the kernel's round {ms / npoint * 1e3:.3f} us; the present "
+            f"design's chain alone (probe kernel) {probe:.4f} ms, {probe / npoint * 1e3:.3f} us a round")
+        # the record's bound_by has two words; the chain is a count of dependent
+        # operations, and bound_term says that latency, not a rate, sets it
         rows["fps"].append(dict(shape=f"{tuple(xyz.shape)}->{npoint}", err=0.0, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b, bound_by=kind, mismatch=0))
+                                bound_ms=max(rate_ms, chain), bound_by="operations" if chain >= rate_ms else kind,
+                                bound_term="latency" if chain >= rate_ms else "rate", rate_bound_ms=rate_ms,
+                                chain_probe_ms=probe, mismatch=0))
     for args, kwargs in calls["sa"]:
         xyz, new_xyz, features, radius, nsample, weights, biases = args
         B, M = new_xyz.shape[:2]
-        idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
-        got = sa.fused_sa_inference(*args, **kwargs, idx_out=idx)
-        ref = sa.fused_sa_plain(*args, **kwargs)
-        ref_idx = point_ops.ball_query(radius, nsample, xyz, new_xyz)
-        torch.cuda.synchronize()
-        mismatch = int((idx != ref_idx).sum())
-        err = float((got - ref).abs().max())
         shape = f"{tuple(xyz.shape)}->{M} ns{nsample} r{radius} C{[w.shape[0] for w in weights] + [weights[-1].shape[1]]}"
-        log(f"  sa {shape}: max |kernel - plain| {err:.3e}, ball-query membership disagreements {mismatch}")
-        if mismatch:
-            fail(f"SA kernel's ball query differs from point_ops.ball_query at {shape}")
-        if not torch.allclose(got, ref, rtol=SA_RTOL, atol=SA_ATOL):
-            fail(f"SA kernel differs from its plain version at {shape} beyond rtol/atol {SA_RTOL}")
+        ref_idx = point_ops.ball_query(radius, nsample, xyz, new_xyz)
+        cases = {"trained weights": (weights, biases), **sa_hard_cases(args, kwargs)}
+        for case, (ws, bs) in cases.items():
+            idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+            case_args = (xyz, new_xyz, features, radius, nsample, ws, bs)
+            got = sa.fused_sa_inference(*case_args, **kwargs, idx_out=idx)
+            ref = sa.fused_sa_plain(*case_args, **kwargs)
+            emu = sa.fused_sa_split(*case_args, **kwargs)
+            torch.cuda.synchronize()
+            mismatch = int((idx != ref_idx).sum())
+            peak = float(ref.abs().max())
+            case_err, emu_err = float((got - ref).abs().max()), float((emu - ref).abs().max())
+            log(f"  sa {shape}, {case}: max |kernel - plain| {case_err:.3e} ({case_err / peak:.2e} of the largest "
+                f"entry {peak:.3e}), plain emulation of the split tail {emu_err:.3e}, ball-query membership "
+                f"disagreements {mismatch}")
+            if mismatch:
+                fail(f"SA kernel's ball query differs from point_ops.ball_query at {shape}")
+            if case == "trained weights":
+                err = case_err
+                if not torch.allclose(got, ref, rtol=SA_RTOL, atol=SA_ATOL):
+                    fail(f"SA kernel differs from its plain version at {shape} beyond rtol/atol {SA_RTOL}")
+            elif not (case_err <= SA_RTOL * peak and torch.isfinite(got).all()):
+                fail(f"SA kernel differs from its plain version at {shape}, {case}, beyond {SA_RTOL} of the largest entry")
+        # layer 0 as the kernels left it against its plain version
+        _, z, off = sa._launch(xyz, new_xyz, features, weights[0].float().contiguous(), biases[0].float().contiguous(),
+                               weights[1:], biases[1:], radius, nsample, kwargs.get("normalize_xyz", True),
+                               kwargs.get("use_xyz", True), None)
+        z_ref, off_ref = sa._first_layer(xyz, new_xyz, features, radius, weights[0], biases[0],
+                                         kwargs.get("normalize_xyz", True), kwargs.get("use_xyz", True))
+        l0_err = max(relerr(z, z_ref), relerr(off, off_ref))
+        if l0_err > GROUP_FWD_TOL:
+            fail(f"SA layer 0 differs from its plain version at {shape}: {l0_err:.2e} of the largest entry")
         ms = cuda_ms(lambda: sa.fused_sa_inference(*args, **kwargs), 20)
+        dev_ms = queued_ms(lambda: sa.fused_sa_inference(*args, **kwargs), 20)
+        parts = kernel_ms(lambda: sa.fused_sa_inference(*args, **kwargs), 10, ("sa_pre_kernel", "sa_kernel"))
         plain_ms = cuda_ms(lambda: sa.fused_sa_plain(*args, **kwargs), 10)
         b, kind = bound_ms(*sa_bound(xyz, new_xyz, features, radius, nsample, weights, biases, point_ops))
-        rows["sa"].append(dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=kind,
-                               mismatch=mismatch))
+        log(f"    layer 0 rel err {l0_err:.2e}; device time by kernel (profiler; sa_kernel starts beside "
+            f"sa_pre_kernel and waits for it): {by_kernel(parts)}")
+        rows["sa"].append(dict(shape=shape, err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                               bound_ms=b, bound_by=kind, mismatch=mismatch))
     for name, rs in rows.items():
         for r in rs:
-            log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms"
+                + (f" by events around the wrapper, {r['device_ms']:.4f} ms on the device (calls queued behind a busy "
+                   f"stream)" if "device_ms" in r else "")
+                + f", plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r.get('bound_term', r['bound_by'])}, "
+                f"{100 * r['bound_ms'] / r['ms']:.0f}% reached by events"
+                + (f", {100 * r['bound_ms'] / r['device_ms']:.0f}% on the device" if "device_ms" in r else "") + ")")
     return rows
 
 
@@ -322,6 +479,27 @@ def input_grads(fn, call, probe):
     return {k: t.grad for k, t in ts.items()}
 
 
+BWD_KERNELS = ("group_csr_kernel", "group_sum_kernel", "group_combine_kernel")
+
+
+def heavy_duplication_call(call):
+    """The call with its cloud resampled from its first 32 points and the centers
+    on the first M copies, so that many rows share a few first hits; in batch
+    row 0 point 0 is the only copy of its location and every center sits on it,
+    so that most of the row's M * ns rows land on that one point."""
+    xyz = call["xyz"]
+    B, N, _ = xyz.shape
+    M = call["new_xyz"].shape[1]
+    gen = torch.Generator(device=xyz.device).manual_seed(5)
+    pick = torch.randint(0, 32, (B, N), device=xyz.device, generator=gen)
+    pick[0] = 1 + pick[0] % 31
+    pick[0, 0] = 0
+    heavy = torch.gather(xyz[:, :32], 1, pick[..., None].expand(B, N, 3)).contiguous()
+    centers = heavy[:, :M].clone()
+    centers[0] = heavy[0, 0]
+    return dict(call, xyz=heavy, new_xyz=centers, label="heavy duplication")
+
+
 def check_group_kernels(calls):
     """Phase 6: each captured call through both kernels and their plain versions."""
     from ptt_tpu_torch.ops import group, point_ops
@@ -333,7 +511,7 @@ def check_group_kernels(calls):
         r, ns = c["radius"], c["nsample"]
         B, N, _ = xyz.shape
         M, H = new_xyz.shape[1], w1.shape[1]
-        shape = f"{N}->{M} ns{ns} H{H} C{0 if feats is None else feats.shape[-1]}"
+        shape = f"{N}->{M} ns{ns} H{H} C{0 if feats is None else feats.shape[-1]}" + (f" ({c['label']})" if "label" in c else "")
         z, off = group.fold_inputs(xyz, new_xyz, feats, w1, r, c["normalize_xyz"], c["use_xyz"])
         d, idx = group.group_forward(xyz, new_xyz, z, off, r, ns)
         ref_idx = point_ops.ball_query(r, ns, xyz, new_xyz)
@@ -345,6 +523,11 @@ def check_group_kernels(calls):
         dz = group.group_backward(dd, idx, N)
         dz_again = group.group_backward(dd, idx, N)
         dz_plain = group.group_backward_plain(dd, idx, N)
+        order = group.kernel_order(H)
+        if order != group.documented_order(H):
+            fail(f"group backward: csrc/group.cu sums in the order {order} (chunk, ranges, rows per load) at H = {H}, "
+                 f"its documentation says {group.documented_order(H)}")
+        dz_ordered = group.group_backward_ordered(dd, idx, N, order)
         gk = input_grads(group.grouped_first_linear, c, dd)
         gp = input_grads(group.grouped_first_linear_plain, c, dd)
         torch.cuda.synchronize()
@@ -353,7 +536,9 @@ def check_group_kernels(calls):
         grad_err = {k: relerr(gk[k], gp[k]) for k in gp}
         log(f"  group {shape}: forward rel err {fwd_err:.2e} (abs {float((d_full - d_plain).abs().max()):.2e}), "
             f"idx disagreements {mismatch}, dZ rel err {bwd_err:.2e} (abs {float((dz - dz_plain).abs().max()):.2e}), "
-            f"dZ bit-equal on repeat {torch.equal(dz, dz_again)}, input grads rel err "
+            f"dZ bit-equal on repeat {torch.equal(dz, dz_again)} and to the documented order "
+            f"{torch.equal(dz, dz_ordered)}, most rows on one point {int(torch.bincount(idx.reshape(B, -1)[0].long()).max())}, "
+            f"input grads rel err "
             + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items()))
         if mismatch:
             fail(f"group forward's neighbour table differs from point_ops.ball_query at {shape}")
@@ -363,12 +548,16 @@ def check_group_kernels(calls):
             fail(f"group backward differs from index_add_ at {shape}")
         if not torch.equal(dz, dz_again):
             fail(f"group backward is not bit-equal on repeat at {shape}")
+        if not torch.equal(dz, dz_ordered):
+            fail(f"group backward does not sum in its documented order (group_backward_ordered) at {shape}")
         if max(grad_err.values()) > GROUP_GRAD_TOL:
             fail(f"group input gradients differ from the composite's autograd at {shape}: {grad_err}")
 
         fwd_ms = cuda_ms(lambda: group.group_forward(xyz, new_xyz, z, off, r, ns), 20)
         fwd_plain_ms = cuda_ms(lambda: group.group_forward_plain(xyz, new_xyz, z, off, r, ns), 5)
         bwd_ms = cuda_ms(lambda: group.group_backward(dd, idx, N), 20)
+        bwd_dev_ms = queued_ms(lambda: group.group_backward(dd, idx, N), 20)
+        parts = kernel_ms(lambda: group.group_backward(dd, idx, N), 10, BWD_KERNELS)
         bwd_plain_ms = cuda_ms(lambda: group.group_backward_plain(dd, idx, N), 5)
         flat = (idx.long() + N * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
         src = dd.permute(0, 2, 1, 3).reshape(B * M * ns, H).contiguous()
@@ -376,12 +565,16 @@ def check_group_kernels(calls):
         lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, src), 20)
         fb, fkind = bound_ms(*group_fwd_bound(xyz, new_xyz, H, r, ns, point_ops))
         bb, bkind = bound_ms(*group_bwd_bound(B, N, M, ns, H))
-        rows.append(dict(shape=shape, fwd_err=float((d_full - d_plain).abs().max()),
+        rows.append(dict(shape=shape, heavy="label" in c, bwd_device_ms=bwd_dev_ms, fwd_err=float((d_full - d_plain).abs().max()),
                          bwd_err=float((dz - dz_plain).abs().max()), fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
                          fwd_bound=fb, fwd_by=fkind, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, lib_ms=lib_ms,
                          bwd_bound=bb, bwd_by=bkind))
         log(f"    forward {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, bound {fb:.4f} {fkind}); backward {bwd_ms:.4f} ms "
-            f"(plain {bwd_plain_ms:.4f}, index_add_ {lib_ms:.4f}, bound {bb:.4f} {bkind})")
+            f"by events around the wrapper, {bwd_dev_ms:.4f} ms on the device (calls queued behind a busy stream); by "
+            f"kernel (profiler): {by_kernel(parts)} (plain {bwd_plain_ms:.4f}, index_add_ {lib_ms:.4f}, bound {bb:.4f} "
+            f"{bkind}, {100 * bb / bwd_ms:.0f}% reached by events, {100 * bb / bwd_dev_ms:.0f}% on the device)")
+        if bwd_dev_ms >= lib_ms:
+            log(f"    NOTE: the backward is not faster than index_add_ at {shape}")
     return rows
 
 
@@ -508,8 +701,16 @@ def train_phase(cfg, device, card):
         fail(f"a train forward made {len(calls)} grouped_first_linear calls, not 7")
     log(f"[6] group kernels vs plain versions at the train step's shapes (B = {TRAIN_B}), rel tol forward "
         f"{GROUP_FWD_TOL}, dZ {GROUP_BWD_TOL}, input grads {GROUP_GRAD_TOL}")
-    group_rows = check_group_kernels(calls)
+    group_rows = check_group_kernels(calls + [heavy_duplication_call(calls[0])])
     del calls
+    group_rows = [r for r in group_rows if not r["heavy"]]
+    log("[6] group backward, the 7 shapes summed: "
+        f"{sum(r['bwd_ms'] for r in group_rows):.4f} ms by events around the wrapper, "
+        f"{sum(r['bwd_device_ms'] for r in group_rows):.4f} ms on the device, index_add_ "
+        f"{sum(r['lib_ms'] for r in group_rows):.4f} ms, bound {sum(r['bwd_bound'] for r in group_rows):.4f} ms "
+        f"({100 * sum(r['bwd_bound'] for r in group_rows) / sum(r['bwd_ms'] for r in group_rows):.0f}% reached by "
+        f"events, {100 * sum(r['bwd_bound'] for r in group_rows) / sum(r['bwd_device_ms'] for r in group_rows):.0f}% "
+        f"on the device)")
 
     # 7. the training main path: 5 steps on the kernels; before each, the plain
     # path takes the same step from the same state (weights, statistics, Adam)
@@ -657,8 +858,10 @@ def main() -> int:
     log(f"[2] kernels vs plain versions at the forward's shapes (B = 8), SA rtol = atol = {SA_RTOL}")
     rows = check_kernels(calls)
     summary = {name: dict(launches_per_frame=len(rs), max_abs_err=max(r["err"] for r in rs),
-                          ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs))
+                          ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
+                          bound_ms=sum(r["bound_ms"] for r in rs))
                for name, rs in rows.items()}
+    summary["sa"]["device_ms"] = sum(r["device_ms"] for r in rows["sa"])
     log("kernels " + json.dumps(summary))
 
     # 3. whole forward, kernel path against plain path
@@ -741,6 +944,12 @@ def main() -> int:
             "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"], "bound_ms": bms,
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
         })
+        if "device_ms" in summary[name]:
+            record["kernels"][-1]["device_ms"] = summary[name]["device_ms"]
+        if name == "fps":
+            record["kernels"][-1].update(bound_term=max(rs, key=lambda r: r["bound_ms"])["bound_term"],
+                                         rate_bound_ms=sum(r["rate_bound_ms"] for r in rs),
+                                         chain_probe_ms=sum(r["chain_probe_ms"] for r in rs))
     for name, replaces, pre in (("group_fwd", "ptt_tpu/ops/pallas_group.py:65", "fwd"),
                                 ("group_bwd", "ptt_tpu/ops/pallas_group.py:98", "bwd")):
         record["kernels"].append({
@@ -751,6 +960,8 @@ def main() -> int:
             "bound_by": max(group_rows, key=lambda r: r[f"{pre}_bound"])[f"{pre}_by"],
             "library_ms": sum(r["lib_ms"] for r in group_rows) if pre == "bwd" else None,
         })
+        if pre == "bwd":
+            record["kernels"][-1]["device_ms"] = sum(r["bwd_device_ms"] for r in group_rows)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

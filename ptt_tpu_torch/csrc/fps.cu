@@ -11,6 +11,9 @@
 // after one read of the input no round touches device memory. One block per
 // batch row; the Siamese pair call gives 2B blocks, which leaves most of the
 // 132 SMs idle at small B (a later redesign would split a row over a cluster).
+// fps_chain_probe times this design's chain of rounds alone: what its per-point
+// work adds to. It is no bound of the function; a round with one barrier, or a
+// smaller block with more points a thread, has a shorter chain.
 //
 // Bit-exactness: the distance is ((dx*dx + dy*dy) + dz*dz) with every product
 // and sum rounded on its own (__fmul_rn/__fadd_rn stop nvcc contracting them
@@ -96,7 +99,55 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoi
   }
 }
 
+// The chain of one round without its per-point work: a warp argmax, a barrier,
+// the first warp's argmax over the warps' results, a barrier, the read of the
+// choice, each round depending on the one before. Its time per round is the
+// least a round of fps_kernel can take at the same block size, whatever N.
+__global__ void __launch_bounds__(kMaxThreads) fps_chain_kernel(int* __restrict__ out, int rounds) {
+  __shared__ float warp_v[kMaxThreads / 32];
+  __shared__ int warp_i[kMaxThreads / 32];
+  __shared__ int chosen;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int cur = 0;
+  for (int k = 1; k < rounds; ++k) {
+    float best_v = static_cast<float>((cur + threadIdx.x) & 1023);
+    int best_i = threadIdx.x;
+    warp_argmax(best_v, best_i);
+    if (lane == 0) {
+      warp_v[warp] = best_v;
+      warp_i[warp] = best_i;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      best_v = lane < n_warps ? warp_v[lane] : -1.0f;
+      best_i = lane < n_warps ? warp_i[lane] : blockDim.x;
+      warp_argmax(best_v, best_i);
+      if (lane == 0) chosen = best_i;
+    }
+    __syncthreads();
+    cur = chosen;
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = cur;
+}
+
 }  // namespace
+
+// The block size fps_forward gives a cloud of n points.
+static int fps_threads(int n) {
+  const int threads = ((n + 31) / 32) * 32;
+  return threads > kMaxThreads ? kMaxThreads : threads;
+}
+
+// Runs the dependent chain of `npoint` rounds (fps_chain_kernel) in `batch`
+// blocks of the size fps_forward uses for n points; out (batch,) int32. For
+// timing the chain of fps_forward's present design. Returns the launch's cudaError_t.
+extern "C" int fps_chain_probe(int* out, int batch, int n, int npoint, void* stream) {
+  if (batch < 1 || n < 1 || npoint < 1) return cudaErrorInvalidValue;
+  fps_chain_kernel<<<batch, fps_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(out, npoint);
+  return cudaGetLastError();
+}
 
 // xyz (B, N, 3) float32 and out (B, npoint) int32, both contiguous on the
 // device; launches on `stream`. Returns the cudaError_t of the launch (0 = ok).
@@ -108,8 +159,6 @@ extern "C" int fps_forward(const float* xyz, int* out, int batch, int n, int npo
         fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  fps_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(xyz, out, n, npoint);
+  fps_kernel<<<batch, fps_threads(n), smem, static_cast<cudaStream_t>(stream)>>>(xyz, out, n, npoint);
   return cudaGetLastError();
 }

@@ -27,27 +27,53 @@
 // Backward: dZ[b, j] = sum of dD[b, s, m] over every (m, s) with
 // idx[b, m, s] == j. Pad slots hold the first hit (or point 0 for an empty
 // ball), so their gradient reaches that point as in the TPU kernel
-// (pallas_group.py:118-145). A float atomicAdd scatter would sum in another
-// order on every run; this one is deterministic, two runs give equal bits:
-//   group_csr_kernel, one block per batch row: count the references of every
-//     source point (shared-memory integer atomics, order-free), exclusive scan,
-//     then one warp fills the CSR table of row ids e = m * ns + s in ascending
-//     e (__match_any_sync ranks the lanes that share a point, so each segment
-//     comes out sorted without a sort) and cuts each segment into chunks of at
-//     most 32 rows;
-//   group_partial_kernel, one warp per chunk: sums its dD rows in CSR order,
-//     lanes across H (coalesced loads);
-//   group_combine_kernel, one warp per (batch row, source point): adds its
-//     chunks' sums in order.
-// Segments are uneven: resampling repeats points, FPS then picks centers on
-// the copies, and thousands of rows can share one first hit. Summed by one
-// warp per point, such a segment took 3.2 ms at the first backbone stage on an
-// H100 (PERF.md); in chunks every warp sums at most 32 rows.
-// What bounds it: bytes. Every dD row is read once (the same 201 MB), dZ is
-// written once; the CSR build reads idx from shared memory and is latency
-// bound in its single filling warp.
+// (pallas_group.py:118-145). What bounds it: bytes. Every dD row is read once
+// (the same 201 MB), dZ is written once. Segments are uneven: resampling repeats
+// points, FPS then picks centers on the copies, and thousands of rows can share
+// one first hit, so the work is cut into chunks of at most 32 rows whatever the
+// duplication.
+//
+// Deterministic, two runs give equal bits: a float atomicAdd scatter would sum
+// in another order on every run; here the order depends on idx and the launch
+// geometry only. It is the order ops/group.py:group_backward_ordered writes out:
+//   1. a point's rows in ascending e = m * ns + s;
+//   2. cut into chunks of 32 consecutive rows;
+//   3. a chunk is summed by one warp, lanes across H in 16-byte columns (H is a
+//      multiple of 4, at least 64); where a row is narrower than the warp
+//      (H = 64: 16 lanes) the warp takes S = 2 rows per load, sub-sum u adds
+//      rows u, u + S, ... in order, and the sub-sums are added pairwise (u and
+//      u + S/2, halving);
+//   4. a point's chunks are cut into 8 contiguous ranges of ceil(chunks / 8),
+//      each range is added in order from zero, and the ranges' sums are added
+//      in order.
+// Two kernels build and use that order, a third handles the rare long segments:
+//   group_csr_kernel, one block of 16 warps per batch row. Each warp owns a
+//     contiguous range of the row's M * ns entries: it counts its references to
+//     every point (shared-memory integer atomics on its own counters,
+//     order-free), the block turns the counts into per-(range, point) offsets
+//     and scans the per-point totals, and then every warp fills its range into
+//     the CSR table at its own offsets in ascending e (__match_any_sync ranks
+//     the lanes that share a point). Ranges are contiguous and ascending, so
+//     each segment comes out sorted by e without a sort, whichever warp ran
+//     first. The table holds dD row numbers s * M + m, so the summing loop has
+//     no division. Chunk descriptors are written one thread per chunk (a
+//     binary search of the chunk scan), so a point with hundreds of chunks
+//     costs no more than hundreds of points.
+//   group_sum_kernel, a warp per chunk over a grid that strides the row's real
+//     chunk count: 8 rows of 16-byte loads in flight per lane. A point with a
+//     single chunk (almost all) gets its dZ row written here, a point with no
+//     reference its zeros; only chunks of longer segments go to `partial`.
+//   group_combine_kernel walks the list of multi-chunk points, a block per
+//     point, a warp per range of its chunks: a segment of 9540 rows (seen at
+//     the first backbone stage) is 299 chunks, 38 dependent rounds of loads
+//     for a warp instead of 299.
+// Why all warps fill and only long segments combine: with one filling warp and
+// every chunk sent through `partial`, the CSR build took a third and the
+// combine a tenth of the backward's time on an H100 (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "ball_query.cuh"
 
@@ -56,8 +82,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCsrThreads = 512;
-constexpr int kCols = 8;     // columns per lane and pass in the backward sums
-constexpr int kChunk = 32;   // rows per chunk of a segment in the backward
+constexpr int kRanges = kCsrThreads / 32;  // ranges of a batch row's entries, one per warp of the CSR build
+constexpr int kChunk = 32;                 // rows per chunk of a segment in the backward
+constexpr int kInFlight = 8;               // loads a lane issues before it adds them
+constexpr int kCombineBlocks = 8;          // blocks per batch row that walk the multi-chunk points
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
@@ -101,145 +129,265 @@ group_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ ctr,
   }
 }
 
+// Exclusive scan of data[0, n) in place by the whole block; data[n] gets the
+// total. warp_tot holds one int per warp. Every thread of the block calls it.
+__device__ void block_exclusive_scan(int* data, int n, int* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(n, static_cast<int>(threadIdx.x) * per);
+  const int j1 = min(n, j0 + per);
+  int local = 0;
+  for (int j = j0; j < j1; ++j) local += data[j];
+  const int incl = warp_inclusive_scan(local, lane);
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int run = incl - local;
+  for (int w = 0; w < warp; ++w) run += warp_tot[w];
+  for (int j = j0; j < j1; ++j) {
+    const int x = data[j];
+    data[j] = run;
+    run += x;
+  }
+  if (threadIdx.x == blockDim.x - 1) data[n] = run;
+  __syncthreads();
+}
+
+// chunk descriptor: x = first CSR entry, y = point << 8 | rows << 1 | single
+__device__ __forceinline__ int2 pack_chunk(int k0, int j, int len, bool single) {
+  return make_int2(k0, (j << 8) | (len << 1) | (single ? 1 : 0));
+}
+
 __global__ void __launch_bounds__(kCsrThreads)
 group_csr_kernel(const int* __restrict__ idx, int* __restrict__ rows, int* __restrict__ chunk_start,
-                 int2* __restrict__ chunks, int n, int entries, int max_chunks) {
+                 int2* __restrict__ chunks, int* __restrict__ multi, int n, int m_total, int ns,
+                 int max_chunks) {
   extern __shared__ int sm[];
-  int* start = sm;              // n + 1: counts, then their exclusive scan
-  int* cursor = start + n + 1;  // n: rows placed so far per point
-  int* sidx = cursor + n;       // entries: this batch row's idx
+  int* cnt = sm;                     // kRanges x n: references of range r to point j, then offsets
+  int* start = cnt + kRanges * n;    // n + 1: per-point totals, then their exclusive scan
+  int* cstart = start + n + 1;       // n + 1: chunks per point, then their exclusive scan
+  int* warp_tot = cstart + n + 1;    // kRanges
+  int* n_multi = warp_tot + kRanges;  // 1
   const int b = blockIdx.x;
+  const int entries = m_total * ns;
   const int* ib = idx + static_cast<size_t>(b) * entries;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int range = (((entries + kRanges - 1) / kRanges) + 31) & ~31;
+  const int e_begin = min(entries, warp * range);
+  const int e_end = min(entries, e_begin + range);
+  int* mine = cnt + warp * n;
 
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) start[j] = 0;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) cursor[j] = 0;
+  for (int e = threadIdx.x; e < kRanges * n; e += kCsrThreads) cnt[e] = 0;
+  if (threadIdx.x == 0) *n_multi = 0;
   __syncthreads();
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    const int j = ib[e];
-    sidx[e] = j;
-    atomicAdd(start + j, 1);
+  for (int e = e_begin + lane; e < e_end; e += 32) atomicAdd(mine + ib[e], 1);
+  __syncthreads();
+  // per point: offsets of the ranges within its segment, the total, the chunks
+  for (int j = threadIdx.x; j < n; j += kCsrThreads) {
+    int run = 0;
+    for (int r = 0; r < kRanges; ++r) {
+      const int x = cnt[r * n + j];
+      cnt[r * n + j] = run;
+      run += x;
+    }
+    start[j] = run;
+    cstart[j] = run > kChunk ? (run + kChunk - 1) / kChunk : 1;  // a point without rows: one empty chunk
   }
   __syncthreads();
-  if (threadIdx.x >= 32) return;
+  block_exclusive_scan(start, n, warp_tot);
+  block_exclusive_scan(cstart, n, warp_tot);
 
-  // exclusive scan of the counts, 32 points per round
-  int carry = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    const int x = j < n ? start[j] : 0;
-    const int v = warp_inclusive_scan(x, lane);
-    if (j < n) start[j] = carry + v - x;
-    carry += __shfl_sync(ptt::kFullMask, v, 31);
-  }
-  if (lane == 0) start[n] = carry;
-  __syncwarp();
-
-  // ordered fill: entries in ascending e, lanes sharing a point ranked by lane
+  // ordered fill of this warp's range: entries in ascending e, lanes sharing a
+  // point ranked by lane
   int* rb = rows + static_cast<size_t>(b) * entries;
-  for (int e0 = 0; e0 < entries; e0 += 32) {
+  for (int e0 = e_begin; e0 < e_end; e0 += 32) {
     const int e = e0 + lane;
-    const bool live = e < entries;
-    const int j = live ? sidx[e] : -1 - lane;  // dead lanes get keys of their own
+    const bool live = e < e_end;
+    const int j = live ? ib[e] : -1 - lane;  // dead lanes get keys of their own
     const unsigned peers = __match_any_sync(ptt::kFullMask, j);
-    if (live) rb[start[j] + cursor[j] + __popc(peers & ((1u << lane) - 1u))] = e;
+    if (live) {
+      const int m = e / ns;
+      rb[start[j] + mine[j] + __popc(peers & ((1u << lane) - 1u))] = (e - m * ns) * m_total + m;
+    }
     __syncwarp();
-    if (live && lane == __ffs(peers) - 1) cursor[j] += __popc(peers);
+    if (live && lane == __ffs(peers) - 1) mine[j] += __popc(peers);
     __syncwarp();
   }
 
-  // cut every segment into chunks of at most kChunk rows, numbered point by point
+  // chunk descriptors, one thread per chunk; the points with several chunks
   int* cb = chunk_start + static_cast<size_t>(b) * (n + 1);
   int2* kb = chunks + static_cast<size_t>(b) * max_chunks;
-  carry = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    const int k0 = j < n ? start[j] : 0;
-    const int k1 = j < n ? start[j + 1] : 0;
-    const int x = (k1 - k0 + kChunk - 1) / kChunk;
-    const int v = warp_inclusive_scan(x, lane);
-    const int c0 = carry + v - x;
-    if (j < n) {
-      cb[j] = c0;
-      for (int c = 0; c < x; ++c) kb[c0 + c] = make_int2(k0 + c * kChunk, min(k1, k0 + (c + 1) * kChunk));
+  int* mb = multi + static_cast<size_t>(b) * (n + 1);
+  const int total = cstart[n];
+  for (int c = threadIdx.x; c < total; c += kCsrThreads) {
+    int lo = 0, hi = n - 1;  // the point j with cstart[j] <= c < cstart[j + 1]
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (cstart[mid] <= c) lo = mid; else hi = mid - 1;
     }
-    carry += __shfl_sync(ptt::kFullMask, v, 31);
+    const int k0 = start[lo] + (c - cstart[lo]) * kChunk;
+    kb[c] = pack_chunk(k0, lo, min(kChunk, start[lo + 1] - k0), cstart[lo + 1] - cstart[lo] == 1);
   }
-  if (lane == 0) cb[n] = carry;
+  for (int j = threadIdx.x; j <= n; j += kCsrThreads) cb[j] = cstart[j];
+  for (int j = threadIdx.x; j < n; j += kCsrThreads) {
+    if (cstart[j + 1] - cstart[j] > 1) mb[1 + atomicAdd(n_multi, 1)] = j;  // any order: points are independent
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) mb[0] = *n_multi;
 }
 
-// one warp per chunk: the chunk's dD rows summed in CSR order, lanes across H
+__device__ __forceinline__ void add_to(float4& a, const float4 v) {
+  a.x += v.x;
+  a.y += v.y;
+  a.z += v.z;
+  a.w += v.w;
+}
+__device__ __forceinline__ float4 shfl_down_v(const float4 v, int d) {
+  return make_float4(__shfl_down_sync(ptt::kFullMask, v.x, d), __shfl_down_sync(ptt::kFullMask, v.y, d),
+                     __shfl_down_sync(ptt::kFullMask, v.z, d), __shfl_down_sync(ptt::kFullMask, v.w, d));
+}
+__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+// A warp per chunk: the chunk's dD rows summed in CSR order, lanes across a
+// row's hv = H / 4 16-byte columns, `sub` = 2 rows per load when hv = 16.
+using V = float4;
+
 __global__ void __launch_bounds__(kThreads)
-group_partial_kernel(const float* __restrict__ dd, const int* __restrict__ rows,
-                     const int* __restrict__ chunk_start, const int2* __restrict__ chunks,
-                     float* __restrict__ partial, int batch, int n, int m_total, int ns, int h,
-                     int max_chunks) {
-  const long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (w >= static_cast<long long>(batch) * max_chunks) return;
-  const int b = static_cast<int>(w / max_chunks);
-  const int c = static_cast<int>(w - static_cast<long long>(b) * max_chunks);
-  if (c >= chunk_start[static_cast<size_t>(b) * (n + 1) + n]) return;
+group_sum_kernel(const float* __restrict__ dd, const int* __restrict__ rows,
+                 const int* __restrict__ chunk_start, const int2* __restrict__ chunks,
+                 float* __restrict__ partial, float* __restrict__ dz, int n, int entries, int hv,
+                 int sub, int max_chunks) {
+  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int2 k = chunks[static_cast<size_t>(b) * max_chunks + c];
-  const int len = k.y - k.x;  // 1 .. kChunk
-  const int e_lane = lane < len ? rows[static_cast<size_t>(b) * m_total * ns + k.x + lane] : 0;
-  const float* ddb = dd + static_cast<size_t>(b) * ns * m_total * h;
-  float* dst = partial + (static_cast<size_t>(b) * max_chunks + c) * h;
-  for (int c0 = 0; c0 < h; c0 += 32 * kCols) {
-    float acc[kCols];
+  const int n_chunks = chunk_start[static_cast<size_t>(b) * (n + 1) + n];
+  const V* ddb = reinterpret_cast<const V*>(dd) + static_cast<size_t>(b) * entries * hv;
+  const int* rb = rows + static_cast<size_t>(b) * entries;
+  const int u = sub > 1 ? lane / hv : 0;        // which of the `sub` rows of a load
+  const int lane_col = sub > 1 ? lane - u * hv : lane;
+  for (int c = blockIdx.x * kWarps + (threadIdx.x >> 5); c < n_chunks; c += gridDim.x * kWarps) {
+    const int2 d = chunks[static_cast<size_t>(b) * max_chunks + c];
+    const int len = (d.y >> 1) & 127;
+    const int e_lane = lane < len ? rb[d.x + lane] : 0;
+    V* dst = (d.y & 1) ? reinterpret_cast<V*>(dz) + (static_cast<size_t>(b) * n + (d.y >> 8)) * hv
+                       : reinterpret_cast<V*>(partial) + (static_cast<size_t>(b) * max_chunks + c) * hv;
+    const int steps = (len + sub - 1) / sub;
+    for (int p0 = 0; p0 < hv; p0 += 32) {
+      const int col = p0 + lane_col;
+      const bool active = u < sub && col < hv;
+      V acc;
+      zero(acc);
+      for (int q0 = 0; q0 < steps; q0 += kInFlight) {
+        V v[kInFlight];
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) acc[i] = 0.0f;
-#pragma unroll 4
-    for (int t = 0; t < len; ++t) {
-      const int e = __shfl_sync(ptt::kFullMask, e_lane, t);
-      const int m = e / ns;
-      const float* src = ddb + (static_cast<size_t>(e - m * ns) * m_total + m) * h;
+        for (int i = 0; i < kInFlight; ++i) {
+          const int t = (q0 + i) * sub + u;
+          const int e = __shfl_sync(ptt::kFullMask, e_lane, t & 31);
+          zero(v[i]);
+          if (active && t < len) v[i] = __ldg(ddb + static_cast<size_t>(e) * hv + col);
+        }
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int col = c0 + lane + 32 * i;
-        if (col < h) acc[i] += src[col];
+        for (int i = 0; i < kInFlight; ++i) add_to(acc, v[i]);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int col = c0 + lane + 32 * i;
-      if (col < h) dst[col] = acc[i];
+      for (int o = sub >> 1; o > 0; o >>= 1) add_to(acc, shfl_down_v(acc, o * hv));
+      if (u == 0 && col < hv) dst[col] = acc;
     }
   }
 }
 
-// one warp per (batch row, source point): its chunks' partial sums in order
+// A block per point with several chunks: its chunks are cut into kWarps
+// contiguous ranges of ceil(chunks / kWarps), a warp adds its range's partial
+// sums in order, and the ranges' sums are added in order (a range without
+// chunks adds zeros). The longest chain of dependent loads is an eighth of the
+// segment's chunks.
 __global__ void __launch_bounds__(kThreads)
 group_combine_kernel(const float* __restrict__ partial, const int* __restrict__ chunk_start,
-                     float* __restrict__ dz, int batch, int n, int h, int max_chunks) {
-  const long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (w >= static_cast<long long>(batch) * n) return;
+                     const int* __restrict__ multi, float* __restrict__ dz, int n, int hv,
+                     int max_chunks) {
+  extern __shared__ V range_sum[];  // kWarps x hv
+  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int b = static_cast<int>(w / n);
-  const int j = static_cast<int>(w - static_cast<long long>(b) * n);
+  const int warp = threadIdx.x >> 5;
+  const int* mb = multi + static_cast<size_t>(b) * (n + 1);
   const int* cb = chunk_start + static_cast<size_t>(b) * (n + 1);
-  const int c1 = cb[j + 1];
-  const float* pb = partial + static_cast<size_t>(b) * max_chunks * h;
-  float* dst = dz + (static_cast<size_t>(b) * n + j) * h;
-  for (int col = lane; col < h; col += 32) {
-    float acc = 0.0f;
-    for (int c = cb[j]; c < c1; ++c) acc += pb[static_cast<size_t>(c) * h + col];
-    dst[col] = acc;
+  const V* pb = reinterpret_cast<const V*>(partial) + static_cast<size_t>(b) * max_chunks * hv;
+  const int n_multi = mb[0];
+  for (int i = blockIdx.x; i < n_multi; i += gridDim.x) {
+    const int j = mb[1 + i];
+    const int c0 = cb[j], c1 = cb[j + 1];
+    const int per = (c1 - c0 + kWarps - 1) / kWarps;
+    const int r0 = min(c1, c0 + warp * per), r1 = min(c1, r0 + per);
+    for (int col = lane; col < hv; col += 32) {
+      V acc;
+      zero(acc);
+      for (int q0 = r0; q0 < r1; q0 += kInFlight) {
+        V v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          zero(v[u]);
+          if (q0 + u < r1) v[u] = pb[static_cast<size_t>(q0 + u) * hv + col];
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) add_to(acc, v[u]);
+      }
+      range_sum[warp * hv + col] = acc;
+    }
+    __syncthreads();
+    V* dst = reinterpret_cast<V*>(dz) + (static_cast<size_t>(b) * n + j) * hv;
+    for (int col = threadIdx.x; col < hv; col += kThreads) {
+      V acc = range_sum[col];
+      for (int w = 1; w < kWarps; ++w) add_to(acc, range_sum[w * hv + col]);
+      dst[col] = acc;
+    }
+    __syncthreads();
   }
 }
 
-// The backward's scratch layout, known here only: the CSR build's shared memory
-// and the number of chunks a batch row can have (every point may end a chunk).
-size_t csr_smem_bytes(int n, int m_total, int ns) {
-  return (2 * static_cast<size_t>(n) + 1 + static_cast<size_t>(m_total) * ns) * sizeof(int);
+// The backward's scratch layout, known here only: the CSR build's shared memory,
+// the tables' sizes and the number of chunks a batch row can have (every point ends a chunk, and
+// a point without rows has an empty one).
+size_t csr_smem_bytes(int n) {
+  return (static_cast<size_t>(kRanges) * n + 2 * (static_cast<size_t>(n) + 1) + kRanges + 1) * sizeof(int);
 }
 
 int backward_max_chunks(int n, int m_total, int ns) { return (m_total * ns + kChunk - 1) / kChunk + n; }
+
+// int32 words of the tables: chunks (2 per chunk), rows, chunk_start, multi
+long long scratch_ints_total(int batch, int n, int m_total, int ns) {
+  return static_cast<long long>(batch) *
+         (2LL * backward_max_chunks(n, m_total, ns) + static_cast<long long>(m_total) * ns + 2LL * (n + 1));
+}
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// rows a warp takes per load of hv 16-byte columns: the largest power of two
+// with sub * hv <= 32
+int rows_per_load(int hv) {
+  int sub = 1;
+  while (sub * 2 * hv <= 32) sub *= 2;
+  return sub;
+}
+
+cudaError_t launch_sums(const float* dd, const int* rows, const int* chunk_start, const int2* chunks,
+                        const int* multi, float* partial, float* dz, int batch, int n, int entries,
+                        int h, int max_chunks, cudaStream_t st) {
+  const int hv = h / 4;
+  const int sub = rows_per_load(hv);
+  // about 4 chunks a warp at the largest chunk count
+  const int sum_blocks = max(1, min(64, (max_chunks + 4 * kWarps - 1) / (4 * kWarps)));
+  group_sum_kernel<<<dim3(sum_blocks, batch), kThreads, 0, st>>>(
+      dd, rows, chunk_start, chunks, partial, dz, n, entries, hv, sub, max_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = static_cast<size_t>(kWarps) * h * sizeof(float);
+  if ((err = set_smem(reinterpret_cast<const void*>(group_combine_kernel), smem)) != cudaSuccess) return err;
+  group_combine_kernel<<<dim3(kCombineBlocks, batch), kThreads, smem, st>>>(partial, chunk_start, multi,
+                                                                              dz, n, hv, max_chunks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -260,42 +408,60 @@ extern "C" int group_forward(const float* xyz, const float* ctr, const float* z,
   return cudaGetLastError();
 }
 
-// max_chunks of group_backward's scratch for N source points and M * ns rows
-// per batch row, or -1 if the CSR build's shared memory exceeds what the current
-// device gives one block (-2 if the device cannot be queried).
-extern "C" int group_backward_chunks(int n, int m_total, int ns) {
+// Sizes of group_backward's scratch for `batch` rows of N source points and
+// M * ns entries: *scratch_ints int32 of tables and *max_chunks rows of H floats
+// of partial sums per batch row. Returns 0, or -1 if the CSR build's shared
+// memory exceeds what the current device gives one block or a chunk descriptor
+// cannot hold N (-2 if the device cannot be queried).
+extern "C" int group_backward_scratch(int batch, int n, int m_total, int ns, long long* scratch_ints,
+                                      int* max_chunks) {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return -2;
-  if (csr_smem_bytes(n, m_total, ns) > static_cast<size_t>(limit)) return -1;
-  return backward_max_chunks(n, m_total, ns);
+  if (csr_smem_bytes(n) > static_cast<size_t>(limit) || n >= (1 << 23)) return -1;
+  *max_chunks = backward_max_chunks(n, m_total, ns);
+  *scratch_ints = scratch_ints_total(batch, n, m_total, ns);
+  return 0;
+}
+
+// The constants of the backward's summation order (the header note's steps
+// 2-4) for rows of h floats: rows per chunk, ranges a point's chunks are cut
+// into, rows a warp takes per load. Returns 0.
+extern "C" int group_backward_order(int h, int* chunk, int* ranges, int* sub) {
+  *chunk = kChunk;
+  *ranges = kWarps;
+  *sub = rows_per_load(h / 4);
+  return 0;
 }
 
 // dd (B, ns, M, H) float32 and idx (B, M, ns) int32 in; dz (B, N, H) float32
-// out. Scratch: rows (B, M * ns) int32, chunk_start (B, N + 1) int32, chunks
-// (B, max_chunks) int2 and partial (B, max_chunks, H) float32, with max_chunks
-// from group_backward_chunks. All contiguous on the device. Launches three
-// kernels on `stream`; returns the cudaError_t of the launches (0 = ok).
-extern "C" int group_backward(const float* dd, const int* idx, int* rows, int* chunk_start, void* chunks,
-                              float* partial, float* dz, int batch, int n, int m_total, int ns, int h,
-                              void* stream) {
-  if (batch < 1 || n < 1 || m_total < 1 || ns < 1 || h < 1) return cudaErrorInvalidValue;
+// out; H is a multiple of 4 and at least 64 (a row is 16 or more 16-byte
+// columns), dd, partial and dz are 16-byte aligned; any other call is refused
+// with cudaErrorInvalidValue. Scratch, sized by group_backward_scratch: `scratch` int32 (8-byte
+// aligned), cut here into rows (B, M * ns), chunk_start (B, N + 1), multi
+// (B, N + 1) and chunks (B, max_chunks) int2; partial (B, max_chunks, H) float32.
+// All contiguous on the device. Launches three kernels on `stream`; returns the
+// cudaError_t of the launches (0 = ok).
+extern "C" int group_backward(const float* dd, const int* idx, int* scratch, float* partial, float* dz,
+                              int batch, int n, int m_total, int ns, int h, void* stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (batch < 1 || n < 1 || m_total < 1 || ns < 1 || h < 64 || h % 4 != 0 || !aligned(dd) ||
+      !aligned(partial) || !aligned(dz)) {
+    return cudaErrorInvalidValue;
+  }
   const auto st = static_cast<cudaStream_t>(stream);
-  const int entries = m_total * ns;
   const int max_chunks = backward_max_chunks(n, m_total, ns);
-  const size_t smem = csr_smem_bytes(n, m_total, ns);
+  const size_t b = static_cast<size_t>(batch);
+  auto* kb = reinterpret_cast<int2*>(scratch);  // first: int2 needs the 8-byte boundary
+  int* rows = scratch + 2 * b * max_chunks;
+  int* chunk_start = rows + b * m_total * ns;
+  int* multi = chunk_start + b * (n + 1);
+  const size_t smem = csr_smem_bytes(n);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(group_csr_kernel), smem);
   if (err != cudaSuccess) return err;
-  auto* kb = static_cast<int2*>(chunks);
-  group_csr_kernel<<<batch, kCsrThreads, smem, st>>>(idx, rows, chunk_start, kb, n, entries, max_chunks);
+  group_csr_kernel<<<batch, kCsrThreads, smem, st>>>(idx, rows, chunk_start, kb, multi, n, m_total, ns,
+                                                     max_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long chunk_warps = static_cast<long long>(batch) * max_chunks;
-  group_partial_kernel<<<static_cast<unsigned>((chunk_warps + kWarps - 1) / kWarps), kThreads, 0, st>>>(
-      dd, rows, chunk_start, kb, partial, batch, n, m_total, ns, h, max_chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long point_warps = static_cast<long long>(batch) * n;
-  group_combine_kernel<<<static_cast<unsigned>((point_warps + kWarps - 1) / kWarps), kThreads, 0, st>>>(
-      partial, chunk_start, dz, batch, n, h, max_chunks);
-  return cudaGetLastError();
+  return launch_sums(dd, rows, chunk_start, kb, multi, partial, dz, batch, n, m_total * ns, h, max_chunks, st);
 }

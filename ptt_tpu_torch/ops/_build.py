@@ -37,14 +37,17 @@ _i = ctypes.c_int
 # entry point -> (source, ctypes argument types); every entry point returns int
 _FUNCTIONS = {
     "fps_forward": ("fps", [_p, _p, _i, _i, _i, _p]),
+    "fps_chain_probe": ("fps", [_p, _i, _i, _i, _p]),
     "sa_forward": (
         "sa",
-        [_p, _p, _p, _p, _i, ctypes.POINTER(_p), ctypes.POINTER(_p), ctypes.POINTER(_i),
-         _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],
+        [_p, _p, _p, _i, _p, _p, _i, ctypes.c_float, _i, _p, _p, _p, _i, ctypes.POINTER(_p), ctypes.POINTER(_p),
+         ctypes.POINTER(_i), _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],
     ),
+    "sa_prep_floats": ("sa", [_i, ctypes.POINTER(_i)]),
     "group_forward": ("group", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, ctypes.c_float, _p]),
-    "group_backward": ("group", [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
-    "group_backward_chunks": ("group", [_i, _i, _i]),
+    "group_backward": ("group", [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
+    "group_backward_scratch": ("group", [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)]),
+    "group_backward_order": ("group", [_i, ctypes.POINTER(_i), ctypes.POINTER(_i), ctypes.POINTER(_i)]),
 }
 
 _loaded: dict = {}

@@ -46,6 +46,18 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+def chain_probe(batch: int, n: int, npoint: int, device) -> None:
+    """Launch the dependent chain of ``npoint`` rounds alone, in the launch
+    geometry ``furthest_point_sample`` uses for (batch, n, 3) -> npoint
+    (csrc/fps.cu ``fps_chain_kernel``): a timing of it gives what this design's
+    barriers and reductions cost without its per-point work. Not counted as a launch."""
+    out = torch.empty((batch,), dtype=torch.int32, device=device)
+    fn = _build.function("fps_chain_probe")
+    with torch.cuda.device(device):
+        err = fn(out.data_ptr(), batch, n, npoint, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "fps chain probe")
+
+
 def furthest_point_sample_pair(xyz_a, npoint_a: int, xyz_b, npoint_b: int,
                                sample=furthest_point_sample):
     """FPS of the two Siamese branches in one call of ``sample``. The smaller

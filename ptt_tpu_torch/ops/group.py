@@ -15,6 +15,9 @@ XLA outside its kernels.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import _build
@@ -22,7 +25,7 @@ from .point_ops import ball_query, group_points, query_and_group, radius_sq
 
 # launches made through group_forward / group_backward (a run resets them to 0):
 # one per call each; a backward call is three kernels (CSR build, chunk sums,
-# combine), counted as one
+# combine of the few long segments), counted as one
 fwd_launches = 0
 bwd_launches = 0
 
@@ -74,6 +77,81 @@ def group_backward_plain(dd, idx, n: int):
     return dd.new_zeros((B * n, H)).index_add_(0, flat, rows).reshape(B, n, H)
 
 
+def check_kernel_width(h: int) -> None:
+    """Raises ValueError unless ``csrc/group.cu``'s backward takes rows of ``h``
+    floats: a multiple of 4 (16-byte columns), at least 64 (a row is half a
+    warp or more). Every stage of ptt.yaml qualifies."""
+    if h < 64 or h % 4:
+        raise ValueError(f"grouped_first_linear: the backward kernel takes H >= 64 in multiples of 4, got {h}")
+
+
+def documented_order(h: int):
+    """(rows per chunk, ranges of a point's chunks, rows per warp-wide load) of
+    the backward's summation order as ``csrc/group.cu``'s header note states it
+    for rows of ``h`` floats. ``kernel_order`` asks the built library for the
+    same three numbers."""
+    check_kernel_width(h)
+    return 32, 8, (2 if h == 64 else 1)
+
+
+def kernel_order(h: int):
+    """``documented_order`` as ``csrc/group.cu`` itself has it (builds the
+    library: only where nvcc is)."""
+    check_kernel_width(h)
+    chunk, ranges, sub = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _build.function("group_backward_order")(h, ctypes.byref(chunk), ctypes.byref(ranges), ctypes.byref(sub))
+    return chunk.value, ranges.value, sub.value
+
+
+def group_backward_ordered(dd, idx, n: int, order=None):
+    """``group_backward_plain`` summed in the order the CUDA kernel documents
+    (csrc/group.cu), every addition written out, so that two runs give equal
+    bits on any device: a point's rows in ascending e = m * ns + s, cut into
+    chunks; within a chunk ``sub`` interleaved sub-sums (``sub`` rows fit one
+    warp-wide load of 16-byte columns), added pairwise by halving; then the
+    point's chunks in contiguous ranges of ceil(chunks / ranges), each range
+    added in order, then the ranges' sums in order (a point with one chunk,
+    almost every point, is that chunk's sum). ``order`` is (chunk, ranges, sub),
+    ``documented_order`` when not given."""
+    B, ns, M, H = dd.shape
+    E = M * ns
+    dev = dd.device
+    chunk_rows, n_ranges, sub = documented_order(H) if order is None else order
+    rows = dd.permute(0, 2, 1, 3).reshape(B * E, H)
+    key = (idx.long() + n * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+    by_point = torch.sort(key, stable=True).indices  # by (batch row, point), ascending e within
+    skey = key[by_point]
+    counts = torch.bincount(key, minlength=B * n)
+    pos = torch.arange(B * E, device=dev) - (counts.cumsum(0) - counts)[skey]
+    n_chunks = ((counts + chunk_rows - 1) // chunk_rows).clamp_min(1)  # a point without rows: one empty chunk
+    first = n_chunks.cumsum(0) - n_chunks
+    chunk = first[skey] + pos // chunk_rows
+    t = pos % chunk_rows
+    acc = dd.new_zeros((int(n_chunks.sum()), sub, H))
+    for q in range(chunk_rows // sub):  # step q adds row q * sub + u to sub-sum u: one row per target
+        sel = (t // sub) == q
+        c, u = chunk[sel], (t % sub)[sel]
+        acc[c, u] = acc[c, u] + rows[by_point[sel]]
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    partial = acc[:, 0]
+    # a point's chunks in n_ranges contiguous ranges, each added in order from zero
+    per = (n_chunks + n_ranges - 1) // n_ranges
+    range_sum = dd.new_zeros((B * n, n_ranges, H))
+    points = torch.arange(B * n, device=dev)
+    for r in range(n_ranges):
+        for p in range(int(per.max())):
+            c = r * per + p
+            sel = (p < per) & (c < n_chunks)
+            if bool(sel.any()):
+                range_sum[points[sel], r] = range_sum[points[sel], r] + partial[first[sel] + c[sel]]
+    dz = range_sum[:, 0]
+    for r in range(1, n_ranges):
+        dz = dz + range_sum[:, r]
+    return dz.reshape(B, n, H)
+
+
 # ---------------------------------------------------------------------- wrappers
 
 
@@ -123,6 +201,19 @@ def _launch_fwd(xyz, new_xyz, z, off, radius, nsample):
     return out, idx
 
 
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch(B: int, n: int, M: int, ns: int, device_index: int):
+    """(int32 words of tables, chunks per batch row) of the backward's scratch;
+    its layout is csrc/group.cu's."""
+    ints, max_chunks = ctypes.c_longlong(0), ctypes.c_int(0)
+    err = _build.function("group_backward_scratch")(B, n, M, ns, ctypes.byref(ints), ctypes.byref(max_chunks))
+    if err == -1:
+        raise ValueError(f"grouped_first_linear: backward of N = {n} does not fit in shared memory")
+    if err != 0:
+        raise RuntimeError("grouped_first_linear: cannot query the device's shared memory")
+    return ints.value, max_chunks.value
+
+
 def _launch_bwd(dd, idx, n):
     global bwd_launches
     _check("dD", dd)
@@ -130,23 +221,17 @@ def _launch_bwd(dd, idx, n):
     B, ns, M, H = dd.shape
     if idx.shape != (B, M, ns):
         raise ValueError("grouped_first_linear: idx does not match dD")
+    check_kernel_width(H)
     dev = dd.device
     fn = _build.function("group_backward")
     with torch.cuda.device(dev):
-        max_chunks = _build.function("group_backward_chunks")(n, M, ns)  # the scratch layout is group.cu's
-        if max_chunks == -1:
-            raise ValueError(f"grouped_first_linear: backward of N = {n}, M * ns = {M * ns} "
-                             "does not fit in shared memory")
-        if max_chunks < 0:
-            raise RuntimeError("grouped_first_linear: cannot query the device's shared memory")
+        ints, max_chunks = _bwd_scratch(B, n, M, ns, torch.cuda.current_device())
         dz = torch.empty((B, n, H), dtype=torch.float32, device=dev)
-        rows = torch.empty((B, M * ns), dtype=torch.int32, device=dev)
-        chunk_start = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
-        chunks = torch.empty((B, max_chunks, 2), dtype=torch.int32, device=dev)
+        scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
         partial = torch.empty((B, max_chunks, H), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dd.data_ptr(), idx.data_ptr(), rows.data_ptr(), chunk_start.data_ptr(), chunks.data_ptr(),
-                 partial.data_ptr(), dz.data_ptr(), B, n, M, ns, H, stream)
+        err = fn(dd.data_ptr(), idx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), dz.data_ptr(),
+                 B, n, M, ns, H, stream)
     _build.check_launch(err, "group_backward")
     bwd_launches += 1
     return dz
