@@ -9,9 +9,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      tracker's forward gives it (B = 8), with time, bound and error per call; per
      SA shape also the neighbour table, layer 0 against its plain version, the
      plain emulation of the tensor-core tail, and two hard cases (the trained
-     weights scaled until activations reach ~1e3, and random weights); FPS with
-     the bound that counts its chain of rounds (cycle counts below), and beside
-     it the time of a probe kernel that runs the present design's chain alone;
+     weights scaled until activations reach ~1e3, and random weights); FPS also
+     at the two shapes of a B = 48 train step and on hard clouds (identical
+     points, exact ties in every round, ragged N, npoint == N, every compiled
+     form), with the bound that counts its chain of rounds: the cycle counts
+     below, held under what a probe kernel reads for each primitive on this card;
   3. the whole forward at full ``ptt.yaml`` width on the trained weights of
      ``tests/assets/ptt_synth_trained.npz``, kernel path against plain path;
   4. the device tracker (``DeviceTrackingEvaluator``) on 8 x 24 synthetic
@@ -20,10 +22,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   5. a profile of one tracker batch: device busy and idle shares, top kernels;
   6. the training kernels (``csrc/group.cu``, forward and backward) against
      their plain versions at the 7 shapes of a ptt_synth train step (B = 48):
-     forward error, neighbour table, dZ and the four input gradients, two
-     backward runs bit-equal and equal to the documented summation order; with
-     time, device time per backward kernel, bound and the index_add_ yardstick;
-     and the same checks on a heavy-duplication cloud (resampled from 32 points);
+     forward bit-equal to its plain version, neighbour table, dZ and the four
+     input gradients, two backward runs bit-equal and equal to the documented
+     summation order; with time by events and on the device, device time per
+     kernel, bound and the index_add_ yardstick;
+     the same checks on a heavy-duplication cloud (resampled from 32 points), and
+     the forward at ragged shapes no stage has (a short last tile, odd widths);
   7. training at full width from the trained weights, B = 48: 5 steps on the
      kernel path, each also taken by the plain path from the same state with
      the same FPS picks, both FPS calls of each step held against the plain
@@ -58,15 +62,18 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_CLOCK = 1.98e9
 SMS = 132
-# Least cycles from one dependent instruction to the next, for the bound of a
-# chain that no rate shortens (FPS). Taken low on purpose: published
-# microbenchmarks of Volta to Hopper read 4 for float32 and integer arithmetic,
-# 23 or more for a warp shuffle and for a shared-memory access, and more than 10
-# for a barrier that every warp has already reached.
+# Least cycles from one dependent step to the next, for the bound of a chain that
+# no rate shortens (FPS). Each is set under what ptt_tpu_torch/csrc/fps.cu's probe
+# kernel reads on an NVIDIA H100 80GB HBM3 at 700 W (a chain of float adds 4.48
+# cycles a step, warp shuffles 24.0, redux.sync 44.2, shared-memory loads 29.0,
+# a store and load of one word 33.4, a barrier of 1 / 4 / 16 warps 14.6 / 20.6 /
+# 45.0; SM clock 1.995 GHz). Phase 2 prints the probe's readings on the card it
+# runs on and fails if one of these constants is above its reading.
 CYC_ALU = 4
-CYC_SHFL = 20
-CYC_SMEM = 20
-CYC_BAR = 10
+CYC_SHFL = 23
+CYC_REDUX = 42
+CYC_SMEM = 28
+CYC_BAR = 14
 SA_RTOL = SA_ATOL = 1e-4  # kernel vs plain: float32 sums in another order
 # group kernels vs plain versions, relative to each tensor's largest entry: the
 # forward adds Z[j] + O[m] where the plain version multiplies the grouped
@@ -165,40 +172,57 @@ def fps_bound(xyz, npoint):
     return nbytes, ops
 
 
-def fps_round_cycles(n):
-    """Least cycles of one FPS round over n points, for the block size that makes
-    it least: round k needs round k - 1's choice, so whatever the design, a
-    round reads the chosen point (one shared-memory load), updates distances (a
-    chain of sub, mul, add, add, min; a warp's p points a thread at 10
-    instructions each share an issue slot with the other warps of its SM
-    quarter), takes the argmax over a warp (5 levels of shuffle, compare,
-    select) and, with several warps, crosses one barrier (store, barrier, load)
-    and reduces the warps' results by shuffles again. Returns (cycles, warps)."""
+def fps_round_cycles(n, redux=True):
+    """Least cycles of one FPS round over n points, for the block size and the
+    reduction forms that make it least: round k needs round k - 1's choice, so
+    whatever the design, a round reads the chosen point (one shared-memory
+    load), updates distances (a chain of sub, mul, add, add, min; a warp's p
+    points a thread at 10 instructions each share a scheduler's slots with the other
+    warps of its SM quarter), takes the argmax over a warp (5 levels of shuffle,
+    compare, select, or with ``redux`` a redux.sync for the largest value, a
+    compare and a redux.sync for its lowest index) and, with several warps,
+    crosses one barrier (store, barrier, load) and reduces the warps' results:
+    by shuffle levels, by the redux pair, or by every thread comparing all of
+    them itself (compare and select a level). Returns (cycles, warps)."""
+    shfl_level = CYC_SHFL + 2 * CYC_ALU
+    redux_pair = 2 * CYC_REDUX + CYC_ALU
     best = None
     for warps in (1, 2, 4, 8, 16, 32):
         p = -(-n // (32 * warps))
-        cycles = CYC_SMEM + 5 * CYC_ALU + 10 * p * -(-warps // 4) + 5 * (CYC_SHFL + 2 * CYC_ALU)
+        levels = warps.bit_length() - 1
+        in_warp = [5 * shfl_level] + ([redux_pair] if redux else [])
+        cycles = CYC_SMEM + 5 * CYC_ALU + 10 * p * -(-warps // 4) + min(in_warp)
         if warps > 1:
-            cycles += 2 * CYC_SMEM + CYC_BAR + (warps.bit_length() - 1) * (CYC_SHFL + 2 * CYC_ALU)
+            across = [levels * shfl_level, levels * 2 * CYC_ALU] + ([redux_pair] if redux else [])
+            cycles += 2 * CYC_SMEM + CYC_BAR + min(across)
         if best is None or cycles < best[0]:
             best = (cycles, warps)
     return best
 
 
-def fps_chain_bound_ms(xyz, npoint):
+def fps_chain_bound_ms(xyz, npoint, clock=PEAK_CLOCK):
     """The bound that counts FPS's chain, from the inputs: npoint - 1 dependent
-    rounds of ``fps_round_cycles`` at the SM clock; batch rows run side by side,
+    rounds of ``fps_round_cycles`` at the SM clock (the published boost clock, or
+    the card's own reading where that is higher); batch rows run side by side,
     one wave of blocks per SMS rows."""
     B, N, _ = xyz.shape
-    return -(-B // SMS) * (npoint - 1) * fps_round_cycles(N)[0] / PEAK_CLOCK * 1e3
+    return -(-B // SMS) * (npoint - 1) * fps_round_cycles(N)[0] / clock * 1e3
 
 
-def fps_chain_probe_ms(xyz, npoint, fps):
-    """Time of the present design's chain alone (``fps.chain_probe``: its rounds
-    and launch geometry with no per-point work). Not a bound of the function:
-    another block size or a round with one barrier has a shorter chain."""
-    B, N, _ = xyz.shape
-    return cuda_ms(lambda: fps.chain_probe(B, N, npoint, xyz.device), 20)
+def check_fps_constants(probe):
+    """The probe's readings beside the constants of the latency bound; fails when
+    a constant is above its reading (the bound would no longer be one)."""
+    pairs = (("float add", CYC_ALU, probe["alu"]), ("shuffle", CYC_SHFL, probe["shfl"]),
+             ("redux.sync", CYC_REDUX, probe["redux"]), ("shared-memory load", CYC_SMEM, probe["smem_load"]),
+             ("barrier", CYC_BAR, min(probe["barrier_1"], probe["barrier_4"], probe["barrier_16"])))
+    log("  fps probe, cycles a dependent step on this card (constant in use): "
+        + ", ".join(f"{name} {read:.2f} ({const})" for name, const, read in pairs)
+        + f"; ballot {probe['ballot']:.2f}, store and load of one word {probe['smem_store_load']:.2f}, barrier of 1 / 4 / 16 "
+        f"warps {probe['barrier_1']:.2f} / {probe['barrier_4']:.2f} / {probe['barrier_16']:.2f}; SM clock "
+        f"{probe['clock_ghz']:.3f} GHz (bound computed at {max(PEAK_CLOCK, probe['clock_ghz'] * 1e9) / 1e9:.3f})")
+    for name, const, read in pairs:
+        if const > read:
+            fail(f"FPS latency bound: the least-cycle constant of a {name} ({const}) is above this card's reading {read:.2f}")
 
 
 def scanned_points(xyz, new_xyz, radius, nsample, point_ops):
@@ -314,33 +338,92 @@ def sa_hard_cases(args, kwargs):
     return {"scaled to 1e3": scaled, "random weights": (rand_w, rand_b)}
 
 
-def check_kernels(calls):
-    from ptt_tpu_torch.ops import fps, point_ops, sa
+def fps_hard_cases(device):
+    """Clouds that try FPS's tie handling and every compiled form: (label, xyz, npoint)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    extent = torch.tensor([2.2, 1.0, 0.8], device=device)
 
-    rows = {"fps": [], "sa": []}
-    for (xyz, npoint), _ in calls["fps"]:
+    def cloud(B, N):
+        return (torch.rand((B, N, 3), device=device, generator=gen) * 2 - 1) * extent
+
+    def resampled(B, N, distinct):
+        pick = torch.randint(0, distinct, (B, N), device=device, generator=gen)
+        return torch.gather(cloud(B, distinct), 1, pick[..., None].expand(B, N, 3)).contiguous()
+
+    return [("N identical points", cloud(2, 1).expand(2, 640, 3).contiguous(), 64),
+            ("resampled from 8 distinct points", resampled(4, 1024, 8), 256),
+            ("resampled from 8 distinct points, 1 warp", resampled(4, 128, 8), 128),
+            ("ragged N = 1000", cloud(4, 1000), 300), ("ragged N = 100", cloud(4, 100), 100),
+            ("npoint == N", cloud(3, 512), 512), ("N = 129, the 8-warp form nearly empty", cloud(2, 129), 129),
+            ("N = 2048, the 16-warp form", cloud(4, 2048), 512),
+            ("ragged N = 1500, 16 warps, ties", resampled(2, 1500, 8), 400), ("N = 1", cloud(2, 1), 1)]
+
+
+def check_fps(calls, device):
+    """Phase 2, FPS: the forward's two captured calls (the record's rows), the two
+    shapes of a B = 48 train step, and the hard cases, each against the plain
+    version; time by events and on the device, the latency bound, the share."""
+    from ptt_tpu_torch.ops import fps, point_ops
+
+    for limit, warps, pts in fps.KERNEL_FORMS:
+        if fps.built_form(limit) != (warps, pts):
+            fail(f"FPS: csrc/fps.cu runs N = {limit} in the form {fps.built_form(limit)}, ops/fps.py says {(warps, pts)}")
+    probe = fps.latency_probe(device)
+    check_fps_constants(probe)
+    clock = max(PEAK_CLOCK, probe["clock_ghz"] * 1e9)
+    gen = torch.Generator(device=device).manual_seed(4)
+    extent = torch.tensor([2.2, 1.0, 0.8], device=device)
+    train = [(f"train step, B = {TRAIN_B}", (torch.rand((B, N, 3), device=device, generator=gen) * 2 - 1) * extent, m)
+             for B, N, m in ((2 * TRAIN_B, 1024, 512), (TRAIN_B, 128, 64))]
+    rows = []
+    for label, xyz, npoint in [("frame step", x, m) for (x, m), _ in calls] + train:
         got = fps.furthest_point_sample(xyz, npoint)
         ref = point_ops.furthest_point_sample(xyz, npoint)
         torch.cuda.synchronize()
+        shape = f"{tuple(xyz.shape)}->{npoint}"
         if not torch.equal(got, ref):
-            fail(f"FPS kernel differs from its plain version at {tuple(xyz.shape)} -> {npoint}: "
-                 f"{int((got != ref).sum())} indices")
+            fail(f"FPS kernel differs from its plain version at {shape} ({label}): {int((got != ref).sum())} indices")
         ms = cuda_ms(lambda: fps.furthest_point_sample(xyz, npoint), 20)
+        dev_ms = queued_ms(lambda: fps.furthest_point_sample(xyz, npoint), 20)
         plain_ms = cuda_ms(lambda: point_ops.furthest_point_sample(xyz, npoint), 3, warmup=1)
         rate_ms, kind = bound_ms(*fps_bound(xyz, npoint))
-        chain = fps_chain_bound_ms(xyz, npoint)
-        probe = fps_chain_probe_ms(xyz, npoint, fps)
+        chain = fps_chain_bound_ms(xyz, npoint, clock)
         cycles, warps = fps_round_cycles(xyz.shape[1])
-        log(f"  fps {tuple(xyz.shape)}->{npoint}: bound by rates {rate_ms:.5f} ms ({kind}), by latency {chain:.4f} ms "
-            f"({npoint - 1} dependent rounds of at least {cycles} cycles, at {warps} warps a row, "
-            f"{cycles / PEAK_CLOCK * 1e6:.3f} us a round); the kernel's round {ms / npoint * 1e3:.3f} us; the present "
-            f"design's chain alone (probe kernel) {probe:.4f} ms, {probe / npoint * 1e3:.3f} us a round")
+        log(f"  fps {shape} ({label}), form {fps.kernel_form(xyz.shape[1])}: kernel {ms:.4f} ms by events around the wrapper, "
+            f"{dev_ms:.4f} ms on the device (calls queued behind a busy stream), plain {plain_ms:.3f} ms, library_ms none; "
+            f"bound by latency {chain:.4f} ms ({npoint - 1} dependent rounds of at least {cycles} cycles, at {warps} "
+            f"warps a row, {cycles / clock * 1e6:.3f} us a round; the kernel's round {dev_ms / npoint * 1e3:.3f} us), "
+            f"by rates {rate_ms:.5f} ms ({kind}); {100 * max(rate_ms, chain) / ms:.0f}% reached by events, "
+            f"{100 * max(rate_ms, chain) / dev_ms:.0f}% on the device")
+        if max(rate_ms, chain) > min(ms, dev_ms):
+            fail(f"FPS at {shape}: the kernel is faster than its bound; the bound's cycle counts are too high")
         # the record's bound_by has two words; the chain is a count of dependent
         # operations, and bound_term says that latency, not a rate, sets it
-        rows["fps"].append(dict(shape=f"{tuple(xyz.shape)}->{npoint}", err=0.0, ms=ms, plain_ms=plain_ms,
-                                bound_ms=max(rate_ms, chain), bound_by="operations" if chain >= rate_ms else kind,
-                                bound_term="latency" if chain >= rate_ms else "rate", rate_bound_ms=rate_ms,
-                                chain_probe_ms=probe, mismatch=0))
+        rows.append(dict(shape=shape, label=label, err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=max(rate_ms, chain), bound_by="operations" if chain >= rate_ms else kind,
+                         bound_term="latency" if chain >= rate_ms else "rate", rate_bound_ms=rate_ms, mismatch=0))
+    for label, xyz, npoint in fps_hard_cases(device):
+        got = fps.furthest_point_sample(xyz, npoint)
+        ref = point_ops.furthest_point_sample(xyz, npoint)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        log(f"  fps {tuple(xyz.shape)}->{npoint} ({label}), form {fps.kernel_form(xyz.shape[1])}: equal to plain {same}")
+        if not same:
+            fail(f"FPS kernel differs from its plain version on the hard case '{label}': {int((got != ref).sum())} indices")
+    for n in (fps.MAX_POINTS + 1, 4096):
+        try:
+            fps.furthest_point_sample(torch.zeros((1, n, 3), device=device), 8)
+        except ValueError:
+            continue
+        fail(f"FPS: the wrapper did not refuse N = {n}, beyond its largest form")
+    return rows[:len(calls)], rows[len(calls):]
+
+
+def check_kernels(calls):
+    from ptt_tpu_torch.ops import point_ops, sa
+
+    frame_rows, _ = check_fps(calls["fps"], calls["fps"][0][0][0].device)
+    rows = {"fps": frame_rows, "sa": []}
     for args, kwargs in calls["sa"]:
         xyz, new_xyz, features, radius, nsample, weights, biases = args
         B, M = new_xyz.shape[:2]
@@ -420,6 +503,11 @@ def profile_batch(ev, tracklets, n_frames):
         log("  the profiler saw no device time: busy share not measured")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    own = {name: [e for e in kernels if name in e.key] for name in ("fps_kernel", "sa_pre_kernel", "sa_kernel")}
+    log("  the port's kernels in that batch: " + ", ".join(
+        f"{name} {sum(e.self_device_time_total for e in es) / 1e3:.2f} ms in {sum(e.count for e in es)} launches "
+        f"({100 * sum(e.self_device_time_total for e in es) / max(busy_us, 1):.1f}% of the busy time)"
+        for name, es in own.items()))
 
 
 def relerr(got, ref) -> float:
@@ -500,9 +588,40 @@ def heavy_duplication_call(call):
     return dict(call, xyz=heavy, new_xyz=centers, label="heavy duplication")
 
 
+def check_group_forward_ragged(device):
+    """The forward at shapes no stage of the model has: a last tile of fewer than
+    8 centers, rows that leave threads of a group idle, fewer rows than one
+    tile, a cloud off every multiple; D and idx equal to the plain version's."""
+    from ptt_tpu_torch.ops import group
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    for B, N, M, ns, H in ((4, 300, 77, 12, 48), (2, 1000, 3, 4, 4), (3, 130, 64, 20, 260), (2, 37, 37, 8, 64)):
+        xyz = torch.rand((B, N, 3), device=device, generator=gen)
+        new_xyz = xyz[:, :M].contiguous()
+        new_xyz[:, 0] += 9.0  # an empty ball
+        z = torch.randn((B, N, H), device=device, generator=gen)
+        off = torch.randn((B, M, H), device=device, generator=gen)
+        d, idx = group.group_forward(xyz, new_xyz, z, off, 0.25, ns)
+        d_ref, idx_ref = group.group_forward_plain(xyz, new_xyz, z, off, 0.25, ns)
+        torch.cuda.synchronize()
+        same = torch.equal(d, d_ref) and torch.equal(idx, idx_ref)
+        log(f"  group forward {N}->{M} ns{ns} H{H} (ragged): D and idx equal to the plain version's {same}")
+        if not same:
+            fail(f"group forward differs from its plain version at the ragged shape {N}->{M} ns{ns} H{H}")
+    for n, ns, h in ((1024, 32, 66), (1024, 6, 64), (20000, 32, 64)):
+        try:
+            group.group_forward(torch.zeros((1, n, 3), device=device), torch.zeros((1, 8, 3), device=device),
+                                torch.zeros((1, n, h), device=device), torch.zeros((1, 8, h), device=device), 0.3, ns)
+        except ValueError:
+            continue
+        fail(f"group forward: the wrapper did not refuse N = {n}, nsample = {ns}, H = {h}")
+
+
 def check_group_kernels(calls):
     """Phase 6: each captured call through both kernels and their plain versions."""
     from ptt_tpu_torch.ops import group, point_ops
+
+    check_group_forward_ragged(calls[0]["xyz"].device)
 
     rows = []
     gen = torch.Generator(device=calls[0]["xyz"].device).manual_seed(1)
@@ -514,6 +633,7 @@ def check_group_kernels(calls):
         shape = f"{N}->{M} ns{ns} H{H} C{0 if feats is None else feats.shape[-1]}" + (f" ({c['label']})" if "label" in c else "")
         z, off = group.fold_inputs(xyz, new_xyz, feats, w1, r, c["normalize_xyz"], c["use_xyz"])
         d, idx = group.group_forward(xyz, new_xyz, z, off, r, ns)
+        d_exact, _ = group.group_forward_plain(xyz, new_xyz, z, off, r, ns)
         ref_idx = point_ops.ball_query(r, ns, xyz, new_xyz)
         with torch.no_grad():
             d_full = group.grouped_first_linear(xyz, new_xyz, feats, w1, r, ns, c["normalize_xyz"], c["use_xyz"])
@@ -533,8 +653,10 @@ def check_group_kernels(calls):
         torch.cuda.synchronize()
         mismatch = int((idx != ref_idx).sum())
         fwd_err, bwd_err = relerr(d_full, d_plain), relerr(dz, dz_plain)
+        fwd_abs = float((d - d_exact).abs().max())
         grad_err = {k: relerr(gk[k], gp[k]) for k in gp}
-        log(f"  group {shape}: forward rel err {fwd_err:.2e} (abs {float((d_full - d_plain).abs().max()):.2e}), "
+        log(f"  group {shape}: forward bit-equal to group_forward_plain {torch.equal(d, d_exact)}, to the composite rel err "
+            f"{fwd_err:.2e} (abs {float((d_full - d_plain).abs().max()):.2e}), "
             f"idx disagreements {mismatch}, dZ rel err {bwd_err:.2e} (abs {float((dz - dz_plain).abs().max()):.2e}), "
             f"dZ bit-equal on repeat {torch.equal(dz, dz_again)} and to the documented order "
             f"{torch.equal(dz, dz_ordered)}, most rows on one point {int(torch.bincount(idx.reshape(B, -1)[0].long()).max())}, "
@@ -542,8 +664,10 @@ def check_group_kernels(calls):
             + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items()))
         if mismatch:
             fail(f"group forward's neighbour table differs from point_ops.ball_query at {shape}")
+        if not torch.equal(d, d_exact):
+            fail(f"group forward is not bit-equal to group_forward_plain on the same Z and O at {shape}")
         if fwd_err > GROUP_FWD_TOL or not torch.equal(d, d_full):
-            fail(f"group forward differs from its plain version at {shape}")
+            fail(f"group forward differs from the composite (grouped_first_linear_plain) at {shape}")
         if bwd_err > GROUP_BWD_TOL:
             fail(f"group backward differs from index_add_ at {shape}")
         if not torch.equal(dz, dz_again):
@@ -553,8 +677,12 @@ def check_group_kernels(calls):
         if max(grad_err.values()) > GROUP_GRAD_TOL:
             fail(f"group input gradients differ from the composite's autograd at {shape}: {grad_err}")
 
+        del d_exact, d_full, d_plain
         fwd_ms = cuda_ms(lambda: group.group_forward(xyz, new_xyz, z, off, r, ns), 20)
+        fwd_dev_ms = queued_ms(lambda: group.group_forward(xyz, new_xyz, z, off, r, ns), 20)
+        fwd_parts = kernel_ms(lambda: group.group_forward(xyz, new_xyz, z, off, r, ns), 10, ("group_fwd_kernel",))
         fwd_plain_ms = cuda_ms(lambda: group.group_forward_plain(xyz, new_xyz, z, off, r, ns), 5)
+        fill_ms = queued_ms(lambda: d.zero_(), 20)  # stores of D's bytes alone: what the memory takes for them
         bwd_ms = cuda_ms(lambda: group.group_backward(dd, idx, N), 20)
         bwd_dev_ms = queued_ms(lambda: group.group_backward(dd, idx, N), 20)
         parts = kernel_ms(lambda: group.group_backward(dd, idx, N), 10, BWD_KERNELS)
@@ -565,11 +693,17 @@ def check_group_kernels(calls):
         lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, src), 20)
         fb, fkind = bound_ms(*group_fwd_bound(xyz, new_xyz, H, r, ns, point_ops))
         bb, bkind = bound_ms(*group_bwd_bound(B, N, M, ns, H))
-        rows.append(dict(shape=shape, heavy="label" in c, bwd_device_ms=bwd_dev_ms, fwd_err=float((d_full - d_plain).abs().max()),
+        rows.append(dict(shape=shape, heavy="label" in c, bwd_device_ms=bwd_dev_ms, fwd_device_ms=fwd_dev_ms, fwd_fill_ms=fill_ms, fwd_err=fwd_abs,
                          bwd_err=float((dz - dz_plain).abs().max()), fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
                          fwd_bound=fb, fwd_by=fkind, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, lib_ms=lib_ms,
                          bwd_bound=bb, bwd_by=bkind))
-        log(f"    forward {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, bound {fb:.4f} {fkind}); backward {bwd_ms:.4f} ms "
+        log(f"    forward {fwd_ms:.4f} ms by events around the wrapper, {fwd_dev_ms:.4f} ms on the device (calls queued "
+            f"behind a busy stream), by kernel (profiler): {by_kernel(fwd_parts)} (plain {fwd_plain_ms:.4f}, a fill of D "
+            f"{fill_ms:.4f}, bound {fb:.4f} {fkind}, {100 * fb / fwd_ms:.0f}% reached by events, {100 * fb / fwd_dev_ms:.0f}% on "
+            f"the device)")
+        if fb > min(fwd_ms, fwd_dev_ms):
+            fail(f"group forward at {shape}: the kernel is faster than its bound")
+        log(f"    backward {bwd_ms:.4f} ms "
             f"by events around the wrapper, {bwd_dev_ms:.4f} ms on the device (calls queued behind a busy stream); by "
             f"kernel (profiler): {by_kernel(parts)} (plain {bwd_plain_ms:.4f}, index_add_ {lib_ms:.4f}, bound {bb:.4f} "
             f"{bkind}, {100 * bb / bwd_ms:.0f}% reached by events, {100 * bb / bwd_dev_ms:.0f}% on the device)")
@@ -704,6 +838,11 @@ def train_phase(cfg, device, card):
     group_rows = check_group_kernels(calls + [heavy_duplication_call(calls[0])])
     del calls
     group_rows = [r for r in group_rows if not r["heavy"]]
+    fwd_sums = [sum(r[k] for r in group_rows) for k in ("fwd_ms", "fwd_device_ms", "fwd_bound", "fwd_fill_ms")]
+    log(f"[6] group forward, the 7 shapes summed: {fwd_sums[0]:.4f} ms by events around the wrapper, {fwd_sums[1]:.4f} ms "
+        f"on the device, bound {fwd_sums[2]:.4f} ms ({100 * fwd_sums[2] / fwd_sums[0]:.0f}% reached by events, "
+        f"{100 * fwd_sums[2] / fwd_sums[1]:.0f}% on the device); a fill of the 7 D tensors {fwd_sums[3]:.4f} ms; "
+        f"library_ms none")
     log("[6] group backward, the 7 shapes summed: "
         f"{sum(r['bwd_ms'] for r in group_rows):.4f} ms by events around the wrapper, "
         f"{sum(r['bwd_device_ms'] for r in group_rows):.4f} ms on the device, index_add_ "
@@ -861,7 +1000,8 @@ def main() -> int:
                           ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
                           bound_ms=sum(r["bound_ms"] for r in rs))
                for name, rs in rows.items()}
-    summary["sa"]["device_ms"] = sum(r["device_ms"] for r in rows["sa"])
+    for name in summary:
+        summary[name]["device_ms"] = sum(r["device_ms"] for r in rows[name])
     log("kernels " + json.dumps(summary))
 
     # 3. whole forward, kernel path against plain path
@@ -944,12 +1084,10 @@ def main() -> int:
             "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"], "bound_ms": bms,
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
         })
-        if "device_ms" in summary[name]:
-            record["kernels"][-1]["device_ms"] = summary[name]["device_ms"]
+        record["kernels"][-1]["device_ms"] = summary[name]["device_ms"]
         if name == "fps":
             record["kernels"][-1].update(bound_term=max(rs, key=lambda r: r["bound_ms"])["bound_term"],
-                                         rate_bound_ms=sum(r["rate_bound_ms"] for r in rs),
-                                         chain_probe_ms=sum(r["chain_probe_ms"] for r in rs))
+                                         rate_bound_ms=sum(r["rate_bound_ms"] for r in rs))
     for name, replaces, pre in (("group_fwd", "ptt_tpu/ops/pallas_group.py:65", "fwd"),
                                 ("group_bwd", "ptt_tpu/ops/pallas_group.py:98", "bwd")):
         record["kernels"].append({
@@ -960,8 +1098,7 @@ def main() -> int:
             "bound_by": max(group_rows, key=lambda r: r[f"{pre}_bound"])[f"{pre}_by"],
             "library_ms": sum(r["lib_ms"] for r in group_rows) if pre == "bwd" else None,
         })
-        if pre == "bwd":
-            record["kernels"][-1]["device_ms"] = sum(r["bwd_device_ms"] for r in group_rows)
+        record["kernels"][-1]["device_ms"] = sum(r[f"{pre}_device_ms"] for r in group_rows)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

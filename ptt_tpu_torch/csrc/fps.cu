@@ -4,161 +4,264 @@
 // Semantics: start at index 0; each round takes the point whose running minimum
 // squared distance to the chosen set is largest, ties to the lowest index.
 //
-// What bounds it: latency, not bytes or operations. A round depends on the
-// previous round's choice, so npoint rounds run one after another, and each
-// round is a block-wide argmax with two barriers. The whole cloud and the
-// running minimum live in shared memory (16 B a point: 16 KB at N = 1024), so
-// after one read of the input no round touches device memory. One block per
-// batch row; the Siamese pair call gives 2B blocks, which leaves most of the
-// 132 SMs idle at small B (a later redesign would split a row over a cluster).
-// fps_chain_probe times this design's chain of rounds alone: what its per-point
-// work adds to. It is no bound of the function; a round with one barrier, or a
-// smaller block with more points a thread, has a shorter chain.
+// What bounds it: latency, not bytes or operations. Round k needs round k - 1's
+// choice, so npoint rounds run one after another in one block per batch row,
+// and a round is a chain: read the chosen point, update the distances, find the
+// argmax over the row. The design shortens that chain:
+//
+//  * A thread keeps its 4 points and their running minima in registers for the
+//    whole kernel (point i = p * threads + thread: slot p of a thread is
+//    ascending in i). Shared memory holds the coordinates only for the one
+//    broadcast read of the chosen point a round (16 B a point, one load).
+//  * A warp's argmax is two instructions. Every running minimum is a float in
+//    [+0, 1e10], and the bits of non-negative floats order as unsigned
+//    integers: redux.sync.max on the bits gives the warp's largest value,
+//    redux.sync.min on the index of the lanes that hold it (the others pass
+//    0xffffffff) its lowest index. A thread first reduces its own points in
+//    ascending index with a strict compare, so its candidate is its lowest.
+//  * One barrier a round. Each warp writes its (bits, index) into a slot of the
+//    buffer the round's parity selects; after one __syncthreads every warp
+//    reads all slots and reduces them itself with the same two instructions, so
+//    no second barrier publishes a choice. Two buffers suffice: a warp reaches
+//    round k + 2's write only after every warp has left round k + 1's barrier
+//    and so has read round k's slots. With one warp a row there is no barrier.
+//  * Forms, chosen by N, all of 4 points a thread: 1 warp a row up to 128
+//    points, 8 warps up to 1024, 16 up to 2048; larger clouds are refused. Slots
+//    past N hold a running minimum of 0 and an index above every real one, so
+//    they never win.
+//
+// Tried and dropped, times of (16, 1024, 3) -> 512 on an H100 (PERF.md): the
+// first design (the cloud and the minima in shared memory, 16 warps, a
+// five-level shuffle argmax of (value, index) pairs in every warp, a second one
+// in warp 0 and two barriers a round), 0.338 ms for this one's 0.104; 4 warps of
+// 8 points a thread, which a count of scheduler slots favours, 0.132, and 2 of
+// 16, 0.168: the distance chain of a thread's points does not hide its own
+// latency, more warps do; every thread reading all warps' results as 64-bit
+// keys (bits above the complemented index) and taking their largest itself
+// instead of the second redux pair, 0.135; a ballot and the lowest holder lane
+// (a thread's points consecutive, so that lane order is index order) instead
+// of the redux on the index, 0.148 (redux 44 cycles; ballot 17, but find-first
+// and the shuffle that broadcasts the index cost more than they save). Not
+// taken: a row split over a thread-block cluster; an exchange through another
+// SM's shared memory costs more than the block barrier it would replace, and
+// the chain, not the SM's rate, is what bounds the kernel.
 //
 // Bit-exactness: the distance is ((dx*dx + dy*dy) + dz*dz) with every product
 // and sum rounded on its own (__fmul_rn/__fadd_rn stop nvcc contracting them
 // into FMAs), the order of the plain PyTorch version in ops/point_ops.py.
 // Resampling with replacement puts duplicate points in every cloud, so exact
 // ties are routine; the reduction keeps the lowest index among equal maxima.
+//
+// fps_probe times dependent chains of the primitives a round is made of (float
+// add, shuffle, redux, ballot, shared-memory load and store-load, barrier), in
+// cycles by the SM's clock, and that clock: the least-cycle constants of the
+// latency bound are set under its readings.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 512;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned kNoIndex = 0xffffffffu;
+constexpr int kPts = 4;  // points a thread keeps in registers
 
-// larger value wins; of two equal values, the lower index
-__device__ __forceinline__ void keep_better(float& best_v, int& best_i, float v, int i) {
-  if (v > best_v || (v == best_v && i < best_i)) {
-    best_v = v;
-    best_i = i;
-  }
+// the warp's largest `bits` and the lowest `index` among the lanes that hold it
+__device__ __forceinline__ void warp_argmax(unsigned& bits, unsigned& index) {
+  const unsigned top = __reduce_max_sync(kFullMask, bits);
+  index = __reduce_min_sync(kFullMask, bits == top ? index : kNoIndex);
+  bits = top;
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFullMask, v, off);
-    const int oi = __shfl_down_sync(kFullMask, i, off);
-    keep_better(v, i, ov, oi);
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
 fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
-  extern __shared__ float4 pts[];  // (x, y, z, running min squared distance)
-  __shared__ float warp_v[kMaxThreads / 32];
-  __shared__ int warp_i[kMaxThreads / 32];
-  __shared__ int chosen;
+  constexpr int kThreads = kWarps * 32;
+  __shared__ float4 pts[kThreads * kPts];  // (x, y, z, -): read once a round, the chosen point
+  __shared__ uint2 slot[2][kWarps];        // a warp's (bits, index), buffer by the round's parity
 
   const float* src = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   int* dst = out + static_cast<size_t>(blockIdx.x) * npoint;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    pts[i] = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2], 1e10f);
+  float px[kPts], py[kPts], pz[kPts], md[kPts];
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    const int i = p * kThreads + threadIdx.x;
+    const bool real = i < n;
+    px[p] = real ? src[3 * i] : 0.0f;
+    py[p] = real ? src[3 * i + 1] : 0.0f;
+    pz[p] = real ? src[3 * i + 2] : 0.0f;
+    md[p] = real ? 1e10f : 0.0f;  // a slot past N stays at 0 and never wins
+    pts[i] = make_float4(px[p], py[p], pz[p], 0.0f);
   }
   if (threadIdx.x == 0) dst[0] = 0;
   __syncthreads();
 
-  int cur = 0;
+  unsigned cur = 0;
   for (int k = 1; k < npoint; ++k) {
-    const float cx = pts[cur].x, cy = pts[cur].y, cz = pts[cur].z;
-    float best_v = -1.0f;  // every running minimum is >= 0
-    int best_i = n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float4 p = pts[i];
-      const float dx = __fsub_rn(p.x, cx);
-      const float dy = __fsub_rn(p.y, cy);
-      const float dz = __fsub_rn(p.z, cz);
+    const float4 c = pts[cur];
+    unsigned bits = 0, index = 0;
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      const float dx = __fsub_rn(px[p], c.x);
+      const float dy = __fsub_rn(py[p], c.y);
+      const float dz = __fsub_rn(pz[p], c.z);
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-      const float m = fminf(p.w, d);
-      pts[i].w = m;
-      keep_better(best_v, best_i, m, i);
-    }
-    warp_argmax(best_v, best_i);
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best_v = lane < n_warps ? warp_v[lane] : -1.0f;
-      best_i = lane < n_warps ? warp_i[lane] : n;
-      warp_argmax(best_v, best_i);
-      if (lane == 0) {
-        chosen = best_i;
-        dst[k] = best_i;
+      md[p] = fminf(md[p], d);
+      const unsigned b = __float_as_uint(md[p]);
+      if (p == 0 || b > bits) {  // strict: of equal values the lower slot, the lower index
+        bits = b;
+        index = p * kThreads + threadIdx.x;
       }
     }
-    __syncthreads();
-    cur = chosen;
+    warp_argmax(bits, index);
+    if (kWarps > 1) {
+      if (lane == 0) slot[k & 1][warp] = make_uint2(bits, index);
+      __syncthreads();
+      const uint2 v = slot[k & 1][lane & (kWarps - 1)];
+      bits = v.x;
+      index = v.y;
+      warp_argmax(bits, index);
+    }
+    cur = index;
+    if (threadIdx.x == 0) dst[k] = static_cast<int>(cur);
   }
 }
 
-// The chain of one round without its per-point work: a warp argmax, a barrier,
-// the first warp's argmax over the warps' results, a barrier, the read of the
-// choice, each round depending on the one before. Its time per round is the
-// least a round of fps_kernel can take at the same block size, whatever N.
-__global__ void __launch_bounds__(kMaxThreads) fps_chain_kernel(int* __restrict__ out, int rounds) {
-  __shared__ float warp_v[kMaxThreads / 32];
-  __shared__ int warp_i[kMaxThreads / 32];
-  __shared__ int chosen;
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+// the clock once `dep` is known: the chain before it cannot move past the read
+__device__ __forceinline__ long long clock_after(unsigned dep) {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "r"(dep) : "memory");
+  return t;
+}
+
+constexpr int kProbeSteps = 7;
+
+// Cycles of `iters` dependent steps of each primitive, one chain after the
+// other, as thread 0 sees them: out[0] float add, [1] shuffle, [2] redux,
+// [3] ballot with the compare that makes its predicate, [4] shared-memory load
+// (a pointer chase), [5] shared-memory store then load of the same word,
+// [6] __syncthreads of the block. out[7] and out[8] are the kernel's cycles and
+// nanoseconds (%globaltimer), which give the SM's clock; out[9] carries the
+// chains' results so that none is dead code.
+__global__ void __launch_bounds__(512) fps_probe_kernel(long long* __restrict__ out, int iters) {
+  __shared__ int chase[32];
+  __shared__ unsigned word[512];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int cur = 0;
-  for (int k = 1; k < rounds; ++k) {
-    float best_v = static_cast<float>((cur + threadIdx.x) & 1023);
-    int best_i = threadIdx.x;
-    warp_argmax(best_v, best_i);
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best_v = lane < n_warps ? warp_v[lane] : -1.0f;
-      best_i = lane < n_warps ? warp_i[lane] : blockDim.x;
-      warp_argmax(best_v, best_i);
-      if (lane == 0) chosen = best_i;
-    }
-    __syncthreads();
-    cur = chosen;
+  chase[lane] = (lane + 1) & 31;
+  word[threadIdx.x] = threadIdx.x;
+  __syncthreads();
+  long long cycles[kProbeSteps];
+  unsigned sink = 0;
+  long long ns0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0)::"memory");
+  const long long start = clock_now();
+
+  long long t0 = clock_now();
+  float x = static_cast<float>(t0 & 1);
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) x = __fadd_rn(x, 1.0f);
+  cycles[0] = clock_after(__float_as_uint(x)) - t0;
+  sink += __float_as_uint(x);
+
+  t0 = clock_now();
+  unsigned v = static_cast<unsigned>(t0 & 1) + lane;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) v = __shfl_xor_sync(kFullMask, v, 1);
+  cycles[1] = clock_after(v) - t0;
+  sink += v;
+
+  t0 = clock_now();
+  v = static_cast<unsigned>(t0 & 1) + lane;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) v = __reduce_max_sync(kFullMask, v);
+  cycles[2] = clock_after(v) - t0;
+  sink += v;
+
+  t0 = clock_now();
+  v = static_cast<unsigned>(t0 & 1) + lane;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) v = __ballot_sync(kFullMask, v != 0);
+  cycles[3] = clock_after(v) - t0;
+  sink += v;
+
+  t0 = clock_now();
+  int j = (static_cast<int>(t0 & 1) + lane) & 31;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) j = reinterpret_cast<volatile int*>(chase)[j];
+  cycles[4] = clock_after(j) - t0;
+  sink += j;
+
+  t0 = clock_now();
+  v = static_cast<unsigned>(t0 & 1) + lane;
+  volatile unsigned* mine = word + threadIdx.x;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) {
+    *mine = v;
+    v = *mine + 1u;
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = cur;
+  cycles[5] = clock_after(v) - t0;
+  sink += v;
+
+  t0 = clock_now();
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) __syncthreads();
+  cycles[6] = clock_now() - t0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kProbeSteps; ++i) out[i] = cycles[i];
+    long long ns1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1)::"memory");
+    out[kProbeSteps] = clock_now() - start;
+    out[kProbeSteps + 1] = ns1 - ns0;
+    out[kProbeSteps + 2] = sink;
+  }
+}
+
+// warps a row of the form that takes a cloud of n points; 0 past the largest
+int warps_of(int n) {
+  if (n <= 1 * 32 * kPts) return 1;
+  if (n <= 8 * 32 * kPts) return 8;
+  if (n <= 16 * 32 * kPts) return 16;
+  return 0;
 }
 
 }  // namespace
 
-// The block size fps_forward gives a cloud of n points.
-static int fps_threads(int n) {
-  const int threads = ((n + 31) / 32) * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
+// The form fps_forward runs a cloud of n points in: *warps a row and *pts points
+// a thread. Returns 0, or -1 when n is beyond the largest form.
+extern "C" int fps_form(int n, int* warps, int* pts) {
+  *warps = warps_of(n);
+  *pts = kPts;
+  return *warps > 0 ? 0 : -1;
 }
 
-// Runs the dependent chain of `npoint` rounds (fps_chain_kernel) in `batch`
-// blocks of the size fps_forward uses for n points; out (batch,) int32. For
-// timing the chain of fps_forward's present design. Returns the launch's cudaError_t.
-extern "C" int fps_chain_probe(int* out, int batch, int n, int npoint, void* stream) {
-  if (batch < 1 || n < 1 || npoint < 1) return cudaErrorInvalidValue;
-  fps_chain_kernel<<<batch, fps_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(out, npoint);
+// Times the primitives of a round in one block of `threads` threads (a multiple
+// of 32, at most 512): out (10,) int64 receives the cycles of `iters` dependent
+// steps of each (fps_probe_kernel). Returns the launch's cudaError_t.
+extern "C" int fps_probe(long long* out, int iters, int threads, void* stream) {
+  if (iters < 1 || threads < 32 || threads > 512 || threads % 32 != 0) return cudaErrorInvalidValue;
+  fps_probe_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
   return cudaGetLastError();
 }
 
 // xyz (B, N, 3) float32 and out (B, npoint) int32, both contiguous on the
-// device; launches on `stream`. Returns the cudaError_t of the launch (0 = ok).
+// device, N at most 2048; launches on `stream`. Returns the cudaError_t of the
+// launch (0 = ok).
 extern "C" int fps_forward(const float* xyz, int* out, int batch, int n, int npoint, void* stream) {
   if (batch < 1 || n < 1 || npoint < 1 || npoint > n) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(n) * sizeof(float4);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (warps_of(n)) {
+    case 1: fps_kernel<1><<<batch, 32, 0, st>>>(xyz, out, n, npoint); break;
+    case 8: fps_kernel<8><<<batch, 256, 0, st>>>(xyz, out, n, npoint); break;
+    case 16: fps_kernel<16><<<batch, 512, 0, st>>>(xyz, out, n, npoint); break;
+    default: return cudaErrorInvalidValue;
   }
-  fps_kernel<<<batch, fps_threads(n), smem, static_cast<cudaStream_t>(stream)>>>(xyz, out, n, npoint);
   return cudaGetLastError();
 }

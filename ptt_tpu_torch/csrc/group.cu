@@ -10,19 +10,42 @@
 // points and O = -(center / r) @ W1_xyz per center (ops/group.py, full float32
 // matmuls), and D[b, s, m] = Z[b, idx[b, m, s]] + O[b, m].
 //
-// Forward (group_fwd_kernel). One block per (batch row, tile of 8 centers), a
-// warp per center runs ball_query.cuh's exact ball query. D is written
-// slot-major, the layout BatchNorm and the neighbourhood max (over axis 1) take
-// as it is; for one slot a block's centers are 8 * H contiguous floats, stored
-// coalesced along H. The TPU kernel gathered Z with a one-hot matmul split into
-// bf16 hi/lo passes to suit its matrix unit; here rows are gathered by index.
+// Forward (group_fwd_kernel). D is written slot-major, the layout BatchNorm and
+// the neighbourhood max (over axis 1) take as it is. The TPU kernel gathered Z
+// with a one-hot matmul split into bf16 hi/lo passes to suit its matrix unit;
+// here rows are gathered by index.
 // What bounds it: bytes. D is 4 * B * ns * M * H bytes (201 MB at the first
-// backbone stage at B = 48), written once; Z and O are read from L2.
+// backbone stage at B = 48, far more than the 50 MB L2), written once; Z and O
+// are a sixteenth of it and are read from L2. So the design is built around
+// the stores:
+//  * A block takes a tile of 8 centers of one batch row, a warp each. The cloud
+//    goes to shared memory once and ball_query.cuh's block_ball_query, the
+//    query sa.cu uses, finds the tile's neighbour table.
+//  * A thread owns one (center, 16-byte column) of the tile for all slots: O is
+//    read once into registers, no index needs a division, Z rows come by 16-byte
+//    ld.global.nc loads, 4 slots in flight, and each sum leaves by a 16-byte
+//    streaming store (st.global.cs), a warp's 32 stores covering 512 contiguous
+//    bytes of D. Streaming keeps D, which nothing reads again before it has left
+//    the cache, from evicting Z, which every block of the batch row reads again.
+//  * Six blocks share an SM (the register bound of the launch), so one block's
+//    ball query runs under the others' stores; no pipeline inside the block is
+//    needed for that. The grid is thousands of small blocks, which fills the
+//    card at every stage, the two of 64 centers a row included.
+// D is one float32 addition per element, Z[b, idx] + O, so it equals the plain
+// version bit for bit.
+// Tried and dropped, times of the 7 calls of a B = 48 train step on an H100
+// (PERF.md): the first design, a warp per center scanning the cloud from device
+// memory, 4-byte stores and a division per element, 0.66 ms; tiles of 16 and 32
+// centers and 8 loads in flight at three blocks an SM, 0.39 and 0.42 ms for
+// 0.39 (with six blocks an SM the tile of 8 gives 0.35); a slot's tile staged
+// in shared memory and written by the bulk-copy engine (cp.async.bulk from a
+// ring of three tiles, one thread issuing), 0.49-0.55 ms: its ring costs the
+// blocks an SM that hide the ball query, and a block barrier a slot.
 //
 // The forward also stores the neighbour table idx (B, M, ns) int32 for the
-// backward. The TPU kernel recomputes the ball query in its backward; on this
-// card 4 * B * M * ns bytes (3.1 MB at the first stage) are cheaper to keep
-// than a second scan over the cloud.
+// backward, 16 bytes a store (ns is a multiple of 4). The TPU kernel recomputes
+// the ball query in its backward; on this card 4 * B * M * ns bytes (3.1 MB at
+// the first stage) are cheaper to keep than a second scan over the cloud.
 //
 // Backward: dZ[b, j] = sum of dD[b, s, m] over every (m, s) with
 // idx[b, m, s] == j. Pad slots hold the first hit (or point 0 for an empty
@@ -86,6 +109,10 @@ constexpr int kRanges = kCsrThreads / 32;  // ranges of a batch row's entries, o
 constexpr int kChunk = 32;                 // rows per chunk of a segment in the backward
 constexpr int kInFlight = 8;               // loads a lane issues before it adds them
 constexpr int kCombineBlocks = 8;          // blocks per batch row that walk the multi-chunk points
+constexpr int kTile = kWarps;              // centers of a forward block: a warp's ball query each
+constexpr int kFwdInFlight = 4;            // Z loads a thread starts before it stores their sums
+constexpr int kFwdBlocksPerSm = 6;         // forward blocks an SM should hold (bounds the registers)
+constexpr size_t kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
@@ -96,35 +123,63 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Shared memory of a forward block: the tile's neighbour table (first: read as
+// int4), the query's hit lists and counts (one list a center), the cloud.
+__host__ __device__ inline size_t fwd_smem_bytes(int n, int ns) {
+  return (2 * static_cast<size_t>(kTile) * ns + kTile + 3 * static_cast<size_t>(n)) * sizeof(int);
+}
+
+// One block per (batch row, tile of kTile centers); hv = H / 4 16-byte columns a row.
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
 group_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ ctr,
                  const float* __restrict__ z, const float* __restrict__ off,
                  float* __restrict__ out, int* __restrict__ idx, int n, int m_total, int ns,
-                 int h, float r2) {
-  extern __shared__ int nbr[];  // kWarps x ns
+                 int hv, float r2) {
+  extern __shared__ __align__(16) int fwd_smem[];
+  int* nbr = fwd_smem;                                // kTile x ns
+  int* hits = nbr + kTile * ns;                       // kTile lists of ns
+  int* cnt = hits + kTile * ns;                       // kTile
+  float* pts = reinterpret_cast<float*>(cnt + kTile);  // n x 3
   const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kWarps;
-  const int tm = min(kWarps, m_total - m0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * kTile;
+  const int tm = min(kTile, m_total - m0);  // centers of this tile that exist
+  const size_t row0 = static_cast<size_t>(b) * m_total + m0;  // the tile's first center
 
-  if (warp < tm) {
-    const int m = m0 + warp;
-    int* row = nbr + warp * ns;
-    ptt::warp_ball_query(xyz + static_cast<size_t>(b) * n * 3, n,
-                         ctr + (static_cast<size_t>(b) * m_total + m) * 3, r2, ns, row, lane);
-    for (int s = lane; s < ns; s += 32) idx[(static_cast<size_t>(b) * m_total + m) * ns + s] = row[s];
-  }
+  const float* cloud = xyz + static_cast<size_t>(b) * n * 3;
+  for (int e = threadIdx.x; e < 3 * n; e += kThreads) pts[e] = __ldg(cloud + e);
   __syncthreads();
+  ptt::block_ball_query<kWarps>(pts, n, ctr + row0 * 3, kTile, tm, r2, ns, hits, cnt, nbr, kTile * ns);
 
-  const float* zb = z + static_cast<size_t>(b) * n * h;
-  const float* ob = off + (static_cast<size_t>(b) * m_total + m0) * h;
-  for (int s = 0; s < ns; ++s) {
-    float* dst = out + ((static_cast<size_t>(b) * ns + s) * m_total + m0) * h;
-    for (int e = threadIdx.x; e < tm * h; e += kThreads) {
-      const int t = e / h;
-      const int col = e - t * h;
-      dst[e] = zb[static_cast<size_t>(nbr[t * ns + s]) * h + col] + ob[e];
+  int4* idx4 = reinterpret_cast<int4*>(idx + row0 * ns);
+  for (int e = threadIdx.x; e < (tm * ns) >> 2; e += kThreads) idx4[e] = reinterpret_cast<const int4*>(nbr)[e];
+
+  const float4* zb = reinterpret_cast<const float4*>(z) + static_cast<size_t>(b) * n * hv;
+  const float4* ob = reinterpret_cast<const float4*>(off) + row0 * hv;
+  float4* db = reinterpret_cast<float4*>(out) + (static_cast<size_t>(b) * ns * m_total + m0) * hv;
+  const size_t slot_stride = static_cast<size_t>(m_total) * hv;
+  // e = center * hv + column. Where a tile has fewer (center, column) pairs than
+  // the block has threads (H = 64: 128), the threads form groups that deal the
+  // slots out among them, kFwdInFlight at a time, so that none is idle.
+  const int tile_pairs = kTile * hv;
+  const int groups = tile_pairs < kThreads ? kThreads / tile_pairs : 1;
+  const int g = groups > 1 ? threadIdx.x / tile_pairs : 0;
+  const int step = groups > 1 ? tile_pairs : kThreads;
+  for (int e = threadIdx.x - g * tile_pairs; e < tm * hv && g < groups; e += step) {
+    const int t = e / hv;
+    const int col = e - t * hv;
+    const int* row = nbr + t * ns;
+    const float4 o = __ldg(ob + e);
+    float4* dst = db + e;
+    for (int s0 = g * kFwdInFlight; s0 < ns; s0 += groups * kFwdInFlight) {  // ns is a multiple of kFwdInFlight
+      float4 v[kFwdInFlight];
+#pragma unroll
+      for (int u = 0; u < kFwdInFlight; ++u) v[u] = __ldg(zb + static_cast<size_t>(row[s0 + u]) * hv + col);
+#pragma unroll
+      for (int u = 0; u < kFwdInFlight; ++u) __stcs(dst + (s0 + u) * slot_stride, add4(v[u], o));
     }
   }
 }
@@ -394,17 +449,24 @@ cudaError_t launch_sums(const float* dd, const int* rows, const int* chunk_start
 
 // xyz (B, N, 3), ctr (B, M, 3), z (B, N, H), off (B, M, H) float32 in; out
 // (B, ns, M, H) float32 and idx (B, M, ns) int32 out; all contiguous on the
-// device. Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// device, z, off, out and idx 16-byte aligned. H and ns are multiples of 4 and
+// the cloud fits a block's shared memory beside the tile's tables; any other
+// call is refused with cudaErrorInvalidValue. Launches on `stream`; returns the
+// cudaError_t of the launch (0 = ok).
 extern "C" int group_forward(const float* xyz, const float* ctr, const float* z, const float* off,
                              float* out, int* idx, int batch, int n, int m_total, int ns, int h,
                              float r2, void* stream) {
-  if (batch < 1 || n < 1 || m_total < 1 || ns < 1 || h < 1) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kWarps) * ns * sizeof(int);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (batch < 1 || n < 1 || m_total < 1 || ns < kFwdInFlight || ns % kFwdInFlight != 0 || h < 4 || h % 4 != 0 ||
+      fwd_smem_bytes(n, ns) > kMaxSmem || !aligned(z) || !aligned(off) || !aligned(out) || !aligned(idx)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = fwd_smem_bytes(n, ns);
   const cudaError_t err = set_smem(reinterpret_cast<const void*>(group_fwd_kernel), smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((m_total + kWarps - 1) / kWarps, batch);
+  const dim3 grid((m_total + kTile - 1) / kTile, batch);
   group_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, ctr, z, off, out, idx, n, m_total, ns, h, r2);
+      xyz, ctr, z, off, out, idx, n, m_total, ns, h / 4, r2);
   return cudaGetLastError();
 }
 

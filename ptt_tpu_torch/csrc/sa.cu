@@ -55,13 +55,14 @@
 //    writes its output over its input and one rows x (width + 4) buffer serves
 //    the whole MLP (the pad spreads an A fragment's 8 rows x 4 columns over all
 //    32 banks); only a stored layer wider than 128 needs a second buffer.
-//  * The ball query uses the whole block: the cloud is copied to shared memory
-//    once (coalesced, 16 bytes a load), the block's warps are dealt out evenly
-//    over its centers, each scanning a contiguous range of the cloud into a
-//    list of its own; the lists are merged in range order, which is index
-//    order, so the result is the single scan's: first ns hits, pads repeat the
-//    first hit, an empty ball uses point 0. Membership is ball_query.cuh's
-//    FMA-free arithmetic against float32(r^2), shared with group.cu.
+//  * The ball query uses the whole block (ball_query.cuh block_ball_query,
+//    shared with group.cu): the cloud is copied to shared memory once
+//    (coalesced, 16 bytes a load), the block's warps are dealt out evenly over
+//    its centers, each scanning a contiguous range of the cloud into a list of
+//    its own; the lists are merged in range order, which is index order, so the
+//    result is the single scan's: first ns hits, pads repeat the first hit, an
+//    empty ball uses point 0. Membership is the header's FMA-free arithmetic
+//    against float32(r^2).
 //  * The last layer's max over a center's rows never touches an atomic: at
 //    ns = 16, 32 or 64 a center is 1, 2 or 4 whole warps of rows; a thread
 //    takes the max of its two rows, shuffles reduce over the fragment's 8 row
@@ -226,58 +227,16 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ ctr,
   const int c_out = tail.c[tail.n];
 
   // 1. ball query: the cloud into shared memory (N is a multiple of 4, so every
-  //    batch row starts at a 16-byte boundary), then wpc warps per center, each
-  //    over its own range of the cloud
+  //    batch row starts at a 16-byte boundary), then ball_query.cuh's query by
+  //    the whole block (nbr rows past the tile's last center get 0)
   for (int e = threadIdx.x; e < (n * 3) >> 2; e += kThreads) {
     reinterpret_cast<float4*>(buf0)[e] =
         __ldg(reinterpret_cast<const float4*>(xyz + static_cast<size_t>(b) * n * 3) + e);
   }
   const float* pts = buf0;
   __syncthreads();
-  const int wpc = tm >= kWarps ? 1 : kWarps / tm;
-  const int groups = kWarps / wpc;
-  const int range = (((n + wpc - 1) / wpc) + 31) & ~31;
-  for (int t0 = 0; t0 < tm; t0 += groups) {
-    const int t = t0 + warp / wpc;
-    const int part = warp % wpc;
-    if (warp / wpc < groups && t < tm) {
-      int count = 0;
-      if (m0 + t < m_total) {
-        const float* c = ctr + (static_cast<size_t>(b) * m_total + m0 + t) * 3;
-        const float cx = c[0], cy = c[1], cz = c[2];
-        count = ptt::warp_scan_ball(pts, min(n, part * range), min(n, (part + 1) * range), cx, cy, cz,
-                                    ptt::sq_norm(cx, cy, cz), r2, ns, hits + (t * wpc + part) * ns, lane);
-      }
-      if (lane == 0) cnt[t * wpc + part] = count;
-    }
-  }
-  __syncthreads();
-  // merge: slot s of center t is the s-th hit of its lists taken in range order
-  if (threadIdx.x < kRows) {
-    const int r = threadIdx.x;
-    const int t = r / ns;
-    int v = 0;
-    if (r < rows && m0 + t < m_total) {
-      int first = -1, rem = r - t * ns;
-      bool found = false;
-      for (int w = 0; w < wpc; ++w) {
-        const int c = cnt[t * wpc + w];
-        const int* list = hits + (t * wpc + w) * ns;
-        if (first < 0 && c > 0) first = list[0];
-        if (!found) {
-          if (rem < c) {
-            v = list[rem];
-            found = true;
-          } else {
-            rem -= c;
-          }
-        }
-      }
-      if (!found) v = first >= 0 ? first : 0;
-    }
-    nbr[r] = v;
-  }
-  __syncthreads();
+  ptt::block_ball_query<kWarps>(pts, n, ctr + (static_cast<size_t>(b) * m_total + m0) * 3, tm,
+                                min(tm, m_total - m0), r2, ns, hits, cnt, nbr, kRows);
 
   // Everything above reads the caller's inputs only and may run beside
   // sa_pre_kernel; z, off and wprep are its outputs.
@@ -536,8 +495,7 @@ template <int kWarpGroups>
 size_t smem_bytes(const Plan& plan, int ns) {
   constexpr int kRows = kWarpGroups * 64;
   constexpr int kWarps = kWarpGroups * 4;
-  const int tm = kRows / ns;
-  const int lists = tm * (tm >= kWarps ? 1 : kWarps / tm);
+  const int lists = ptt::block_query_lists(kRows / ns, kWarps);
   const int buf_floats = kRows * (plan.width + kActPad);
   return ((plan.two_bufs ? 2 : 1) * static_cast<size_t>(buf_floats) + kStages * kSlabFloats +
           kWarps * kPassCols + 2 * kRows + static_cast<size_t>(lists) * ns) * sizeof(float);

@@ -12,12 +12,15 @@ rebuilt and an unchanged one is loaded as it is.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptt_tpu_torch"
@@ -37,7 +40,8 @@ _i = ctypes.c_int
 # entry point -> (source, ctypes argument types); every entry point returns int
 _FUNCTIONS = {
     "fps_forward": ("fps", [_p, _p, _i, _i, _i, _p]),
-    "fps_chain_probe": ("fps", [_p, _i, _i, _i, _p]),
+    "fps_form": ("fps", [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)]),
+    "fps_probe": ("fps", [_p, _i, _i, _p]),
     "sa_forward": (
         "sa",
         [_p, _p, _p, _i, _p, _p, _i, ctypes.c_float, _i, _p, _p, _p, _i, ctypes.POINTER(_p), ctypes.POINTER(_p),
@@ -109,6 +113,21 @@ def function(fn_name: str):
         fn.restype = ctypes.c_int
         _loaded[fn_name] = fn
     return _loaded[fn_name]
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def on_device(device):
+    """(guard, stream) for a launch on the CUDA ``device``: a context that makes it
+    the current device while the kernel is launched, and the handle of its
+    current stream. Where it already is the current device, the usual case, the
+    guard is the null context: switching devices and wrapping the stream in an
+    object cost more host time than a small kernel runs."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    guard = _NO_GUARD if index == current else torch.cuda.device(index)
+    return guard, torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_launch(err: int, what: str) -> None:

@@ -5,6 +5,8 @@ the JAX package's ``ops/pallas_fps.py``, with its plain PyTorch version
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build, point_ops
@@ -12,7 +14,37 @@ from . import _build, point_ops
 # kernel launches made through furthest_point_sample (a run resets it to 0)
 launches = 0
 
-_MAX_SHARED_BYTES = 227 * 1024
+# The kernel's forms, (largest N, warps a row, points a thread), as csrc/fps.cu
+# states them: a cloud runs in the first form that holds it, a thread keeps its
+# points in registers, and a cloud beyond the last form is refused.
+KERNEL_FORMS = ((128, 1, 4), (1024, 8, 4), (2048, 16, 4))
+MAX_POINTS = KERNEL_FORMS[-1][0]
+
+
+def kernel_form(n: int):
+    """(warps a row, points a thread) of the form ``csrc/fps.cu`` runs a cloud of
+    ``n`` points in; ValueError beyond the largest."""
+    for limit, warps, pts in KERNEL_FORMS:
+        if n <= limit:
+            return warps, pts
+    raise ValueError(f"furthest_point_sample: the kernel takes at most N = {MAX_POINTS} points "
+                     f"(its largest form keeps every point in a thread's registers), got {n}")
+
+
+def check_kernel_shapes(n: int, npoint: int) -> None:
+    """Raises ValueError unless ``csrc/fps.cu`` takes (B, n, 3) -> npoint: the
+    kernel has one path per form and the wrapper refuses what no form takes."""
+    if n < 1 or not 1 <= npoint <= n:
+        raise ValueError(f"furthest_point_sample: npoint {npoint} not in [1, {n}]")
+    kernel_form(n)
+
+
+def built_form(n: int):
+    """``kernel_form`` as the built library has it (builds it: only where nvcc is)."""
+    warps, pts = ctypes.c_int(0), ctypes.c_int(0)
+    if _build.function("fps_form")(n, ctypes.byref(warps), ctypes.byref(pts)) != 0:
+        raise ValueError(f"furthest_point_sample: csrc/fps.cu has no form for N = {n}")
+    return warps.value, pts.value
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -21,6 +53,53 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if xyz.device.type == "cpu":
         return point_ops.furthest_point_sample(xyz, npoint)
     return _launch(xyz, npoint)
+
+
+def furthest_point_sample_packed(xyz: torch.Tensor, npoint: int, warps: int, pts: int) -> torch.Tensor:
+    """The kernel's round written out in plain PyTorch, for the form ``warps`` x
+    ``pts``: point i sits in slot i // threads of thread i % threads; a thread
+    takes the first of its slots that holds its largest running minimum; a warp
+    takes the largest of its threads' values, compared as the unsigned integers
+    their bits are (every running minimum is a float in [+0, 1e10], and those
+    order as their bits do), and then the lowest index among the threads that
+    hold it; the block does the same over its warps. Slots past N hold 0 and an
+    index above every real one. Equal to ``point_ops.furthest_point_sample``."""
+    xyz = xyz.float()
+    B, N, _ = xyz.shape
+    threads = 32 * warps
+    cap = threads * pts
+    if N > cap:
+        raise ValueError(f"furthest_point_sample_packed: {warps} x {pts} holds {cap} points, got {N}")
+    dev = xyz.device
+    pad = torch.zeros((B, cap - N, 3), dtype=torch.float32, device=dev)
+    cloud = torch.cat([xyz, pad], dim=1)
+    min_d2 = torch.cat([torch.full((B, N), 1e10, dtype=torch.float32, device=dev),
+                        torch.zeros((B, cap - N), dtype=torch.float32, device=dev)], dim=1)
+    index = torch.arange(cap, device=dev).expand(B, cap)
+    no_index = torch.iinfo(torch.int64).max
+    rows = torch.arange(B, device=dev)
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    out = torch.zeros(B, npoint, dtype=torch.long, device=dev)
+
+    def lowest_of_largest(bits, idx):
+        """Over the last axis: the largest bits, and the lowest idx among its holders."""
+        top = bits.amax(dim=-1, keepdim=True)
+        return top[..., 0], torch.where(bits == top, idx, no_index).amin(dim=-1)
+
+    for k in range(1, npoint):
+        d = cloud - cloud[rows, cur][:, None, :]
+        min_d2 = torch.minimum(min_d2, point_ops._sq_norm(d))
+        bits = min_d2.view(torch.int32).long()  # non-negative floats: the int32 is the unsigned value
+        # a thread's slots: (B, pts, threads) -> the first slot with the thread's largest value
+        per_thread = bits.reshape(B, pts, threads)
+        slots = torch.arange(pts, device=dev)[None, :, None]
+        slot = torch.where(per_thread == per_thread.amax(dim=1, keepdim=True), slots, pts).amin(dim=1)
+        t_bits = torch.gather(per_thread, 1, slot[:, None, :])[:, 0]
+        t_idx = torch.gather(index.reshape(B, pts, threads), 1, slot[:, None, :])[:, 0]
+        w_bits, w_idx = lowest_of_largest(t_bits.reshape(B, warps, 32), t_idx.reshape(B, warps, 32))
+        _, cur = lowest_of_largest(w_bits, w_idx)
+        out[:, k] = cur
+    return out.int()
 
 
 def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -32,30 +111,39 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if not xyz.is_contiguous():
         raise ValueError("furthest_point_sample: xyz must be contiguous")
     B, N, _ = xyz.shape
-    if not 1 <= npoint <= N:
-        raise ValueError(f"furthest_point_sample: npoint {npoint} not in [1, {N}]")
-    if N * 16 > _MAX_SHARED_BYTES:
-        raise ValueError(f"furthest_point_sample: N = {N} points do not fit in shared memory")
+    check_kernel_shapes(N, npoint)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     fn = _build.function("fps_forward")
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    guard, stream = _build.on_device(xyz.device)
+    with guard:
         err = fn(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
     _build.check_launch(err, "fps")
     launches += 1
     return out
 
 
-def chain_probe(batch: int, n: int, npoint: int, device) -> None:
-    """Launch the dependent chain of ``npoint`` rounds alone, in the launch
-    geometry ``furthest_point_sample`` uses for (batch, n, 3) -> npoint
-    (csrc/fps.cu ``fps_chain_kernel``): a timing of it gives what this design's
-    barriers and reductions cost without its per-point work. Not counted as a launch."""
-    out = torch.empty((batch,), dtype=torch.int32, device=device)
-    fn = _build.function("fps_chain_probe")
-    with torch.cuda.device(device):
-        err = fn(out.data_ptr(), batch, n, npoint, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "fps chain probe")
+PROBE_STEPS = ("alu", "shfl", "redux", "ballot", "smem_load", "smem_store_load", "barrier")
+
+
+def latency_probe(device, iters: int = 4096) -> dict:
+    """Cycles of one dependent step of each primitive an FPS round is made of, read
+    on ``device`` by csrc/fps.cu ``fps_probe_kernel``: float add, warp shuffle,
+    ``redux.sync``, shared-memory load, shared-memory store then load, and a
+    block barrier of 1, 4 and 16 warps. Not counted as a launch."""
+    fn = _build.function("fps_probe")
+    out = {}
+    guard, stream = _build.on_device(torch.device(device))
+    with guard:
+        for warps in (1, 4, 16):
+            buf = torch.zeros(len(PROBE_STEPS) + 3, dtype=torch.int64, device=device)
+            _build.check_launch(fn(buf.data_ptr(), iters, 32 * warps, stream),
+                                "fps probe")
+            cycles = (buf[:len(PROBE_STEPS)].double() / iters).tolist()
+            if warps == 1:
+                out.update(zip(PROBE_STEPS[:-1], cycles))
+                out["clock_ghz"] = float(buf[len(PROBE_STEPS)]) / float(buf[len(PROBE_STEPS) + 1])
+            out[f"barrier_{warps}"] = cycles[-1]
+    return out
 
 
 def furthest_point_sample_pair(xyz_a, npoint_a: int, xyz_b, npoint_b: int,

@@ -77,6 +77,66 @@ def group_backward_plain(dd, idx, n: int):
     return dd.new_zeros((B * n, H)).index_add_(0, flat, rows).reshape(B, n, H)
 
 
+# csrc/group.cu's forward: a block's shared memory, its tile of centers (a warp
+# each), its threads, and the Z pieces a thread loads before it stores their sums
+_MAX_SHARED_BYTES = 227 * 1024
+FWD_TILE = 8
+FWD_THREADS = 256
+FWD_IN_FLIGHT = 4
+
+
+def forward_shared_bytes(n: int, nsample: int) -> int:
+    """Shared memory of one forward block: the tile's neighbour table, the ball
+    query's hit lists and counts, and the cloud (csrc/group.cu ``fwd_smem_bytes``)."""
+    return 4 * (2 * FWD_TILE * nsample + FWD_TILE + 3 * n)
+
+
+def check_forward_shapes(n: int, nsample: int, h: int) -> None:
+    """Raises ValueError unless ``csrc/group.cu``'s forward takes a cloud of ``n``
+    points, ``nsample`` slots and rows of ``h`` floats: rows and the neighbour
+    table move in 16-byte pieces (h and nsample multiples of 4), and the cloud
+    lies in a block's shared memory beside the tile's tables. Every stage of
+    ptt.yaml qualifies."""
+    if n < 1 or nsample < 4 or nsample % 4:
+        raise ValueError(f"grouped_first_linear: the forward kernel takes nsample in multiples of 4, got {nsample}")
+    if h < 4 or h % 4:
+        raise ValueError(f"grouped_first_linear: the forward kernel takes H in multiples of 4, got {h}")
+    need = forward_shared_bytes(n, nsample)
+    if need > _MAX_SHARED_BYTES:
+        raise ValueError(f"grouped_first_linear: a cloud of N = {n} points with nsample = {nsample} needs {need} "
+                         f"bytes of a block's shared memory, the card gives {_MAX_SHARED_BYTES}")
+
+
+def group_forward_tiled(z, off, idx, tile: int = FWD_TILE, threads: int = FWD_THREADS,
+                        in_flight: int = FWD_IN_FLIGHT):
+    """``group_forward_plain``'s D built in the order the CUDA kernel writes it,
+    from a given neighbour table: tile by tile of ``tile`` centers, within a tile
+    the (center, 16-byte column) pairs dealt over the block's ``threads`` (where
+    a tile has fewer pairs than that, the threads form groups that deal the
+    slots out among them), each pair adding its O to ``in_flight`` gathered Z
+    pieces at a time. Every element is one float32 addition, so the result
+    equals the plain version's bit for bit whatever the order."""
+    B, M, ns = idx.shape
+    H = z.shape[-1]
+    hv = H // 4
+    out = z.new_empty((B, ns, M, H))
+    zv, ov, dv = z.reshape(B, -1, hv, 4), off.reshape(B, M, hv, 4), out.view(B, ns, M, hv, 4)
+    groups = threads // (tile * hv) if tile * hv < threads else 1
+    step = tile * hv if groups > 1 else threads
+    for b in range(B):
+        for m0 in range(0, M, tile):
+            valid = min(tile, M - m0)
+            for e0 in range(0, valid * hv, step):  # one pass of the block over its pairs
+                e = torch.arange(e0, min(e0 + step, valid * hv))
+                t, col = e // hv, e % hv
+                o = ov[b, m0 + t, col]
+                for g in range(groups):
+                    for s0 in range(g * in_flight, ns, groups * in_flight):
+                        for s in range(s0, min(s0 + in_flight, ns)):
+                            dv[b, s, m0 + t, col] = zv[b, idx[b, m0 + t, s].long(), col] + o
+    return out
+
+
 def check_kernel_width(h: int) -> None:
     """Raises ValueError unless ``csrc/group.cu``'s backward takes rows of ``h``
     floats: a multiple of 4 (16-byte columns), at least 64 (a row is half a
@@ -187,13 +247,12 @@ def _launch_fwd(xyz, new_xyz, z, off, radius, nsample):
     H = z.shape[-1]
     if xyz.shape[-1] != 3 or new_xyz.shape != (B, M, 3) or z.shape != (B, N, H) or off.shape != (B, M, H):
         raise ValueError("grouped_first_linear: inconsistent shapes")
-    if nsample < 1:
-        raise ValueError("grouped_first_linear: nsample must be positive")
+    check_forward_shapes(N, nsample, H)
     out = torch.empty((B, nsample, M, H), dtype=torch.float32, device=xyz.device)
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
     fn = _build.function("group_forward")
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    guard, stream = _build.on_device(xyz.device)
+    with guard:
         err = fn(xyz.data_ptr(), new_xyz.data_ptr(), z.data_ptr(), off.data_ptr(), out.data_ptr(),
                  idx.data_ptr(), B, N, M, nsample, H, radius_sq(radius), stream)
     _build.check_launch(err, "group_forward")
@@ -224,12 +283,12 @@ def _launch_bwd(dd, idx, n):
     check_kernel_width(H)
     dev = dd.device
     fn = _build.function("group_backward")
-    with torch.cuda.device(dev):
+    guard, stream = _build.on_device(dev)
+    with guard:
         ints, max_chunks = _bwd_scratch(B, n, M, ns, torch.cuda.current_device())
         dz = torch.empty((B, n, H), dtype=torch.float32, device=dev)
         scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
         partial = torch.empty((B, max_chunks, H), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(dd.data_ptr(), idx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), dz.data_ptr(),
                  B, n, M, ns, H, stream)
     _build.check_launch(err, "group_backward")

@@ -12,6 +12,8 @@ membership and neighbour order then agree exactly between every path.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -67,6 +69,7 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_points(points, idx.reshape(B, M * ns)).reshape(B, M, ns, points.shape[-1])
 
 
+@functools.lru_cache(maxsize=64)
 def radius_sq(radius: float) -> float:
     """radius^2 rounded to float32, the threshold every in-ball test compares
     a float32 squared distance against."""

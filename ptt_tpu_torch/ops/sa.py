@@ -174,8 +174,8 @@ def _launch(xyz, new_xyz, features, w1, b1, tail_w, tail_b, radius, nsample, nor
     wprep = torch.empty((_build.function("sa_prep_floats")(n_tail, c_widths),),
                         dtype=torch.float32, device=xyz.device)
     fn = _build.function("sa_forward")
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    guard, stream = _build.on_device(xyz.device)
+    with guard:
         err = fn(xyz.data_ptr(), new_xyz.data_ptr(), features.data_ptr() if c_feat else None, c_feat,
                  w1.data_ptr(), b1.data_ptr(), H1, float(radius) if normalize_xyz else 1.0, int(use_xyz),
                  z.data_ptr(), off.data_ptr(), wprep.data_ptr(), n_tail, w_ptrs, b_ptrs, c_widths, out.data_ptr(),
