@@ -34,7 +34,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      FPS; the plain path's own 5 steps, reported beside two witnesses (the
      plain path again, and from weights moved by one ulp); launch counts per
      step, ms per step with and without the loader, a profile of the step, and
-     ``Trainer`` for one epoch, a checkpoint and a resume.
+     ``Trainer`` for one epoch, a checkpoint and a resume;
+  8. ``ptt_large.yaml`` at its full width (2048 / 1024-point clouds, two 2-layer
+     4-head transformers) on the port's own seeded init: its 2 FPS and 7 SA
+     calls against their plain versions (SA also on the two hard weight sets),
+     the forward against the plain path, the tracker on the benchmark workload
+     with 2 FPS and 7 SA launches a frame step, frames/s and a profile;
+  9. the same for ``p2b_synth.yaml`` (P2B: no transformers, 'sequence' sampling
+     in the backbone, so 1 FPS and 7 SA launches a step);
+  10. on the trained weights and the agreement tracklets, every TEST.REF_BOX x
+     TEST.SHAPE_AGGREGATION mode through ``eval_one_epoch_device``, and the host
+     evaluator (``eval_one_epoch``), each on the kernel and the plain path from
+     the same seed and within 1.0 of each other; the host evaluator also within
+     1.0 of the asset's recorded host Success/Precision.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 """
@@ -83,6 +95,7 @@ GROUP_FWD_TOL = 1e-5
 GROUP_BWD_TOL = 1e-5
 GROUP_GRAD_TOL = 5e-4
 TRAIN_B = 48
+SEED = 0  # torch.manual_seed of the configurations without trained weights
 
 
 def log(msg):
@@ -359,22 +372,30 @@ def fps_hard_cases(device):
             ("ragged N = 1500, 16 warps, ties", resampled(2, 1500, 8), 400), ("N = 1", cloud(2, 1), 1)]
 
 
-def check_fps(calls, device):
-    """Phase 2, FPS: the forward's two captured calls (the record's rows), the two
-    shapes of a B = 48 train step, and the hard cases, each against the plain
-    version; time by events and on the device, the latency bound, the share."""
-    from ptt_tpu_torch.ops import fps, point_ops
+def fps_clock(device):
+    """The SM clock of the FPS latency bound: the published boost clock, or the
+    card's own reading where that is higher; first the compiled forms and the
+    probe's cycle counts are checked."""
+    from ptt_tpu_torch.ops import fps
 
     for limit, warps, pts in fps.KERNEL_FORMS:
         if fps.built_form(limit) != (warps, pts):
             fail(f"FPS: csrc/fps.cu runs N = {limit} in the form {fps.built_form(limit)}, ops/fps.py says {(warps, pts)}")
     probe = fps.latency_probe(device)
     check_fps_constants(probe)
-    clock = max(PEAK_CLOCK, probe["clock_ghz"] * 1e9)
+    return max(PEAK_CLOCK, probe["clock_ghz"] * 1e9)
+
+
+def check_fps(calls, device, clock, extras=True):
+    """FPS: the forward's captured calls (the record's rows), and with ``extras``
+    the two shapes of a B = 48 train step and the hard cases, each against the
+    plain version; time by events and on the device, the latency bound, the share."""
+    from ptt_tpu_torch.ops import fps, point_ops
+
     gen = torch.Generator(device=device).manual_seed(4)
     extent = torch.tensor([2.2, 1.0, 0.8], device=device)
     train = [(f"train step, B = {TRAIN_B}", (torch.rand((B, N, 3), device=device, generator=gen) * 2 - 1) * extent, m)
-             for B, N, m in ((2 * TRAIN_B, 1024, 512), (TRAIN_B, 128, 64))]
+             for B, N, m in ((2 * TRAIN_B, 1024, 512), (TRAIN_B, 128, 64))] if extras else []
     rows = []
     for label, xyz, npoint in [("frame step", x, m) for (x, m), _ in calls] + train:
         got = fps.furthest_point_sample(xyz, npoint)
@@ -402,7 +423,7 @@ def check_fps(calls, device):
         rows.append(dict(shape=shape, label=label, err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=max(rate_ms, chain), bound_by="operations" if chain >= rate_ms else kind,
                          bound_term="latency" if chain >= rate_ms else "rate", rate_bound_ms=rate_ms, mismatch=0))
-    for label, xyz, npoint in fps_hard_cases(device):
+    for label, xyz, npoint in fps_hard_cases(device) if extras else []:
         got = fps.furthest_point_sample(xyz, npoint)
         ref = point_ops.furthest_point_sample(xyz, npoint)
         torch.cuda.synchronize()
@@ -410,7 +431,7 @@ def check_fps(calls, device):
         log(f"  fps {tuple(xyz.shape)}->{npoint} ({label}), form {fps.kernel_form(xyz.shape[1])}: equal to plain {same}")
         if not same:
             fail(f"FPS kernel differs from its plain version on the hard case '{label}': {int((got != ref).sum())} indices")
-    for n in (fps.MAX_POINTS + 1, 4096):
+    for n in (fps.MAX_POINTS + 1, 4096) if extras else ():
         try:
             fps.furthest_point_sample(torch.zeros((1, n, 3), device=device), 8)
         except ValueError:
@@ -419,15 +440,20 @@ def check_fps(calls, device):
     return rows[:len(calls)], rows[len(calls):]
 
 
-def check_kernels(calls):
+def check_kernels(calls, clock, extras=True):
+    """Every captured FPS and SA call against its plain version (FPS's extra
+    cases with ``extras``); returns the rows of the record by kernel."""
     from ptt_tpu_torch.ops import point_ops, sa
 
-    frame_rows, _ = check_fps(calls["fps"], calls["fps"][0][0][0].device)
+    frame_rows = check_fps(calls["fps"], calls["sa"][0][0][0].device, clock, extras)[0] if calls["fps"] else []
     rows = {"fps": frame_rows, "sa": []}
     for args, kwargs in calls["sa"]:
         xyz, new_xyz, features, radius, nsample, weights, biases = args
         B, M = new_xyz.shape[:2]
         shape = f"{tuple(xyz.shape)}->{M} ns{nsample} r{radius} C{[w.shape[0] for w in weights] + [weights[-1].shape[1]]}"
+        widths = [w.shape[1] for w in weights]
+        if sa.smem_bytes(xyz.shape[1], nsample, widths) != sa.kernel_smem_bytes(xyz.shape[1], nsample, widths):
+            fail(f"ops/sa.py smem_bytes differs from csrc/sa.cu's at {shape}")
         ref_idx = point_ops.ball_query(radius, nsample, xyz, new_xyz)
         cases = {"trained weights": (weights, biases), **sa_hard_cases(args, kwargs)}
         for case, (ws, bs) in cases.items():
@@ -480,7 +506,7 @@ def check_kernels(calls):
     return rows
 
 
-def profile_batch(ev, tracklets, n_frames):
+def profile_batch(ev, tracklets, n_frames, tag="[5]"):
     """One batch of the tracker under torch.profiler: host time to enqueue it,
     wall time, the device's busy and idle shares, and the kernels by device time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -495,7 +521,7 @@ def profile_batch(ev, tracklets, n_frames):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     steps = len(tracklets[0][0]) - 1
-    log(f"[5] profile of one batch ({n_frames} frames, {steps} frame steps): wall {wall * 1e3:.1f} ms, "
+    log(f"{tag} profile of one batch ({n_frames} frames, {steps} frame steps): wall {wall * 1e3:.1f} ms, "
         f"host enqueue {t_enqueue * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / 1e6 / wall:.1f}% busy, {100 - 100 * busy_us / 1e6 / wall:.1f}% idle), "
         f"{sum(e.count for e in kernels)} device operations")
@@ -508,6 +534,216 @@ def profile_batch(ev, tracklets, n_frames):
         f"{name} {sum(e.self_device_time_total for e in es) / 1e3:.2f} ms in {sum(e.count for e in es)} launches "
         f"({100 * sum(e.self_device_time_total for e in es) / max(busy_us, 1):.1f}% of the busy time)"
         for name, es in own.items()))
+
+
+def bench_tracklets():
+    """The benchmark workload: 8 synthetic tracklets of 64 frames (600 object,
+    400 clutter and 120 pole points a frame), the JAX ``bench.py`` workload."""
+    from ptt_tpu_torch.data.synthetic import make_tracklets
+
+    return make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 64, "POINTS_PER_FRAME": 600,
+                           "CLUTTER_POINTS": 400})
+
+
+def bench_rate(ev, tracklets, n_batches):
+    """Frames/s of ``n_batches`` batches of ``tracklets``, two deep: batch k + 1
+    is enqueued before the host scores batch k."""
+    n_frames = sum(len(t[0]) for t in tracklets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    in_flight = None
+    for _ in range(n_batches):
+        handle = ev.dispatch_batch(tracklets)
+        if in_flight is not None:
+            ev.finish_batch(in_flight)
+        in_flight = handle
+    ev.finish_batch(in_flight)
+    return n_batches * n_frames / (time.perf_counter() - t0)
+
+
+def check_forward(model, batch, tag, trained=False):
+    """The whole forward on the kernel path against the plain path: sample
+    indices equal, pred_box_data within 2e-3, the same best proposal. The plain
+    path takes the kernel path's FPS picks (each FPS call also held against
+    the plain FPS on the kernel's own input): the box head samples the votes,
+    which the two paths round differently, so on seeded weights a near-tie
+    among them could make the plain FPS pick another center; how many picks it
+    would change, and the free-running plain path's difference, are printed
+    beside. With ``trained`` (the trained weights) the plain path's own FPS must
+    change no pick and the free-running plain path must stay within 2e-3 too."""
+    from ptt_tpu_torch.nn import set_use_kernels
+    from ptt_tpu_torch.ops import fps, point_ops
+
+    with torch.no_grad():
+        with FpsReplay(fps, point_ops) as replay:
+            out_k = model(batch)
+            replay.start()
+            set_use_kernels(model, False)
+            out_p = model(batch)
+        free = model(batch)
+        set_use_kernels(model, True)
+    for key in ("search_inds", "template_inds"):
+        if not torch.equal(out_k[key], out_p[key]):
+            fail(f"{tag} forward: {key} differ between kernel and plain paths")
+    box_err = float((out_k["pred_box_data"] - out_p["pred_box_data"]).abs().max())
+    free_err = float((out_k["pred_box_data"] - free["pred_box_data"]).abs().max())
+    same_best = torch.equal(out_k["pred_box_data"][..., 4].argmax(1), out_p["pred_box_data"][..., 4].argmax(1))
+    log(f"{tag} forward B={batch['search_points'].shape[0]}: max |pred_box_data kernel - plain| {box_err:.3e} with "
+        f"the kernel's FPS picks (FPS = plain on the kernel's input at {replay.checked}; picks the plain path's own "
+        f"FPS would change {replay.changed}; free-running plain path {free_err:.3e}), same best proposal {same_best}")
+    if not (box_err <= 2e-3 and same_best and torch.isfinite(out_k["pred_box_data"]).all()):
+        fail(f"{tag} forward: kernel path does not match the plain path")
+    if trained and (sum(replay.changed) or not free_err <= 2e-3):
+        fail(f"{tag} forward: the free-running plain path parts from the kernel path (FPS picks changed "
+             f"{replay.changed}, max |pred_box_data| difference {free_err:.3e})")
+
+
+def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench):
+    """Phases 8 and 9: one more configuration at its full published width, on
+    the port's own seeded init (no trained weights exist for it): every FPS
+    and SA call of the first frame step's forward against its plain version,
+    the forward against the plain path, then the tracker on the benchmark
+    workload: launches per frame step, frames/s, a profile of one batch.
+    Returns (rows by kernel, launches of one batch)."""
+    from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
+    from ptt_tpu_torch.nn import build_network, set_use_kernels
+    from ptt_tpu_torch.ops import fps, sa
+
+    torch.manual_seed(SEED)
+    model = build_network(cfg["MODEL"], device=device)
+    data = cfg["DATA_CONFIG"]
+    batch = first_step_batch(agreement, cfg, device)
+    calls = capture_kernel_calls(model, batch)
+    log(f"{tag} {name} at full width (search {data['SEARCH_INPUT_SIZE']}, template {data['TEMPLATE_INPUT_SIZE']} "
+        f"points), the port's own init from torch.manual_seed({SEED}); a forward made {len(calls['fps'])} FPS and "
+        f"{len(calls['sa'])} SA calls; kernels vs plain versions at its shapes (B = 8), SA rtol = atol = {SA_RTOL}")
+    if (len(calls["fps"]), len(calls["sa"])) != (n_fps, 7):
+        fail(f"{tag} {name}: the forward made {len(calls['fps'])} FPS and {len(calls['sa'])} SA calls, "
+             f"not {n_fps} and 7")
+    rows = check_kernels(calls, clock, extras=False)
+    check_forward(model, batch, tag)
+    del calls
+
+    ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
+    fps.launches = sa.launches = 0
+    results = ev.track_batch(bench)
+    torch.cuda.synchronize()
+    launches = {"fps": fps.launches, "sa": sa.launches}
+    steps = len(bench[0][0]) - 1
+    centers = np.array([[b.center for b in trk] for trk in results])
+    log(f"{tag} {name} tracker, one batch of the benchmark workload: launches {launches} over {steps} frame steps "
+        f"({n_fps} FPS and 7 SA calls a step expected); boxes finite {bool(np.isfinite(centers).all())}")
+    if launches != {"fps": n_fps * steps, "sa": 7 * steps}:
+        fail(f"{tag} {name} tracker: launches {launches}, expected {n_fps} and 7 per frame step over {steps} steps")
+    if not np.isfinite(centers).all():
+        fail(f"{tag} {name} tracker: non-finite boxes")
+    rates = [bench_rate(ev, bench, 4) for _ in range(3)]
+    set_use_kernels(model, False)
+    plain_rate = bench_rate(ev, bench, 1)
+    set_use_kernels(model, True)
+    log(f"{tag} {name} throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
+        f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); plain path "
+        f"{plain_rate:.1f} frames/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
+    profile_batch(ev, bench, sum(len(t[0]) for t in bench), tag)
+    del ev, model
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def check_sa_limit(device):
+    """Phase 8: the SA kernel at the largest cloud its wrapper passes for a
+    stage of 64-wide stored layers (the 64-row block and the cloud fill shared
+    memory), against its plain version; the next multiple of 4 is refused, and
+    at both the wrapper's copy of the block's shared memory is the library's."""
+    from ptt_tpu_torch.ops import point_ops, sa
+
+    n, limit = 13652, 13656
+    gen = torch.Generator(device=device).manual_seed(8)
+    xyz = torch.rand((1, n, 3), device=device, generator=gen) * 2
+    new_xyz = xyz[:, :64].contiguous()
+    widths = [3, 64, 64, 128]
+    ws = [torch.randn((a, b), device=device, generator=gen) * (2.0 / a) ** 0.5 for a, b in zip(widths, widths[1:])]
+    bs = [torch.randn((b,), device=device, generator=gen) for b in widths[1:]]
+    idx = torch.empty((1, 64, 32), dtype=torch.int32, device=device)
+    got = sa.fused_sa_inference(xyz, new_xyz, None, 0.3, 32, ws, bs, idx_out=idx)
+    ref = sa.fused_sa_plain(xyz, new_xyz, None, 0.3, 32, ws, bs)
+    mismatch = int((idx != point_ops.ball_query(0.3, 32, xyz, new_xyz)).sum())
+    err = float((got - ref).abs().max())
+    for size in (n, limit):
+        if sa.smem_bytes(size, 32, widths[1:]) != sa.kernel_smem_bytes(size, 32, widths[1:]):
+            fail(f"ops/sa.py smem_bytes differs from csrc/sa.cu's at N = {size}")
+    log(f"[8] sa at the wrapper's outer limit (1, {n}, 3)->64 ns32 C{widths}, {sa.smem_bytes(n, 32, widths[1:])} bytes "
+        f"of shared memory a block: max |kernel - plain| {err:.3e}, ball-query membership disagreements {mismatch}")
+    if mismatch or not torch.allclose(got, ref, rtol=SA_RTOL, atol=SA_ATOL):
+        fail(f"SA kernel differs from its plain version at N = {n}, the wrapper's outer limit")
+    try:
+        sa.fused_sa_inference(torch.zeros((1, limit, 3), device=device), new_xyz, None, 0.3, 32, ws, bs)
+    except ValueError:
+        return
+    fail(f"SA: the wrapper did not refuse N = {limit}, beyond its outer limit")
+
+
+MODES = [(ref, agg) for ref in ("previous_result", "previous_gt", "current_gt")
+         for agg in ("firstandprevious", "first", "previous", "all")]
+
+
+def modes_phase(cfg, model, meta, agreement, device):
+    """Phase 10, on the trained asset over the agreement tracklets: every
+    TEST.REF_BOX x TEST.SHAPE_AGGREGATION mode through ``eval_one_epoch_device``
+    on the kernel path and on the plain path from the same generator seed,
+    each pair within 1.0; then the host evaluator (``eval_one_epoch``) on both
+    paths, within 1.0 of each other and of the asset's recorded host numbers.
+    Both write ``track_result.txt``; its lines are counted."""
+    from ptt_tpu_torch.eval.device_loop import eval_one_epoch_device
+    from ptt_tpu_torch.eval.evaluator import eval_one_epoch
+    from ptt_tpu_torch.nn import set_use_kernels
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke_eval")
+    quiet = logging.getLogger("chip_smoke.eval")
+    quiet.setLevel(logging.WARNING)
+
+    def result_lines(path):
+        with open(os.path.join(out_dir, path, "final_result", "data", "track_result.txt")) as f:
+            return sum(1 for _ in f)
+
+    def both(fn):
+        got = {}
+        for path in ("kernel", "plain"):
+            set_use_kernels(model, path == "kernel")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            t0 = time.perf_counter()
+            got[path] = fn(os.path.join(out_dir, path)) + (time.perf_counter() - t0, result_lines(path))
+        set_use_kernels(model, True)
+        return got
+
+    frames = sum(len(t[0]) for t in agreement)
+    for ref, agg in MODES:
+        mcfg = copy.deepcopy(cfg)
+        mcfg["TEST"].update(REF_BOX=ref, SHAPE_AGGREGATION=agg)
+        got = both(lambda d: eval_one_epoch_device(mcfg, model, [agreement], logger=quiet, max_points=1024,
+                                                   batch_size=8, result_dir=d, device=device)[:2])
+        (ks, kp, kt, kn), (ps, pp, pt, pn) = got["kernel"], got["plain"]
+        log(f"[10] REF_BOX {ref}, SHAPE_AGGREGATION {agg}: kernel path Success {ks:.2f} Precision {kp:.2f} "
+            f"({kt:.2f} s), plain path {ps:.2f}/{pp:.2f} ({pt:.2f} s), delta {ks - ps:+.2f}/{kp - pp:+.2f}; "
+            f"track_result.txt lines {kn}, {pn}")
+        if not (abs(ks - ps) <= 1.0 and abs(kp - pp) <= 1.0):
+            fail(f"[10] mode {ref}/{agg}: the kernel path is not within 1.0 of the plain path")
+        if kn != frames or pn != frames:
+            fail(f"[10] mode {ref}/{agg}: track_result.txt holds {kn} / {pn} lines, not {frames}")
+    got = both(lambda d: eval_one_epoch(cfg, model, [agreement], logger=quiet, result_dir=d, device=device))
+    (ks, kp, kt, kn), (ps, pp, pt, pn) = got["kernel"], got["plain"]
+    log(f"[10] host evaluator (eval_one_epoch, one forward a frame at B = 1): kernel path Success {ks:.2f} "
+        f"Precision {kp:.2f} ({frames} frames in {kt:.2f} s, {(frames - len(agreement)) / kt:.1f} tracked frames/s), "
+        f"plain path {ps:.2f}/{pp:.2f} ({pt:.2f} s); recorded host {meta['host_success']:.2f}/"
+        f"{meta['host_precision']:.2f} (delta {ks - meta['host_success']:+.2f}/{kp - meta['host_precision']:+.2f}); "
+        f"track_result.txt lines {kn}, {pn}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if not (abs(ks - ps) <= 1.0 and abs(kp - pp) <= 1.0):
+        fail("[10] host evaluator: the kernel path is not within 1.0 of the plain path")
+    if not (abs(ks - meta["host_success"]) <= 1.0 and abs(kp - meta["host_precision"]) <= 1.0):
+        fail("[10] host evaluator: not within 1.0 of the asset's recorded host Success/Precision")
+    if kn != frames or pn != frames:
+        fail(f"[10] host evaluator: track_result.txt holds {kn} / {pn} lines, not {frames}")
 
 
 def relerr(got, ref) -> float:
@@ -961,7 +1197,7 @@ def main() -> int:
         log("no CUDA device: chip_smoke.py runs on a GPU")
         return 1
     sys.path.insert(0, REPO)
-    from ptt_tpu_torch.config import ptt_config, ptt_synth_config
+    from ptt_tpu_torch.config import p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
     from ptt_tpu_torch.data.synthetic import make_tracklets
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
@@ -995,7 +1231,8 @@ def main() -> int:
     if len(calls["fps"]) != 2 or len(calls["sa"]) != 7:
         fail(f"the forward made {len(calls['fps'])} FPS and {len(calls['sa'])} SA calls, not 2 and 7")
     log(f"[2] kernels vs plain versions at the forward's shapes (B = 8), SA rtol = atol = {SA_RTOL}")
-    rows = check_kernels(calls)
+    clock = fps_clock(device)
+    rows = check_kernels(calls, clock)
     summary = {name: dict(launches_per_frame=len(rs), max_abs_err=max(r["err"] for r in rs),
                           ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
                           bound_ms=sum(r["bound_ms"] for r in rs))
@@ -1005,19 +1242,7 @@ def main() -> int:
     log("kernels " + json.dumps(summary))
 
     # 3. whole forward, kernel path against plain path
-    with torch.no_grad():
-        out_k = model(batch)
-        set_use_kernels(model, False)
-        out_p = model(batch)
-        set_use_kernels(model, True)
-    for key in ("search_inds", "template_inds"):
-        if not torch.equal(out_k[key], out_p[key]):
-            fail(f"forward: {key} differ between kernel and plain paths")
-    box_err = float((out_k["pred_box_data"] - out_p["pred_box_data"]).abs().max())
-    same_best = torch.equal(out_k["pred_box_data"][..., 4].argmax(1), out_p["pred_box_data"][..., 4].argmax(1))
-    log(f"[3] forward B=8: max |pred_box_data kernel - plain| {box_err:.3e}, same best proposal {same_best}")
-    if not (box_err <= 2e-3 and same_best and torch.isfinite(out_k["pred_box_data"]).all()):
-        fail("forward: kernel path does not match the plain path")
+    check_forward(model, batch, "[3]", trained=True)
 
     # 4. the tracker on the trained weights
     ev = DeviceTrackingEvaluator(cfg, model, max_points=1024, batch_size=8, device=device)
@@ -1041,37 +1266,34 @@ def main() -> int:
     if launches != {"fps": 2 * steps, "sa": 7 * steps}:
         fail(f"tracker: launches {launches}, expected 2 and 7 per frame step over {steps} steps")
 
-    bench = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 64,
-                            "POINTS_PER_FRAME": 600, "CLUTTER_POINTS": 400})
+    bench = bench_tracklets()
     ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
     n_frames = sum(len(t[0]) for t in bench)
-
-    def run(n_batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        in_flight = None
-        for _ in range(n_batches):
-            handle = ev.dispatch_batch(bench)
-            if in_flight is not None:
-                ev.finish_batch(in_flight)
-            in_flight = handle
-        ev.finish_batch(in_flight)
-        return n_batches * n_frames / (time.perf_counter() - t0)
-
-    run(1)  # warm-up
-    rates = [run(4) for _ in range(3)]
+    bench_rate(ev, bench, 1)  # warm-up
+    rates = [bench_rate(ev, bench, 4) for _ in range(3)]
     set_use_kernels(model, False)
-    plain_rate = run(1)
+    plain_rate = bench_rate(ev, bench, 1)
     set_use_kernels(model, True)
     log(f"[4] throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); "
         f"plain path {plain_rate:.1f} frames/s; card {card}")
     profile_batch(ev, bench, n_frames)
-    del ev, model
+    del ev
     torch.cuda.empty_cache()
 
     # 6 and 7: the training path
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
+
+    # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
+    check_sa_limit(device)
+    large_rows, large_launches = config_phase("[8]", "ptt_large.yaml", ptt_large_config(), device, card, clock, 2,
+                                              agreement, bench)
+    p2b_rows, p2b_launches = config_phase("[9]", "p2b_synth.yaml (P2B)", p2b_synth_config(), device, card, clock, 1,
+                                          agreement, bench)
+
+    # 10. every tracking mode and the host evaluator on the trained weights
+    modes_phase(cfg, model, meta, agreement, device)
+    del model
 
     record = {"kernels": []}
     for name, src, replaces in (("fps", "ptt_tpu_torch/csrc/fps.cu", "ptt_tpu/ops/pallas_fps.py:37"),
@@ -1085,6 +1307,14 @@ def main() -> int:
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
         })
         record["kernels"][-1]["device_ms"] = summary[name]["device_ms"]
+        record["kernels"][-1]["launches_by_path"] = {
+            "ptt.yaml tracker (agreement batch)": launches[name],
+            "ptt_large.yaml tracker (benchmark batch)": large_launches[name],
+            "p2b_synth.yaml tracker (benchmark batch)": p2b_launches[name]}
+        record["kernels"][-1]["shapes"] = [
+            {"config": config, **{k: r[k] for k in ("shape", "err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
+            for config, rs_ in (("ptt.yaml", rs), ("ptt_large.yaml", large_rows[name]), ("p2b_synth.yaml", p2b_rows[name]))
+            for r in rs_]
         if name == "fps":
             record["kernels"][-1].update(bound_term=max(rs, key=lambda r: r["bound_ms"])["bound_term"],
                                          rate_bound_ms=sum(r["rate_bound_ms"] for r in rs))

@@ -1,11 +1,16 @@
-"""The settings of ``tools/cfgs/kitti_models/ptt.yaml`` and
-``tools/cfgs/synthetic_models/ptt_synth.yaml`` that the port runs on, as plain
-dicts (no YAML parser is needed where the port runs).
+"""The settings of the YAML configurations the port runs on, as plain dicts (no
+YAML parser is needed where the port runs).
 
-``PTT_CFG`` holds the whole MODEL and TEST sections and the DATA_CONFIG keys the
-device tracker reads; ``ptt_synth_config()`` adds the OPTIMIZATION and TRAIN
-sections and the DATA_CONFIG keys of synthetic training. The tests hold both
-equal to the YAML as the JAX package's loader reads it.
+``PTT_CFG`` holds the whole MODEL and TEST sections of
+``tools/cfgs/kitti_models/ptt.yaml`` and the DATA_CONFIG keys the trackers
+read; ``ptt_synth_config()`` adds the OPTIMIZATION and TRAIN sections and the
+DATA_CONFIG keys of synthetic training (``synthetic_models/ptt_synth.yaml``).
+The other configurations are derived from these the way their YAML files
+derive from their ``_BASE_CONFIG_``, by a recursive override (``merged``):
+``ptt_large_config()`` (``kitti_models/ptt_large.yaml``), ``p2b_config()``
+(``kitti_models/p2b.yaml``) and ``p2b_synth_config()``
+(``synthetic_models/p2b_synth.yaml``). The tests hold each equal to the YAML
+as the JAX package's loader reads it.
 """
 
 from __future__ import annotations
@@ -153,3 +158,54 @@ def ptt_synth_config() -> dict:
     cfg["OPTIMIZATION"] = copy.deepcopy(_SYNTH_OPTIMIZATION)
     cfg["TRAIN"] = {"WITH_EVAL": {"ENABLE": True, "START_EPOCH": 0, "INTERVAL": 5}}
     return cfg
+
+
+def merged(base: dict, override: dict) -> dict:
+    """A fresh dict: ``base`` with ``override`` merged in recursively (a dict
+    value merges into the dict it replaces, any other value replaces it), the
+    rule of the JAX package's ``_BASE_CONFIG_`` inheritance."""
+    out = copy.deepcopy(base)
+    for key, value in override.items():
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            out[key] = merged(out[key], value)
+        else:
+            out[key] = copy.deepcopy(value)
+    return out
+
+
+_MUL_TRANSFORMER_BLOCK = dict(_TRANSFORMER_BLOCK, NAME="MulTransformerBlock", N_HEADS=4, N_LAYERS=2)
+
+# ptt_large.yaml over ptt.yaml: 2048 / 1024-point clouds, doubled seed counts,
+# the 4-head, 2-layer transformer in both heads, 128 box-head centers
+_PTT_LARGE = {
+    "DATA_CONFIG": {"SEARCH_INPUT_SIZE": 2048, "TEMPLATE_INPUT_SIZE": 1024},
+    "MODEL": {
+        "BACKBONE_3D": {"SA_CONFIG": {"NPOINTS_SEARCH": [1024, 512, 256], "NPOINTS_TEMPLATE": [512, 256, 128]}},
+        "CENTROID_HEAD": {"TRANSFORMER_BLOCK": _MUL_TRANSFORMER_BLOCK},
+        "BOX_HEAD": {"SA_CONFIG": {"NPOINTS": 128}, "TRANSFORMER_BLOCK": _MUL_TRANSFORMER_BLOCK},
+    },
+}
+
+# p2b.yaml and p2b_synth.yaml: the PTT graph with both transformers off and
+# 'sequence' sampling at every backbone stage
+_P2B_MODEL = {
+    "BACKBONE_3D": {"SA_CONFIG": {"SAMPLE_METHOD": ["sequence", "sequence", "sequence"]}},
+    "CENTROID_HEAD": {"TRANSFORMER_BLOCK": {"ENABLE": False}},
+    "BOX_HEAD": {"TRANSFORMER_BLOCK": {"ENABLE": False}},
+}
+
+
+def ptt_large_config() -> dict:
+    """ptt_large.yaml: MODEL, TEST and the trackers' DATA_CONFIG keys."""
+    return merged(PTT_CFG, _PTT_LARGE)
+
+
+def p2b_config() -> dict:
+    """p2b.yaml (KITTI): camera-frame boxes, no z offset, the P2B model."""
+    return merged(PTT_CFG, {"DATA_CONFIG": {"REF_COOR": "camera", "USE_Z_AXIS": False}, "MODEL": _P2B_MODEL})
+
+
+def p2b_synth_config() -> dict:
+    """p2b_synth.yaml: ptt_synth.yaml with MODEL.NAME P2B, the P2B model and
+    15 epochs."""
+    return merged(ptt_synth_config(), {"MODEL": dict(_P2B_MODEL, NAME="P2B"), "OPTIMIZATION": {"NUM_EPOCHS": 15}})

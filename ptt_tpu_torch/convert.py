@@ -11,7 +11,12 @@ names, ready for ``load_state_dict(strict=True)``.
 Flax ``Dense`` kernels are (in, out) and are transposed to ``nn.Linear``'s
 (out, in); BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var`` (plus a zero
-``num_batches_tracked``); ``__meta__/*`` entries are metadata, not weights.
+``num_batches_tracked``), LayerNorm ``scale``/``bias`` ``weight``/``bias``;
+``__meta__/*`` entries are metadata, not weights. The transformer keys are
+those of the JAX package's ``utils/torch_converter.py`` ``export_state_dict``
+(``transformer_block.layers.0.fc_gamma.0.weight``, ``...norm1.weight``); the
+two sub-paths it has no mapping for, ``fc_sim`` and ``fc3``, keep their flax
+names.
 ``variables_from_state_dict`` is the reverse: a ``state_dict`` -> the flat
 ``params/...`` and ``batch_stats/...`` dict of numpy arrays of such a file.
 """
@@ -32,11 +37,14 @@ _RENAMES = (
     (r"centroid_voting_head/ConvStack_0", r"centroid_voting_head/cls_fc"),
     (r"centroid_voting_head/ConvStack_1", r"centroid_voting_head/reg_fc"),
     (r"box_voting_head/ConvStack_0", r"box_voting_head/fc"),
+    # MulTransformerBlock's stack
+    (r"(^|/)layer_(\d+)/", r"\1layers/\2/"),
     # MLP2 = Linear -> ReLU -> Linear: nn.Sequential indices 0 and 2
-    (r"(fc_delta|fc_gamma)/Linear_0/Dense_0", r"\1/0"),
-    (r"(fc_delta|fc_gamma)/Linear_1/Dense_0", r"\1/2"),
+    # (TransformerBlockMLP's fc1 and fc2 are MLP2s too)
+    (r"(fc_delta|fc_gamma|fc1|fc2)/Linear_0/Dense_0", r"\1/0"),
+    (r"(fc_delta|fc_gamma|fc1|fc2)/Linear_1/Dense_0", r"\1/2"),
     # transformer Linear wrappers hold one Dense
-    (r"(fc1|fc2|w_qs|w_ks|w_vs)/Dense_0", r"\1"),
+    (r"(fc1|fc2|fc3|fc_sim|proj|w_qs|w_ks|w_vs)/Dense_0", r"\1"),
     (r"(^|/)Dense_(\d+)$", r"\1linears/\2"),
     (r"(^|/)BatchNorm_(\d+)$", r"\1bns/\2"),
 )
@@ -45,9 +53,10 @@ _RENAMES = (
 _RENAMES_BACK = (
     (r"(^|/)linears/(\d+)$", r"\1Dense_\2"),
     (r"(^|/)bns/(\d+)$", r"\1BatchNorm_\2"),
-    (r"(fc_delta|fc_gamma)/0$", r"\1/Linear_0/Dense_0"),
-    (r"(fc_delta|fc_gamma)/2$", r"\1/Linear_1/Dense_0"),
-    (r"(^|/)(fc1|fc2|w_qs|w_ks|w_vs)$", r"\1\2/Dense_0"),
+    (r"(fc_delta|fc_gamma|fc1|fc2)/0$", r"\1/Linear_0/Dense_0"),
+    (r"(fc_delta|fc_gamma|fc1|fc2)/2$", r"\1/Linear_1/Dense_0"),
+    (r"(^|/)(fc1|fc2|fc3|fc_sim|proj|w_qs|w_ks|w_vs)$", r"\1\2/Dense_0"),
+    (r"(^|/)layers/(\d+)/", r"\1layer_\2/"),
     (r"box_voting_head/fc/", r"box_voting_head/ConvStack_0/"),
     (r"centroid_voting_head/reg_fc/", r"centroid_voting_head/ConvStack_1/"),
     (r"centroid_voting_head/cls_fc/", r"centroid_voting_head/ConvStack_0/"),
@@ -127,10 +136,11 @@ def _flax_key(torch_key_: str) -> str | None:
     path = module.replace(".", "/")
     for pattern, repl in _RENAMES_BACK:
         path = re.sub(pattern, repl, path)
-    is_bn = re.search(r"(^|/)BatchNorm_\d+$", path) is not None
+    # BatchNorm and LayerNorm weights are flax "scale"s, Linear weights "kernel"s
+    is_norm = re.search(r"(^|/)(BatchNorm_\d+|norm\d)$", path) is not None
     leaf = {("weight", True): ("params", "scale"), ("bias", True): ("params", "bias"),
             ("running_mean", True): ("batch_stats", "mean"), ("running_var", True): ("batch_stats", "var"),
-            ("weight", False): ("params", "kernel"), ("bias", False): ("params", "bias")}.get((name, is_bn))
+            ("weight", False): ("params", "kernel"), ("bias", False): ("params", "bias")}.get((name, is_norm))
     if leaf is None:
         raise KeyError(f"no flax counterpart for {torch_key_!r}")
     return f"{leaf[0]}/{path}/{leaf[1]}"

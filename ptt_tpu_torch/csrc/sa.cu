@@ -57,7 +57,11 @@
 //    32 banks); only a stored layer wider than 128 needs a second buffer.
 //  * The ball query uses the whole block (ball_query.cuh block_ball_query,
 //    shared with group.cu): the cloud is copied to shared memory once
-//    (coalesced, 16 bytes a load), the block's warps are dealt out evenly over
+//    (coalesced, 16 bytes a load) into the first activation buffer, which is
+//    sized for whichever is larger, the block's activations or the cloud
+//    (a 2048-point cloud is 24 KB; a 64-row block of 64-wide layers holds
+//    17 KB), so that every block size takes every cloud that fits beside the
+//    weight ring; the block's warps are dealt out evenly over
 //    its centers, each scanning a contiguous range of the cloud into a list of
 //    its own; the lists are merged in range order, which is index order, so the
 //    result is the single scan's: first ns hits, pads repeat the first hit, an
@@ -70,8 +74,9 @@
 //
 // Shapes: ns is 16, 32 or 64, there is at least one tail layer, every width is
 // a multiple of 8 (the K of one wgmma), N is a multiple of 4 (16-byte loads of
-// the cloud) and the cloud fits the activation buffer of a 64-row block; the
-// entry point refuses any other call, as ops/sa.py does before it.
+// the cloud) and a block of 64 rows, its cloud included, fits in shared memory
+// (N up to ~13,000 at 64-wide layers); the entry point refuses any other call,
+// as ops/sa.py does before it.
 
 #include <cuda_runtime.h>
 
@@ -87,6 +92,7 @@ constexpr int kTileFloats = kSlabK * kPassCols;  // one (hi or lo) tile of a sla
 constexpr int kSlabFloats = 2 * kTileFloats;     // hi tile, then lo tile
 constexpr int kStages = 2;       // slabs in the ring
 constexpr int kActPad = 4;       // activation row stride = width + 4 floats
+constexpr int kBufAlign = 256;   // floats: buffers start 1 KB apart, as the weight ring's tiles need
 constexpr int kMaxTail = 4;
 constexpr size_t kMaxSmem = 227 * 1024;
 // A tile holds its 32 x 128 values as 8 x 16 core matrices of 8 columns (n) x
@@ -202,14 +208,14 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ ctr,
           const float* __restrict__ z, const float* __restrict__ off, const Tail tail,
           const float* __restrict__ wprep, int n_slabs, float* __restrict__ out,
           int* __restrict__ idx_out, int n, int m_total, int ns, int tm, int width,
-          int two_bufs, float r2) {
+          int two_bufs, int buf0_floats, float r2) {
   constexpr int kWarps = kWarpGroups * 4;
   constexpr int kThreads = kWarps * 32;
   constexpr int kRows = kWarpGroups * 64;  // rows (center, slot) per block
   extern __shared__ __align__(128) float smem[];
   const int lda = width + kActPad;
-  float* buf0 = smem;                // kRows x lda; holds the cloud during the ball query
-  float* buf1 = buf0 + kRows * lda;  // kRows x lda, only if a stored layer has several passes
+  float* buf0 = smem;                // kRows x lda, or the cloud (3 n) if larger; holds the cloud first
+  float* buf1 = buf0 + buf0_floats;  // kRows x lda, only if a stored layer has several passes
   float* ring = buf1 + (two_bufs ? kRows * lda : 0);  // kStages x kSlabFloats
   float* wmax = ring + kStages * kSlabFloats;         // kWarps x kPassCols
   int* nbr = reinterpret_cast<int*>(wmax + kWarps * kPassCols);    // kRows
@@ -491,21 +497,29 @@ struct Plan {
   int width, n_slabs, two_bufs;
 };
 
+// the first activation buffer: the block's rows, or the cloud of n points if larger
 template <int kWarpGroups>
-size_t smem_bytes(const Plan& plan, int ns) {
+int buf0_floats(const Plan& plan, int n) {
+  const int rows = kWarpGroups * 64 * (plan.width + kActPad);
+  const int cloud = (3 * n + kBufAlign - 1) / kBufAlign * kBufAlign;
+  return rows > cloud ? rows : cloud;
+}
+
+template <int kWarpGroups>
+size_t smem_bytes(const Plan& plan, int ns, int n) {
   constexpr int kRows = kWarpGroups * 64;
   constexpr int kWarps = kWarpGroups * 4;
   const int lists = ptt::block_query_lists(kRows / ns, kWarps);
-  const int buf_floats = kRows * (plan.width + kActPad);
-  return ((plan.two_bufs ? 2 : 1) * static_cast<size_t>(buf_floats) + kStages * kSlabFloats +
-          kWarps * kPassCols + 2 * kRows + static_cast<size_t>(lists) * ns) * sizeof(float);
+  const size_t bufs = buf0_floats<kWarpGroups>(plan, n) + (plan.two_bufs ? kRows * (plan.width + kActPad) : 0);
+  return (bufs + kStages * kSlabFloats + kWarps * kPassCols + 2 * kRows + static_cast<size_t>(lists) * ns) *
+         sizeof(float);
 }
 
 template <int kWarpGroups>
 cudaError_t launch(const Plan& plan, const float* xyz, const float* ctr, const float* z, const float* off,
                    const Tail& tail, const float* wprep, float* out, int* idx_out, int batch, int n,
                    int m_total, int ns, float r2, cudaStream_t stream) {
-  const size_t smem = smem_bytes<kWarpGroups>(plan, ns);
+  const size_t smem = smem_bytes<kWarpGroups>(plan, ns, n);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -527,7 +541,8 @@ cudaError_t launch(const Plan& plan, const float* xyz, const float* ctr, const f
   config.attrs = &attr;
   config.numAttrs = 1;
   return cudaLaunchKernelEx(&config, sa_kernel<kWarpGroups>, xyz, ctr, z, off, tail, wprep, plan.n_slabs, out,
-                            idx_out, n, m_total, ns, tm, plan.width, plan.two_bufs, r2);
+                            idx_out, n, m_total, ns, tm, plan.width, plan.two_bufs,
+                            buf0_floats<kWarpGroups>(plan, n), r2);
 }
 
 int total_slabs(int n_tail, const int* widths) {
@@ -536,10 +551,30 @@ int total_slabs(int n_tail, const int* widths) {
   return slabs;
 }
 
+Plan make_plan(int n_tail, const int* widths) {
+  Plan plan;
+  plan.n_slabs = total_slabs(n_tail, widths);
+  // activations kept in shared memory: layer 0 and every tail layer but the last
+  plan.width = widths[0];
+  plan.two_bufs = 0;
+  for (int l = 1; l < n_tail; ++l) {
+    plan.width = widths[l] > plan.width ? widths[l] : plan.width;
+    plan.two_bufs |= widths[l] > kPassCols;
+  }
+  return plan;
+}
+
 }  // namespace
 
 // Floats of sa_forward's `wprep` scratch for tail layers of these widths.
 extern "C" int sa_prep_floats(int n_tail, const int* widths) { return total_slabs(n_tail, widths) * kSlabFloats; }
+
+// Shared memory in bytes of a 64-row block (the smallest) for a call with a
+// cloud of n points, ns slots and these widths (as sa_forward takes them);
+// sa_forward refuses a call for which it exceeds 227 KB.
+extern "C" int sa_smem_bytes(int n, int ns, int n_tail, const int* widths) {
+  return static_cast<int>(smem_bytes<1>(make_plan(n_tail, widths), ns, n));
+}
 
 // xyz (B, N, 3), ctr (B, M, 3), feats (B, N, c_feat) or null, out (B, M, C_out),
 // all float32 and contiguous on the device. w1 ((3 if use_xyz) + c_feat, h1) and
@@ -549,9 +584,9 @@ extern "C" int sa_prep_floats(int n_tail, const int* widths) { return total_slab
 // wprep (sa_prep_floats floats) for the split tail weights. w[l] (widths[l],
 // widths[l + 1]) and b[l] (widths[l + 1],) are device pointers held in host
 // arrays of n_tail >= 1 entries; widths[0] = h1, every width is a multiple of
-// 8, ns is 16, 32 or 64, n is a multiple of 4 and 3 n floats fit the activation
-// buffer of a 64-row block (64 x (widest stored layer + 4)); any other call is
-// refused with cudaErrorInvalidValue. xyz, z, off, out and wprep are 16-byte
+// 8, ns is 16, 32 or 64, n is a multiple of 4 and a 64-row block with its cloud
+// fits in shared memory (smem_bytes<1>); any other call is refused with
+// cudaErrorInvalidValue. xyz, z, off, out and wprep are 16-byte
 // aligned. idx_out (B, M, ns) int32 receives the neighbour table when it is
 // not null. Launches two kernels on `stream`; returns the cudaError_t of the
 // launches (0 = ok).
@@ -576,16 +611,8 @@ extern "C" int sa_forward(const float* xyz, const float* ctr, const float* feats
   for (int l = 0; l <= n_tail; ++l) {
     if (widths[l] < 8 || widths[l] % 8 != 0) return cudaErrorInvalidValue;
   }
-  Plan plan;
-  plan.n_slabs = total_slabs(n_tail, widths);
-  // activations kept in shared memory: layer 0 and every tail layer but the last
-  plan.width = widths[0];
-  plan.two_bufs = 0;
-  for (int l = 1; l < n_tail; ++l) {
-    plan.width = widths[l] > plan.width ? widths[l] : plan.width;
-    plan.two_bufs |= widths[l] > kPassCols;
-  }
-  if (3LL * n > 64LL * (plan.width + kActPad)) return cudaErrorInvalidValue;  // the cloud shares the buffer
+  const Plan plan = make_plan(n_tail, widths);
+  if (smem_bytes<1>(plan, ns, n) > kMaxSmem) return cudaErrorInvalidValue;  // no block takes the cloud
   const auto st = static_cast<cudaStream_t>(stream);
   const int z_rows = batch * n, o_rows = batch * m_total;
   const dim3 pre_grid((z_rows + kL0Tile - 1) / kL0Tile + (o_rows + kL0Tile - 1) / kL0Tile + plan.n_slabs,
@@ -603,10 +630,10 @@ extern "C" int sa_forward(const float* xyz, const float* ctr, const float* feats
     return cudaErrorUnknown;
   }
   const long long block_rows = static_cast<long long>(batch) * m_total * ns;
-  if (smem_bytes<4>(plan, ns) <= kMaxSmem && 4 * block_rows >= 3LL * sms * 256) {
+  if (smem_bytes<4>(plan, ns, n) <= kMaxSmem && 4 * block_rows >= 3LL * sms * 256) {
     return launch<4>(plan, xyz, ctr, z, off, tail, wprep, out, idx_out, batch, n, m_total, ns, r2, st);
   }
-  if (smem_bytes<2>(plan, ns) <= kMaxSmem && 4 * block_rows >= 3LL * sms * 128) {
+  if (smem_bytes<2>(plan, ns, n) <= kMaxSmem && 4 * block_rows >= 3LL * sms * 128) {
     return launch<2>(plan, xyz, ctr, z, off, tail, wprep, out, idx_out, batch, n, m_total, ns, r2, st);
   }
   return launch<1>(plan, xyz, ctr, z, off, tail, wprep, out, idx_out, batch, n, m_total, ns, r2, st);

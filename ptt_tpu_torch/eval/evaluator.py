@@ -1,0 +1,200 @@
+"""The per-frame host evaluator (the JAX package's ``eval/evaluator.py``, the
+reference's tools/eval_utils/eval_tracking_utils.py).
+
+Per tracklet: frame 0 is the given box; every later frame crops the search
+region around the reference box (TEST.REF_BOX), fuses the template from the
+frames TEST.SHAPE_AGGREGATION names around their predicted boxes, runs the
+network and decodes the best proposal back to the world frame
+(``get_box_by_offset``). The crops and resamples are the numpy code of
+``core/geometry.py`` with its reseeded RNG, so they are the JAX host loop's
+exactly; the forward and the argmax over the proposals run on the device, and
+5 floats come back a frame.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import geometry as geo
+from ..utils import timer
+from ..utils.common import AverageMeter
+from .metrics import Evaluator
+
+
+RESULT_FILE = "track_result.txt"  # the per-frame result file of a run
+
+
+def anno_scene_frame(anno, default_scene, default_frame):
+    """(scene, track_id, frame) from a dataset anno dict, with the fallbacks
+    both evaluators use for result lines."""
+    scene = anno.get("scene", anno.get("scene_num", default_scene))
+    track = anno.get("track_id", 0)
+    frame = anno.get("frame", anno.get("frame_num", default_frame))
+    return scene, track, frame
+
+
+def result_line(scene, frame, tracklet: int, box) -> str:
+    """One ``track_result.txt`` line: scene, frame, 1-based tracklet number and
+    the box's 8 corners (24 numbers, x then y then z of each)."""
+    flat = np.concatenate(box.corners().T, axis=0).tolist()
+    return " ".join(map(str, [scene, frame, tracklet] + flat)) + "\n"
+
+
+REF_BOX_MODES = ("PREVIOUS_RESULT", "PREVIOUS_GT", "CURRENT_GT")
+
+
+def ref_box_mode(test_cfg: dict) -> str:
+    """TEST.REF_BOX by substring, in the reference's order."""
+    ref = str(test_cfg.get("REF_BOX", "previous_result")).upper()
+    for mode in REF_BOX_MODES:
+        if mode in ref:
+            return mode
+    raise ValueError("TEST.REF_BOX must be previous_result / previous_gt / current_gt")
+
+
+def aggregation_mode(test_cfg: dict) -> str:
+    """TEST.SHAPE_AGGREGATION by substring, in the reference's order; anything
+    that names neither the first nor the previous frame is 'ALL'."""
+    agg = str(test_cfg.get("SHAPE_AGGREGATION", "firstandprevious")).upper()
+    for mode in ("FIRSTANDPREVIOUS", "FIRST", "PREVIOUS"):
+        if mode in agg:
+            return mode
+    return "ALL"
+
+
+def make_track_step(model):
+    """One frame's inference: the forward on a (1, S, 3) search and a (1, P, 3)
+    template, and the best proposal taken on the device. Returns the (5,)
+    tensor [dx, dy, dz, dtheta_deg, score] on the model's device."""
+
+    @torch.no_grad()
+    def track_step(search_points, template_points):
+        data = model({"search_points": search_points, "template_points": template_points})["pred_box_data"][0]
+        return data[torch.argmax(data[:, 4])]
+
+    return track_step
+
+
+class TrackingEvaluator:
+    """The per-tracklet tracking loop. ``cfg`` holds DATA_CONFIG and TEST;
+    ``model`` is the tracker, already on ``device``. ``output_dir``, when
+    given, receives ``track_result.txt``."""
+
+    def __init__(self, cfg: dict, model, output_dir=None, device="cuda"):
+        self.cfg = cfg
+        self.data_cfg = cfg["DATA_CONFIG"]
+        self.test_cfg = cfg["TEST"]
+        self.ref_mode = ref_box_mode(self.test_cfg)
+        self.aggregation = aggregation_mode(self.test_cfg)
+        self.model = model
+        self.device = resolve_device(device)
+        self.track_step = make_track_step(model)
+        self.evaluator = Evaluator(ref_coord=str(self.data_cfg.get("REF_COOR", "lidar")))
+        self.frame_time = AverageMeter()
+        self.batch_num = 0
+        self._fp = None
+        if output_dir is not None:
+            output_dir = Path(output_dir)
+            output_dir.mkdir(parents=True, exist_ok=True)
+            self._fp = open(output_dir / RESULT_FILE, "w")
+
+    def _prepare_search(self, this_pc, this_box, results, gt_boxes, frame_id):
+        ref_box = {"PREVIOUS_RESULT": results[-1], "PREVIOUS_GT": gt_boxes[frame_id - 1],
+                   "CURRENT_GT": this_box}[self.ref_mode]
+        # crop_center_pc with the gt box, as the reference evaluator calls it:
+        # the tight crop gets the gt branch's 0.6 * length of slack
+        pts, _, _ = geo.crop_center_pc(this_pc, ref_box, gt_box=this_box,
+                                       offset=float(self.data_cfg.get("SEARCH_BB_OFFSET", 0.0)),
+                                       scale=float(self.data_cfg.get("SEARCH_BB_SCALE", 1.25)))
+        return ref_box, geo.regularize_pc(pts, int(self.data_cfg["SEARCH_INPUT_SIZE"]), istrain=False)
+
+    def _prepare_template(self, pcs, results, frame_id):
+        if self.aggregation == "FIRSTANDPREVIOUS":
+            sel_pcs, sel_boxes = [pcs[0], pcs[frame_id - 1]], [results[0], results[frame_id - 1]]
+        elif self.aggregation == "FIRST":
+            sel_pcs, sel_boxes = [pcs[0]], [results[0]]
+        elif self.aggregation == "PREVIOUS":
+            sel_pcs, sel_boxes = [pcs[frame_id - 1]], [results[frame_id - 1]]
+        else:
+            sel_pcs, sel_boxes = pcs[:frame_id], results
+        template = geo.get_model(sel_pcs, sel_boxes, offset=float(self.data_cfg.get("MODEL_BB_OFFSET", 0.0)),
+                                 scale=float(self.data_cfg.get("MODEL_BB_SCALE", 1.25)))
+        return geo.regularize_pc(template, int(self.data_cfg["TEMPLATE_INPUT_SIZE"]), istrain=False)
+
+    def _upload(self, pts):
+        return torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32))[None].to(self.device)
+
+    def test_tracklet(self, pcs, gt_boxes, annos=None):
+        """Track one tracklet: update the metrics frame by frame and return the
+        predicted boxes."""
+        self.batch_num += 1
+        results = []
+        use_z = bool(self.data_cfg.get("USE_Z_AXIS", False))
+        with self.evaluator:
+            for i, (this_pc, this_box) in enumerate(zip(pcs, gt_boxes)):
+                if i == 0:
+                    results.append(this_box)  # the given box seeds the track
+                else:
+                    t0 = time.perf_counter()
+                    with timer.env("pre process"):
+                        ref_box, search = self._prepare_search(this_pc, this_box, results, gt_boxes, i)
+                        template = self._prepare_template(pcs, results, i)
+                    with timer.env("model inference"):
+                        best = self.track_step(self._upload(search), self._upload(template)).cpu().numpy()
+                    with timer.env("post process"):
+                        results.append(geo.get_box_by_offset(ref_box, best[:4], use_z))
+                    self.frame_time.update(time.perf_counter() - t0)
+                self.evaluator.update_iou(this_box, results[-1])
+                if self._fp is not None:
+                    anno = annos[i] if annos is not None and i < len(annos) else {}
+                    scene, _, frame = anno_scene_frame(anno, default_scene=-1, default_frame=i)
+                    self._fp.write(result_line(scene, frame, self.batch_num, results[-1]))
+        return results
+
+    @property
+    def fps(self):
+        return 1.0 / self.frame_time.avg if self.frame_time.count else 0.0
+
+    def close(self):
+        if self._fp is not None:
+            self._fp.close()
+            self._fp = None
+
+    def summary(self) -> dict:
+        return {
+            "success": self.evaluator.Success_main.average,
+            "precision": self.evaluator.Precision_main.average,
+            "fps": self.fps,
+            "frames": self.evaluator.Success_main.count,
+        }
+
+
+def eval_one_epoch(cfg, model, dataloader, epoch_id="?", logger=None, result_dir=None, device="cuda"):
+    """Track every tracklet of ``dataloader`` (an iterable of batches, each a
+    list of (pcs, boxes, annos) tracklets) with the host loop; writes
+    ``<result_dir>/final_result/data/track_result.txt`` when ``result_dir`` is
+    given. Returns (success, precision)."""
+    emit = logger.info if logger is not None else print
+    emit(f"*************** EPOCH {epoch_id} EVALUATION *****************")
+    timer.reset()
+    final_dir = Path(result_dir) / "final_result" / "data" if result_dir else None
+    ev = TrackingEvaluator(cfg, model, output_dir=final_dir, device=device)
+    start = time.perf_counter()
+    for batch in dataloader:
+        for pcs, boxes, annos in batch:
+            ev.test_tracklet(pcs, boxes, annos)
+            emit(f"tracklet {ev.batch_num}: batch Succ/Prec {ev.evaluator.Success_batch.average:.1f}/"
+                 f"{ev.evaluator.Precision_batch.average:.1f}  ({ev.fps:.1f} fps)")
+    summary = ev.summary()
+    ev.close()
+    elapsed = time.perf_counter() - start
+    timer.print_stats(logger)
+    emit(f"*************** Performance of EPOCH {epoch_id} *****************\n"
+         f"mean Succ/Prec {summary['success']:.1f}/{summary['precision']:.1f}  "
+         f"({summary['frames']} frames, {elapsed:.1f}s, tracked at {summary['fps']:.1f} fps)")
+    return summary["success"], summary["precision"]

@@ -25,12 +25,19 @@ from ..ops import fps, group, point_ops, sa
 from .layers import SharedMLP
 
 
-def sample_indices(method: str, xyz: torch.Tensor, npoint: int, use_kernels: bool = True) -> torch.Tensor:
-    """Center sampling: 'fps', or 'sequence'/'rs' (the first ``npoint`` points,
-    as in the reference). -> (B, npoint) int32."""
+def sample_indices(method: str, xyz: torch.Tensor, npoint: int, use_kernels: bool = True,
+                   features: torch.Tensor | None = None) -> torch.Tensor:
+    """Center sampling: 'fps', 'ffps' (FPS on squared distances in [xyz |
+    features] space, plain PyTorch as in the JAX package, which has no kernel
+    for it), or 'sequence'/'rs' (the first ``npoint`` points, as in the
+    reference). -> (B, npoint) int32."""
     if method == "fps":
         fn = fps.furthest_point_sample if use_kernels else point_ops.furthest_point_sample
         return fn(xyz.detach(), npoint)
+    if method == "ffps":
+        fused = xyz if features is None else torch.cat([xyz, features], dim=-1)
+        fused = fused.detach()
+        return point_ops.furthest_point_sample_with_dist(point_ops.square_distance(fused, fused), npoint)
     if method in ("rs", "sequence"):
         ar = torch.arange(npoint, dtype=torch.int32, device=xyz.device)
         return ar[None, :].expand(xyz.shape[0], npoint)
@@ -61,7 +68,7 @@ class PointnetSAModule(nn.Module):
     def forward(self, xyz, features=None, npoint: int | None = None, inds=None):
         xyz = xyz.contiguous()
         if inds is None:
-            inds = sample_indices(self.sample_method, xyz, npoint, self.use_kernels)
+            inds = sample_indices(self.sample_method, xyz, npoint, self.use_kernels, features)
         new_xyz = point_ops.gather_points(xyz, inds)
         if self.training:
             return new_xyz, self._train_features(xyz, new_xyz, features), inds

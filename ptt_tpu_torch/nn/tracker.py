@@ -38,12 +38,17 @@ class PTT(nn.Module):
         return self.box_voting_head(out)
 
 
+# P2B is the PTT graph with both transformers off and 'sequence' sampling: a
+# difference of configuration only, as in the JAX package
+ALL_TRACKERS = {"PTT": PTT, "P2B": PTT}
+
+
 def build_network(model_cfg: dict, input_channels: int = 3, device="cuda", train: bool = False) -> PTT:
     """The tracker of ``model_cfg`` (MODEL section) on ``device`` (CUDA unless
     the caller asks for the CPU), in eval mode unless ``train``."""
-    if model_cfg["NAME"] != "PTT":
+    if model_cfg["NAME"] not in ALL_TRACKERS:
         raise NotImplementedError(f"MODEL.NAME {model_cfg['NAME']!r} is not ported yet")
-    return PTT(model_cfg, input_channels).train(train).to(resolve_device(device))
+    return ALL_TRACKERS[model_cfg["NAME"]](model_cfg, input_channels).train(train).to(resolve_device(device))
 
 
 def set_use_kernels(model: nn.Module, use_kernels: bool) -> None:

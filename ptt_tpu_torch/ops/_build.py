@@ -48,6 +48,7 @@ _FUNCTIONS = {
          ctypes.POINTER(_i), _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],
     ),
     "sa_prep_floats": ("sa", [_i, ctypes.POINTER(_i)]),
+    "sa_smem_bytes": ("sa", [_i, _i, _i, ctypes.POINTER(_i)]),
     "group_forward": ("group", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, ctypes.c_float, _p]),
     "group_backward": ("group", [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
     "group_backward_scratch": ("group", [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)]),

@@ -25,14 +25,28 @@ def _sq_norm(p: torch.Tensor) -> torch.Tensor:
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distance in the matmul form |a|^2 + |b|^2 - 2ab, clamped
-    at 0, in float32: (B, N, 3) x (B, M, 3) -> (B, N, M)."""
+    at 0, in float32: (B, N, C) x (B, M, C) -> (B, N, M). For points (C = 3)
+    every sum is spelled out in the fixed order above; wider rows (the 'ffps'
+    feature space) use a float32 matrix product, as the JAX package does."""
     src = src.float()
     dst = dst.float()
+    if src.shape[-1] != 3:
+        cross = torch.matmul(src, dst.transpose(1, 2))
+        d2 = ((src * src).sum(-1)[:, :, None] + (dst * dst).sum(-1)[:, None, :]) - 2.0 * cross
+        return d2.clamp_min(0.0)
     a = src[:, :, None, :]
     b = dst[:, None, :, :]
     cross = (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
     d2 = (_sq_norm(src)[:, :, None] + _sq_norm(dst)[:, None, :]) - 2.0 * cross
     return d2.clamp_min(0.0)
+
+
+def _first_max(values: torch.Tensor) -> torch.Tensor:
+    """(B, N) -> (B,) index of the first of equal maxima (torch.argmax does not
+    promise the first)."""
+    top = values.amax(dim=1, keepdim=True)
+    lane = torch.arange(values.shape[1], device=values.device).expand_as(values)
+    return torch.where(values == top, lane, values.shape[1]).amin(dim=1)
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -50,10 +64,23 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         d = xyz - xyz[rows, farthest][:, None, :]
         d2 = _sq_norm(d)
         min_d2 = torch.minimum(min_d2, d2)
-        # torch.argmax does not promise the first of equal maxima
-        top = min_d2.amax(dim=1, keepdim=True)
-        lane = torch.arange(N, device=xyz.device).expand(B, N)
-        farthest = torch.where(min_d2 == top, lane, N).amin(dim=1)
+        farthest = _first_max(min_d2)
+    return idxs.int()
+
+
+def furthest_point_sample_with_dist(dist2: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Greedy farthest point sampling on a precomputed (B, N, N) squared-distance
+    matrix ('ffps'), from index 0, ties to the lowest index. -> (B, npoint) int32."""
+    dist2 = dist2.float()
+    B, N, _ = dist2.shape
+    min_d2 = torch.full((B, N), 1e10, dtype=torch.float32, device=dist2.device)
+    farthest = torch.zeros(B, dtype=torch.long, device=dist2.device)
+    idxs = torch.zeros(B, npoint, dtype=torch.long, device=dist2.device)
+    rows = torch.arange(B, device=dist2.device)
+    for i in range(npoint):
+        idxs[:, i] = farthest
+        min_d2 = torch.minimum(min_d2, dist2[rows, farthest])
+        farthest = _first_max(min_d2)
     return idxs.int()
 
 

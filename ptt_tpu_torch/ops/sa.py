@@ -23,8 +23,13 @@ launches = 0
 _MAX_TAIL = 4  # tail layers the kernel takes (csrc/sa.cu kMaxTail)
 _NSAMPLES = (16, 32, 64)  # a center's rows are whole warps of the kernel's 16-row fragments
 _WIDTH_STEP = 8  # the K of one wgmma
-_MIN_BLOCK_ROWS = 64  # the kernel's smallest block; its activation buffer holds the cloud first
-_ACT_PAD = 4  # floats between activation rows (csrc/sa.cu kActPad)
+# csrc/sa.cu's shared memory, in floats: activation row pad, buffer alignment,
+# the weight ring (2 slabs of 2 x 32 x 128), the columns of a pass, the limit
+_ACT_PAD = 4
+_BUF_ALIGN = 256
+_RING = 2 * 2 * 32 * 128
+_PASS_COLS = 128
+_MAX_SMEM = 227 * 1024
 
 
 def fold_bn(kernel_w, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
@@ -115,22 +120,47 @@ def _first_layer(xyz, new_xyz, features, radius, w1, b1, normalize_xyz, use_xyz)
     return z.contiguous(), off.contiguous()
 
 
-def check_kernel_shapes(n: int, nsample: int, widths) -> None:
+def smem_bytes(n: int, nsample: int, widths) -> int:
+    """Shared memory of a 64-row ``csrc/sa.cu`` block, the smallest (its
+    ``smem_bytes<1>``): the first activation buffer, sized for the block's
+    rows or the cloud of ``n`` points, whichever is larger, a second one when
+    a stored layer is wider than a pass, the weight ring, the warps' maxima,
+    the neighbour table, and the ball query's hit lists. The wrapper asks the
+    built library (``kernel_smem_bytes``); this copy serves the CPU, and
+    chip_smoke.py holds the two equal on the card."""
+    rows, warps = 64, 4
+    width = max(widths[:-1])
+    act = rows * (width + _ACT_PAD)
+    buf0 = max(act, -(-3 * n // _BUF_ALIGN) * _BUF_ALIGN)
+    two_bufs = any(c > _PASS_COLS for c in widths[1:-1])
+    tm = rows // nsample
+    lists = tm * (1 if tm >= warps else warps // tm)
+    return 4 * (buf0 + (act if two_bufs else 0) + _RING + warps * _PASS_COLS + 2 * rows + lists * nsample)
+
+
+def kernel_smem_bytes(n: int, nsample: int, widths) -> int:
+    """``smem_bytes`` as the built ``csrc/sa.cu`` computes it (``sa_smem_bytes``)."""
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    return _build.function("sa_smem_bytes")(n, nsample, len(widths) - 1, c_widths)
+
+
+def check_kernel_shapes(n: int, nsample: int, widths, block_bytes=smem_bytes) -> None:
     """Raises ValueError unless ``csrc/sa.cu`` takes a stage of ``n`` source
     points, ``nsample`` slots and layers of these output ``widths`` (layer 0
     first): nsample 16, 32 or 64, 1 to 4 tail layers, widths in multiples of 8,
-    ``n`` a multiple of 4, and the cloud within the activation buffer of the
-    kernel's smallest block. Every stage of ptt.yaml qualifies."""
+    ``n`` a multiple of 4, and a 64-row block with its cloud within shared
+    memory (N up to 13,652 at ns 32 and stored layers of 64 or 128), by
+    ``block_bytes``. Every stage of ptt.yaml and ptt_large.yaml qualifies."""
     if nsample not in _NSAMPLES:
         raise ValueError(f"fused_sa_inference: the kernel takes nsample in {_NSAMPLES}, got {nsample}")
     if not 2 <= len(widths) <= _MAX_TAIL + 1:
         raise ValueError(f"fused_sa_inference: the kernel takes 2 to {_MAX_TAIL + 1} layers, got {len(widths)}")
     if any(c < _WIDTH_STEP or c % _WIDTH_STEP for c in widths):
         raise ValueError(f"fused_sa_inference: the kernel takes widths in multiples of {_WIDTH_STEP}, got {list(widths)}")
-    room = _MIN_BLOCK_ROWS * (max(widths[:-1]) + _ACT_PAD)
-    if n % 4 or 3 * n > room:
-        raise ValueError(f"fused_sa_inference: the kernel takes N in multiples of 4 with 3 N <= {room} at these "
-                         f"widths, got N = {n}")
+    if n % 4 or block_bytes(n, nsample, widths) > _MAX_SMEM:
+        raise ValueError(f"fused_sa_inference: the kernel takes N in multiples of 4 whose 64-row block fits in "
+                         f"{_MAX_SMEM} bytes of shared memory at these widths, got N = {n} "
+                         f"({block_bytes(n, nsample, widths)} bytes)")
 
 
 def _launch(xyz, new_xyz, features, w1, b1, tail_w, tail_b, radius, nsample, normalize_xyz, use_xyz,
@@ -157,7 +187,7 @@ def _launch(xyz, new_xyz, features, w1, b1, tail_w, tail_b, radius, nsample, nor
         if w.shape[0] != widths[-1] or b.shape != (w.shape[1],):
             raise ValueError("fused_sa_inference: tail layer widths do not chain")
         widths.append(w.shape[1])
-    check_kernel_shapes(N, nsample, widths)
+    check_kernel_shapes(N, nsample, widths, kernel_smem_bytes)
     ws = [w.float().contiguous() for w in tail_w]
     bs = [b.float().contiguous() for b in tail_b]
     z = torch.empty((B, N, H1), dtype=torch.float32, device=xyz.device)

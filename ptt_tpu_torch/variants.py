@@ -7,25 +7,30 @@ this script.
     python3 -m ptt_tpu_torch.variants [--parent DIR]
 
 Run it from the root of the repo on a machine with the GPU and nvcc. ``--parent
-DIR`` names a checkout of an earlier commit: its two kernels are then built and
-timed beside this tree's, the forward also split into its ball query and its
-gather and stores (patches that fit the first design's source). Every variant
-that should still compute the function is held against the plain version; one
-that skips a part is timed only. Copies and libraries go to ``build/variants/``.
+DIR`` names a checkout of an earlier commit: its FPS and group forward are
+then built and timed beside this tree's, and its ``csrc/sa.cu`` is put behind
+the SA wrapper at the 7 calls of a ``ptt.yaml`` frame step (parent, this tree,
+this tree, parent), and the ``ptt.yaml`` tracker runs on the benchmark
+workload with the parent's package and this tree's, one process each, in the
+same order. Every variant that should
+still compute the function is held against the plain version; one that skips a
+part is timed only. Copies and libraries go to ``build/variants/``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from .ops import _build, fps, group, point_ops
+from .ops import _build, fps, group, point_ops, sa
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -62,17 +67,6 @@ FPS_VARIANTS = {
                            (EIGHT[1], "    case 4: fps_kernel<4><<<batch, 128, 0, st>>>(xyz, out, n, npoint); break;\n"), *NO_SIXTEEN],
     "16 warps x 2 points": [("constexpr int kPts = 4;", "constexpr int kPts = 2;"), (EIGHT[0], "")],
 }
-# the first design of the forward (a warp per center, the cloud scanned from device memory)
-PARENT_GROUP_VARIANTS = {
-    "ball query and idx only": [("  __syncthreads();\n\n  const float* zb = z +", "  __syncthreads();\n  return;\n\n  const float* zb = z +")],
-    "no ball query (table read back)": [(
-        "    ptt::warp_ball_query(xyz + static_cast<size_t>(b) * n * 3, n,\n"
-        "                         ctr + (static_cast<size_t>(b) * m_total + m) * 3, r2, ns, row, lane);\n"
-        "    for (int s = lane; s < ns; s += 32) idx[(static_cast<size_t>(b) * m_total + m) * ns + s] = row[s];",
-        "    for (int s = lane; s < ns; s += 32) row[s] = idx[(static_cast<size_t>(b) * m_total + m) * ns + s];")],
-}
-
-
 def apply(text: str, edits, name: str) -> str:
     """``text`` with every (old, new) of ``edits`` applied; raises when a source
     no longer holds an ``old``, so that a variant cannot silently time the
@@ -90,6 +84,9 @@ def patched(src: Path, name: str, edits) -> Path:
     return out
 
 
+LIBS: dict = {}  # job name -> its loaded library
+
+
 def build_all(jobs: dict) -> dict:
     """jobs: name -> (source, include directory, entry point, argument types, ...).
     One nvcc each, all at once; returns name -> the entry point."""
@@ -105,10 +102,98 @@ def build_all(jobs: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for '{name}':\n{log}")
-        fn = getattr(ctypes.CDLL(str(lib)), jobs[name][2])
+        LIBS[name] = ctypes.CDLL(str(lib))
+        fn = getattr(LIBS[name], jobs[name][2])
         fn.argtypes, fn.restype = jobs[name][3], ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def time_sa_against_parent(cs, parent_fn, parent_prep, dev):
+    """The 7 SA calls of a ``ptt.yaml`` frame step (B = 8, trained weights),
+    each through the wrapper with the parent's library and this tree's behind
+    it in turn (parent, this tree, this tree, parent): device ms by
+    ``queued_ms`` and ``sa_kernel``'s by the profiler; outputs bit-equal."""
+    from .config import ptt_config
+    from .convert import state_dict_from_npz
+    from .data.synthetic import make_tracklets
+    from .nn import build_network
+
+    cfg = ptt_config()
+    model = build_network(cfg["MODEL"], device=dev)
+    model.load_state_dict(state_dict_from_npz(cs.ASSET), strict=True)
+    tracklets = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 24, "SYNTH_SEED": 11})
+    calls = cs.capture_kernel_calls(model, cs.first_step_batch(tracklets, cfg, dev))["sa"]
+    sa_forward, prep = _build.function("sa_forward"), _build.function("sa_prep_floats")
+    libs = {"parent": (parent_fn, parent_prep), "this tree": (sa_forward, prep)}
+    total = {}
+    for args, kwargs in calls:
+        shape = f"{tuple(args[0].shape)}->{args[1].shape[1]} ns{args[4]}"
+        outs, line = {}, []
+        for k, name in enumerate(("parent", "this tree", "this tree", "parent")):
+            _build._loaded["sa_forward"], _build._loaded["sa_prep_floats"] = libs[name]
+            try:
+                outs[name] = sa.fused_sa_inference(*args, **kwargs)
+                ms = cs.queued_ms(lambda: sa.fused_sa_inference(*args, **kwargs), 20)
+                part = cs.kernel_ms(lambda: sa.fused_sa_inference(*args, **kwargs), 10, ("sa_kernel",))["sa_kernel"]
+            finally:
+                _build._loaded["sa_forward"], _build._loaded["sa_prep_floats"] = sa_forward, prep
+            key = f"{name} {1 + k // 2 if name == 'this tree' else 1 + k // 3}"
+            total[key] = total.get(key, 0.0) + ms
+            total[key + ", sa_kernel"] = total.get(key + ", sa_kernel", 0.0) + part
+            line.append(f"{key} {ms:.4f} (sa_kernel {part:.4f})")
+        if not torch.equal(outs["parent"], outs["this tree"]):
+            raise RuntimeError(f"SA at {shape}: this tree's kernel differs from the parent's")
+        print(f"sa {shape}, device ms: " + "; ".join(line) + "; outputs bit-equal", flush=True)
+    print("sa, the 7 calls of a ptt.yaml frame step summed, device ms: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
+
+
+# one run of the ptt.yaml tracker on the trained weights and the benchmark
+# workload, with the ptt_tpu_torch package under argv[1]; argv[2] is this repo
+# (chip_smoke.py, the asset), argv[3] the file for the first batch's centers
+TRACKER_RUN = """
+import json, sys
+import numpy as np
+sys.path[:0] = sys.argv[1:3]
+import chip_smoke as cs
+from ptt_tpu_torch.config import ptt_config
+from ptt_tpu_torch.convert import state_dict_from_npz
+from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
+from ptt_tpu_torch.nn import build_network
+from ptt_tpu_torch.ops import _build
+_build.build()
+cfg = ptt_config()
+model = build_network(cfg["MODEL"], device="cuda")
+model.load_state_dict(state_dict_from_npz(cs.ASSET), strict=True)
+bench = cs.bench_tracklets()
+ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device="cuda")
+np.save(sys.argv[3], np.array([[b.center for b in trk] for trk in ev.track_batch(bench)]))
+print(json.dumps([cs.bench_rate(ev, bench, 4) for _ in range(3)]))
+"""
+
+
+def time_tracker_against_parent(parent: Path):
+    """The ``ptt.yaml`` tracker as chip_smoke.py's phase 4 times it (trained
+    weights, 8 x 64-frame tracklets, ``max_points`` 2048, 3 runs of 4
+    pipelined batches after a warm-up batch), one process for each of parent,
+    this tree, this tree, parent; prints frames/s and how far the four runs'
+    boxes part."""
+    boxes = []
+    for k, (name, root) in enumerate((("parent", parent), ("this tree", ROOT), ("this tree", ROOT),
+                                      ("parent", parent))):
+        out = OUT / f"tracker-{k}.npy"
+        run = subprocess.run([sys.executable, "-c", TRACKER_RUN, str(root), str(ROOT), str(out)], cwd=ROOT,
+                             capture_output=True, text=True, check=False)
+        if run.returncode:
+            raise RuntimeError(f"the tracker run with the {name}'s package failed:\n{run.stderr[-4000:]}")
+        rates = json.loads(run.stdout.strip().splitlines()[-1])
+        boxes.append(np.load(out))
+        print(f"tracker ptt.yaml, {name} {1 + k // 2 if name == 'this tree' else 1 + k // 3}: "
+              f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f})", flush=True)
+    diff = max(float(np.abs(b - boxes[0]).max()) for b in boxes)
+    print(f"tracker ptt.yaml, first batch's box centers: largest difference between the four runs {diff:.3e}",
+          flush=True)
 
 
 def main() -> int:
@@ -134,15 +219,18 @@ def main() -> int:
     fps_jobs = {"this tree, 8 warps x 4 points": (CSRC / "fps.cu", CSRC, "fps_forward", FPS_ARGS)}
     for name, edits in FPS_VARIANTS.items():
         fps_jobs[name] = (patched(CSRC / "fps.cu", name, edits), CSRC, "fps_forward", FPS_ARGS)
+    sa_jobs = {}
     if args.parent:
         pc = args.parent.resolve() / "ptt_tpu_torch" / "csrc"
+        sa_jobs = {"parent": (pc / "sa.cu", pc, "sa_forward", _build._FUNCTIONS["sa_forward"][1])}
         jobs["parent"] = (pc / "group.cu", pc, "group_forward", FWD_ARGS, True)
-        for name, edits in PARENT_GROUP_VARIANTS.items():
-            jobs[f"parent, {name}"] = (patched(pc / "group.cu", "parent " + name, edits), pc, "group_forward", FWD_ARGS,
-                                       "table read back" in name)
         fps_jobs["parent"] = (pc / "fps.cu", pc, "fps_forward", FPS_ARGS)
-    fns = build_all({**jobs, **{"fps: " + k: v for k, v in fps_jobs.items()}})
+    fns = build_all({**jobs, **{"fps: " + k: v for k, v in fps_jobs.items()}, **{"sa: " + k: v for k, v in sa_jobs.items()}})
     stream = torch.cuda.current_stream().cuda_stream
+    if sa_jobs:
+        prep = LIBS["sa: parent"].sa_prep_floats
+        prep.argtypes, prep.restype = _build._FUNCTIONS["sa_prep_floats"][1], ctypes.c_int
+        time_sa_against_parent(cs, fns["sa: parent"], prep, dev)
 
     # FPS at the four call shapes of the main paths
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -199,6 +287,8 @@ def main() -> int:
             for k, v in times.items():
                 total[k] = total.get(k, 0.0) + v
     print("group forward, the 7 shapes summed: " + "; ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
+    if args.parent:
+        time_tracker_against_parent(args.parent.resolve())
     return 0
 
 

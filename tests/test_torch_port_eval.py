@@ -1,0 +1,170 @@
+"""The port's evaluators against the JAX package on the CPU: the long-row
+resample of the device loop, the per-frame host evaluator
+(``ptt_tpu_torch.eval.evaluator``) frame for frame against the JAX
+``TrackingEvaluator`` on the trained asset, and the result files both
+evaluators of the port write."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptt_tpu.config import cfg_from_yaml_file
+from ptt_tpu.eval import device_loop as jdl
+from ptt_tpu.eval.evaluator import TrackingEvaluator as JaxTrackingEvaluator
+from ptt_tpu.nn import build_network as jbuild
+from ptt_tpu.train.checkpoint import load_variables_npz
+from ptt_tpu_torch.config import ptt_config
+from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
+from ptt_tpu_torch.data.synthetic import make_tracklets
+from ptt_tpu_torch.eval import device_loop as tdl
+from ptt_tpu_torch.eval.evaluator import TrackingEvaluator, eval_one_epoch
+from ptt_tpu_torch.nn import build_network
+
+torch.set_num_threads(1)
+
+ASSET = Path(__file__).parent / "assets" / "ptt_synth_trained.npz"
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ------------------------------------------------------------- long-row resample
+
+
+def _sorted_resample(pts, mask, picks):
+    """The selector the prefix sum replaced: a stable sort that moves valid rows first."""
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+    out = torch.gather(pts, 1, torch.gather(order, 1, picks)[..., None].expand(-1, -1, 3))
+    return torch.where((mask.sum(-1) > 2)[:, None, None], out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("frac", [0.3, 0.01, 0.0])
+def test_masked_resample_long_rows_match_jax(rng, frac):
+    """On rows past the JAX package's 4096-row switch, the prefix-sum selector
+    gives a stable sort's rows from the same picks (fractions 0.01 and 0.0
+    reach the <= 2 valid -> zeros branch), and the JAX package's
+    masked_resample_long's from the picks its key draws."""
+    B, L, n_out = 3, 5000, 256
+    pts = rng.standard_normal((B, L, 3)).astype(np.float32)
+    mask = rng.random((B, L)) < frac
+    keys = jax.random.split(jax.random.PRNGKey(3), B)
+    picks = np.stack([
+        np.asarray(jax.random.randint(keys[b], (n_out,), 0, max(int(mask[b].sum()), 1))) for b in range(B)
+    ])
+    out, count = tdl.masked_resample(_t(pts), _t(mask), n_out, picks=_t(picks))
+    assert torch.equal(out, _sorted_resample(_t(pts), _t(mask), _t(picks).long()))
+    for b in range(B):
+        ref, rc = jdl.masked_resample_long(jnp.asarray(pts[b]), jnp.asarray(mask[b]), n_out, keys[b])
+        assert int(rc) == int(count[b])
+        np.testing.assert_array_equal(out[b].numpy(), np.asarray(ref))
+
+
+def test_masked_resample_long_draws_valid_rows(rng):
+    """From the generator, on a 6000-row union: every drawn row is a valid row of its tracklet."""
+    pts = rng.standard_normal((2, 6000, 3)).astype(np.float32)
+    mask = rng.random((2, 6000)) < 0.05
+    out, _ = tdl.masked_resample(_t(pts), _t(mask), 512, generator=torch.Generator().manual_seed(1))
+    for b in range(2):
+        valid_rows = {tuple(r) for r in pts[b][mask[b]]}
+        assert all(tuple(r) in valid_rows for r in out[b].numpy())
+
+
+# --------------------------------------------------------------- host evaluator
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """The trained asset in both packages, and 2 agreement tracklets cut to 6 frames."""
+    jcfg = cfg_from_yaml_file("tools/cfgs/kitti_models/ptt.yaml")
+    params, batch_stats, _ = load_variables_npz(ASSET)
+    model = build_network(ptt_config()["MODEL"], device="cpu")
+    model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    tracklets = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 24, "SYNTH_SEED": 11})[:2]
+    tracklets = [(pcs[:6], boxes[:6], annos[:6]) for pcs, boxes, annos in tracklets]
+    return jcfg, jbuild(jcfg.MODEL), {"params": params, "batch_stats": batch_stats}, model, tracklets
+
+
+def _read_results(path):
+    """(scene, frame, tracklet) of each line, and its 24 corner coordinates."""
+    rows = [line.split() for line in Path(path).read_text().splitlines()]
+    return [tuple(r[:3]) for r in rows], np.array([[float(x) for x in r[3:]] for r in rows])
+
+
+def test_host_evaluator_matches_jax_frame_for_frame(trained, tmp_path):
+    """The same numpy crops and resamples, the forward in each package: every
+    predicted box, every frame's overlap and distance, and the result file."""
+    jcfg, jmodel, variables, model, tracklets = trained
+    jev = JaxTrackingEvaluator(jcfg, jmodel, variables, None, output_dir=tmp_path / "jax")
+    tev = TrackingEvaluator(ptt_config(), model, output_dir=tmp_path / "torch", device="cpu")
+    for pcs, boxes, annos in tracklets:
+        jres = jev.test_tracklet(pcs, boxes, annos)
+        tres = tev.test_tracklet(pcs, boxes, annos)
+        assert len(jres) == len(tres) == 6
+        for jb, tb in zip(jres, tres):
+            np.testing.assert_allclose(tb.center, jb.center, rtol=0, atol=2e-4)
+            np.testing.assert_allclose(tb.orientation.elements, jb.orientation.elements, rtol=0, atol=2e-4)
+    for name in ("Success_main", "Precision_main"):
+        ours, ref = getattr(tev.evaluator, name), getattr(jev.evaluator, name)
+        key = "overlaps" if "Success" in name else "accuracies"
+        np.testing.assert_allclose(getattr(ours, key), getattr(ref, key), rtol=0, atol=1e-3)
+    assert tev.summary()["frames"] == 12
+    jev.close()
+    tev.close()
+    (ids, ours), (ref_ids, ref) = (_read_results(tmp_path / d / "track_result.txt") for d in ("torch", "jax"))
+    assert ids == ref_ids and len(ids) == 12
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-3)
+
+
+class ConstOffsetModel(torch.nn.Module):
+    """A fixed canonical-frame offset whatever the points."""
+
+    def forward(self, batch):
+        data = torch.zeros(batch["search_points"].shape[0], 64, 5)
+        data[:, :, :4] = torch.tensor([0.12, -0.05, 0.02, 3.0])
+        return {"pred_box_data": data}
+
+
+def test_eval_one_epoch_and_device_files_line_up(trained, tmp_path):
+    """``eval_one_epoch`` returns its evaluator's Success/Precision and writes
+    final_result/data/track_result.txt; ``eval_one_epoch_device`` (two
+    dispatches in flight) writes the same scene, frame and tracklet columns
+    there, frame 0 the given box, and each call writes its own file."""
+    _, _, _, model, tracklets = trained
+    cfg = ptt_config()
+    succ, prec = eval_one_epoch(cfg, model, [tracklets], result_dir=tmp_path / "host", device="cpu")
+    direct = TrackingEvaluator(cfg, model, device="cpu")
+    for trk in tracklets:
+        direct.test_tracklet(*trk)
+    assert (succ, prec) == (direct.summary()["success"], direct.summary()["precision"])
+    host_ids, host = _read_results(tmp_path / "host" / "final_result" / "data" / "track_result.txt")
+
+    for run in ("a", "b"):
+        s, p, fps = tdl.eval_one_epoch_device(cfg, ConstOffsetModel(), [tracklets[:1], tracklets[1:]], max_points=1024,
+                                              batch_size=1, result_dir=tmp_path / run, device="cpu")
+        assert 0.0 <= s <= 100.0 and 0.0 <= p <= 100.0 and fps > 0
+        ids, dev = _read_results(tmp_path / run / "final_result" / "data" / "track_result.txt")
+        assert ids == host_ids and dev.shape == host.shape == (12, 24)
+        np.testing.assert_allclose(dev[[0, 6]], host[[0, 6]], rtol=0, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_host_evaluator_reproduces_the_asset(trained):
+    """On the 8 x 24 agreement tracklets the host evaluator reproduces the
+    asset's recorded host Success/Precision (57.94/84.43, the JAX host loop
+    with its C++ crop) within 0.5. That is float noise here: a box that moves
+    by ~1e-6 can move a point across the crop's edge, the crop's size changes,
+    and the reseeded resample then picks other points. The JAX host loop with
+    its own numpy crop, which computes the same crop, reads 58.20/84.64 on the
+    same frames; the port on the CPU 57.66/84.32, apart from the JAX run in 2
+    of the 8 tracklets from one such frame on."""
+    model = trained[3]
+    meta = npz_metadata(ASSET)
+    tracklets = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 24, "SYNTH_SEED": 11})
+    succ, prec = eval_one_epoch(ptt_config(), model, [tracklets], device="cpu")
+    assert abs(succ - meta["host_success"]) < 0.5, (succ, meta)
+    assert abs(prec - meta["host_precision"]) < 0.5, (prec, meta)

@@ -102,10 +102,21 @@ def test_kernel_shapes_of_a_frame_step_are_accepted(sa_calls):
 
 
 @pytest.mark.parametrize("n, ns, widths", [
+    (2048, 32, [64, 64, 128]),    # ptt_large.yaml's search stage 0, refused before the buffer held the cloud
+    (1024, 32, [64, 64, 128]),    # its template stage 0
+    (1024, 32, [128, 128, 256]),  # search stage 1 (and 2 at 512)
+    (256, 16, [256, 256, 256, 256]),  # vote aggregation over 256 votes
+    (13652, 32, [64, 64, 128]),   # the largest cloud a 64-row block holds beside the weight ring
+], ids=["large_search0", "large_template0", "large_search1", "large_votes", "outer_limit"])
+def test_kernel_shapes_up_to_the_outer_limit_are_accepted(n, ns, widths):
+    sa.check_kernel_shapes(n, ns, widths)
+
+
+@pytest.mark.parametrize("n, ns, widths", [
     (1024, 24, [64, 64, 128]),   # a center's rows are no whole warps
     (1024, 32, [64, 20, 128]),   # a width that is no multiple of 8
     (1022, 32, [64, 64, 128]),   # batch rows of the cloud off the 16-byte boundary
-    (2048, 32, [64, 64, 128]),   # the cloud outgrows a 64-row block's activation buffer
+    (13656, 32, [64, 64, 128]),  # a 64-row block and its cloud outgrow shared memory
     (1024, 32, [64]),            # no tail layer
     (256, 16, [8, 8, 8, 8, 8, 8]),  # more tail layers than the kernel takes
 ], ids=["nsample", "width", "n_mod_4", "cloud", "no_tail", "long_tail"])

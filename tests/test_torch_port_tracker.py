@@ -212,11 +212,90 @@ def test_tracker_loop_matches_jax_with_const_model():
 
 
 def test_other_modes_raise():
+    """A REF_BOX outside the three modes is refused, as the JAX tracker refuses
+    it; the GT modes refuse to run without the ground truth."""
     cfg = ptt_config()
-    for key, mode in (("REF_BOX", "previous_gt"), ("SHAPE_AGGREGATION", "all")):
-        test_cfg = dict(cfg["TEST"], **{key: mode})
-        with pytest.raises(NotImplementedError):
-            tdl.make_device_tracker(TorchConstOffsetModel(), cfg["DATA_CONFIG"], test_cfg)
+    with pytest.raises(ValueError):
+        tdl.make_device_tracker(TorchConstOffsetModel(), cfg["DATA_CONFIG"], dict(cfg["TEST"], REF_BOX="oracle"))
+    track = tdl.make_device_tracker(TorchConstOffsetModel(), cfg["DATA_CONFIG"], dict(cfg["TEST"], REF_BOX="current_gt"))
+    with pytest.raises(ValueError):
+        track(torch.zeros(1, 2, 8, 3), torch.full((1, 2), 8), torch.zeros(1, 4), torch.ones(1, 3))
+
+
+# Both trackers with a deterministic resample (the first n_out valid rows,
+# cycled) and a model whose offset depends on the search and template points:
+# the loops then see the same clouds, so trajectories depend on how each mode
+# crops, references and aggregates, and on nothing random.
+
+
+def _jax_det_resample(pts, mask, n_out, key):
+    count = jnp.sum(mask)
+    pick = jnp.arange(n_out) % jnp.maximum(count, 1)
+    out = jnp.take(pts, jnp.take(jnp.argsort(jnp.logical_not(mask), stable=True), pick), axis=0)
+    return jnp.where(count > 2, out, jnp.zeros_like(out)), count
+
+
+def _torch_det_resample(pts, mask, n_out, generator=None, picks=None):
+    count = mask.sum(-1)
+    picks = torch.arange(n_out)[None, :] % count.clamp_min(1)[:, None]
+    return _ORIG_RESAMPLE(pts, mask, n_out, picks=picks)
+
+
+_ORIG_RESAMPLE = tdl.masked_resample
+
+
+def _point_offset(s, t):
+    """[dx, dy, dz, dtheta_deg] from the mean search and template points."""
+    return [0.12 + 0.05 * s[:, 0] - 0.03 * t[:, 0], -0.05 + 0.05 * s[:, 1] + 0.02 * t[:, 1],
+            0.02 + 0.01 * t[:, 2], 3.0 + 2.0 * s[:, 0] - 1.0 * t[:, 1]]
+
+
+class JaxPointModel:
+    def apply(self, variables, batch, train=False):
+        off = jnp.stack(_point_offset(batch["search_points"].mean(1), batch["template_points"].mean(1)), -1)
+        data = jnp.zeros((off.shape[0], 64, 5), jnp.float32).at[:, :, :4].set(off[:, None])
+        return {"pred_box_data": data.at[:, 0, 4].set(5.0)}
+
+
+class TorchPointModel(torch.nn.Module):
+    def forward(self, batch):
+        off = torch.stack(_point_offset(batch["search_points"].mean(1), batch["template_points"].mean(1)), -1)
+        data = torch.zeros(off.shape[0], 64, 5)
+        data[:, :, :4] = off[:, None]
+        data[:, 0, 4] = 5.0
+        return {"pred_box_data": data}
+
+
+@pytest.fixture(scope="module")
+def mode_tracklets():
+    data_cfg = {"NUM_TRACKLETS": 2, "FRAMES_PER_TRACKLET": 8}
+    ds = SyntheticTrackingDataset(dict(data_cfg), training=False)
+    return [ds.get_test_item(i) for i in range(ds.num_tracklets)], make_tracklets(data_cfg)
+
+
+@pytest.mark.parametrize("ref", ["previous_result", "previous_gt", "current_gt"])
+@pytest.mark.parametrize("agg", ["firstandprevious", "first", "previous", "all"])
+def test_tracker_modes_match_jax(monkeypatch, mode_tracklets, ref, agg):
+    """All 12 TEST.REF_BOX x TEST.SHAPE_AGGREGATION modes reproduce the JAX
+    device loop's trajectories: centers within 1e-5, yaws within 1e-5."""
+    monkeypatch.setattr(jdl, "masked_resample_auto", _jax_det_resample)
+    monkeypatch.setattr(tdl, "masked_resample", _torch_det_resample)
+    jtracklets, tracklets = mode_tracklets
+    jcfg = cfg_from_yaml_file("tools/cfgs/kitti_models/ptt.yaml")
+    jcfg.TEST.REF_BOX, jcfg.TEST.SHAPE_AGGREGATION = ref, agg
+    cfg = ptt_config()
+    cfg["TEST"].update(REF_BOX=ref, SHAPE_AGGREGATION=agg)
+    jres = jdl.DeviceTrackingEvaluator(jcfg, JaxPointModel(), {}, max_points=512, batch_size=2).track_batch(jtracklets)
+    tres = tdl.DeviceTrackingEvaluator(cfg, TorchPointModel(), max_points=512, batch_size=2,
+                                       device="cpu").track_batch(tracklets)
+    moved = 0.0
+    for jt, tt, (_, gts, _) in zip(jres, tres, tracklets):
+        assert len(jt) == len(tt) == 8
+        for jb, tb, gt in zip(jt, tt, gts):
+            np.testing.assert_allclose(tb.center, jb.center, rtol=0, atol=1e-5)
+            assert abs((_yaw(tb) - _yaw(jb) + np.pi) % (2 * np.pi) - np.pi) < 1e-5
+            moved = max(moved, float(np.abs(tb.center - gt.center).max()))
+    assert moved > 0.05  # the offsets moved the boxes off the ground truth
 
 
 @pytest.mark.slow
