@@ -46,7 +46,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      TEST.SHAPE_AGGREGATION mode through ``eval_one_epoch_device``, and the host
      evaluator (``eval_one_epoch``), each on the kernel and the plain path from
      the same seed and within 1.0 of each other; the host evaluator also within
-     1.0 of the asset's recorded host Success/Precision.
+     1.0 of the asset's recorded host Success/Precision;
+  11. the test CLI (``python3 -m ptt_tpu_torch.tools.test_tracking``), run as a
+     subprocess on KITTI-format trees written to a temporary directory: the
+     agreement tracklets as scenes 0000-0007 with the trained asset, device and
+     host paths within 1.0 of phase 10's; then scene 0019 of 150 sweeps of
+     120,000 points with 4 cars, at the default max_points 16384, twice (the
+     first run builds the tracklet database, the second reads it): frames/s,
+     the database's size, 2 FPS + 7 SA launches a frame step, the two runs'
+     boxes equal, and the first frame step's resampled rows against the CPU's;
+  12. the train CLI at B = 48 on a scene of 4 cars x 60 such sweeps from the
+     trained asset, one epoch, then resumed for a second, each scored by
+     TRAIN.WITH_EVAL on a shorter test scene; ms a step with the KITTI loader,
+     2 FPS + 7 + 7 group launches a step; ``--eval_all`` over both
+     checkpoints; a reference-layout ``.pth`` loaded as ``--ckpt`` loads it,
+     its forward bit-equal to the asset's.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 """
@@ -545,6 +559,11 @@ def bench_tracklets():
                            "CLUTTER_POINTS": 400})
 
 
+def first_frames(tracklets, n):
+    """The tracklets cut to their first ``n`` frames (one 32-frame bucket for n = 32)."""
+    return [(pcs[:n], boxes[:n], annos[:n]) for pcs, boxes, annos in tracklets]
+
+
 def bench_rate(ev, tracklets, n_batches):
     """Frames/s of ``n_batches`` batches of ``tracklets``, two deep: batch k + 1
     is enqueued before the host scores batch k."""
@@ -639,11 +658,11 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench):
         fail(f"{tag} {name} tracker: non-finite boxes")
     rates = [bench_rate(ev, bench, 4) for _ in range(3)]
     set_use_kernels(model, False)
-    plain_rate = bench_rate(ev, bench, 1)
+    plain_rate = bench_rate(ev, first_frames(bench, 32), 1)
     set_use_kernels(model, True)
     log(f"{tag} {name} throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); plain path "
-        f"{plain_rate:.1f} frames/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
+        f"{plain_rate:.1f} frames/s (one batch cut to 32 frames); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
     profile_batch(ev, bench, sum(len(t[0]) for t in bench), tag)
     del ev, model
     torch.cuda.empty_cache()
@@ -693,7 +712,9 @@ def modes_phase(cfg, model, meta, agreement, device):
     on the kernel path and on the plain path from the same generator seed,
     each pair within 1.0; then the host evaluator (``eval_one_epoch``) on both
     paths, within 1.0 of each other and of the asset's recorded host numbers.
-    Both write ``track_result.txt``; its lines are counted."""
+    Both write ``track_result.txt``; its lines are counted. Returns the kernel
+    path's Success/Precision of the deployed mode ("device") and of the host
+    evaluator ("host")."""
     from ptt_tpu_torch.eval.device_loop import eval_one_epoch_device
     from ptt_tpu_torch.eval.evaluator import eval_one_epoch
     from ptt_tpu_torch.nn import set_use_kernels
@@ -717,6 +738,7 @@ def modes_phase(cfg, model, meta, agreement, device):
         return got
 
     frames = sum(len(t[0]) for t in agreement)
+    deployed = None
     for ref, agg in MODES:
         mcfg = copy.deepcopy(cfg)
         mcfg["TEST"].update(REF_BOX=ref, SHAPE_AGGREGATION=agg)
@@ -730,6 +752,8 @@ def modes_phase(cfg, model, meta, agreement, device):
             fail(f"[10] mode {ref}/{agg}: the kernel path is not within 1.0 of the plain path")
         if kn != frames or pn != frames:
             fail(f"[10] mode {ref}/{agg}: track_result.txt holds {kn} / {pn} lines, not {frames}")
+        if (ref, agg) == ("previous_result", "firstandprevious"):
+            deployed = (ks, kp)
     got = both(lambda d: eval_one_epoch(cfg, model, [agreement], logger=quiet, result_dir=d, device=device))
     (ks, kp, kt, kn), (ps, pp, pt, pn) = got["kernel"], got["plain"]
     log(f"[10] host evaluator (eval_one_epoch, one forward a frame at B = 1): kernel path Success {ks:.2f} "
@@ -744,6 +768,7 @@ def modes_phase(cfg, model, meta, agreement, device):
         fail("[10] host evaluator: not within 1.0 of the asset's recorded host Success/Precision")
     if kn != frames or pn != frames:
         fail(f"[10] host evaluator: track_result.txt holds {kn} / {pn} lines, not {frames}")
+    return {"device": deployed, "host": (ks, kp)}
 
 
 def relerr(got, ref) -> float:
@@ -1192,6 +1217,301 @@ def train_phase(cfg, device, card):
     return launches, group_rows
 
 
+# ------------------------------------------------- KITTI-format trees (phases 11, 12)
+
+# velodyne -> camera: cam_x = -velo_y, cam_y = -velo_z, cam_z = velo_x (a
+# permutation, so a label centre goes there and back exactly); R_rect identity
+KITTI_V2C = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0], [1.0, 0.0, 0.0, 0.0]])
+KITTI_CALIB = "\n".join([
+    "P0: 700 0 600 0 0 700 180 0 0 0 1 0",
+    "P1: 700 0 600 0 0 700 180 0 0 0 1 0",
+    "P2: 700 0 600 44 0 700 180 0.1 0 0 1 0.003",
+    "P3: 700 0 600 0 0 700 180 0 0 0 1 0",
+    "R_rect 1 0 0 0 1 0 0 0 1",
+    "Tr_velo_cam " + " ".join(str(v) for v in KITTI_V2C.reshape(-1)),
+    "Tr_imu_velo 1 0 0 0 0 1 0 0 0 0 1 0",
+])
+SENSOR_HEIGHT = 1.73  # an HDL-64E's height above the ground, as on KITTI's car
+DONT_CARE = "-1 DontCare -1 -1 -10 219.31 188.49 245.50 218.56 -1000 -1000 -1000 -10 -1 -1 -1"
+
+
+def label_row(frame: int, track_id: int, box) -> str:
+    """The KITTI label_02 row of a car with the velodyne-frame ``box``: the
+    box's bottom centre in the camera frame, rotation_y = -(yaw + pi/2), every
+    number at full precision."""
+    w, l, h = (float(v) for v in box.wlh)
+    yaw = float(np.arctan2(box.rotation_matrix[1, 0], box.rotation_matrix[0, 0]))
+    x, y, z = (float(v) for v in KITTI_V2C @ np.array([*box.center[:2], box.center[2] - h / 2, 1.0]))
+    return f"{frame} {track_id} Car 0 0 0.0 500 150 700 300 {h!r} {w!r} {l!r} {x!r} {y!r} {z!r} {-(yaw + np.pi / 2)!r}"
+
+
+def write_kitti_scene(root, scene: str, clouds, tracks: dict) -> None:
+    """One scene of a KITTI tracking tree under ``root``: ``clouds`` (one (N, 3)
+    array a frame) as ``training/velodyne/<scene>/<frame>.bin`` with an
+    intensity column, ``tracks`` ({track_id: {frame: box}}) and a DontCare row
+    a frame as ``training/label_02/<scene>.txt``, and the calibration."""
+    velo = os.path.join(root, "training", "velodyne", scene)
+    for sub in ("label_02", "calib"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    os.makedirs(velo, exist_ok=True)
+    rows = []
+    for f, pc in enumerate(clouds):
+        pc = np.asarray(pc, np.float32)
+        np.concatenate([pc, np.full((len(pc), 1), 0.5, np.float32)], 1).tofile(os.path.join(velo, f"{f:06}.bin"))
+        rows += [label_row(f, tid, boxes[f]) for tid, boxes in tracks.items() if f in boxes]
+        rows.append(f"{f} {DONT_CARE}")
+    with open(os.path.join(root, "training", "label_02", f"{scene}.txt"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "training", "calib", f"{scene}.txt"), "w") as fh:
+        fh.write(KITTI_CALIB + "\n")
+
+
+def sweep_scene(rng, n_frames: int, track_frames, n_points: int = 120_000):
+    """A scene at KITTI's frame size: ``n_frames`` sweeps of ``n_points`` points
+    each from 64 beams (elevations -24.8 to +2 degrees, as an HDL-64E's) over
+    the ground plane and walls, with car k driving on a circle around the
+    sensor in frames 0 .. track_frames[k] - 1, its visible faces sampled at a
+    density that falls with range, and poles around it.
+    Returns (clouds, {k: {frame: box}})."""
+    from ptt_tpu_torch.core.geometry import Box, Quaternion
+    from ptt_tpu_torch.data.synthetic import _sample_box_surface
+
+    n_beams = 64
+    elev = np.deg2rad(np.linspace(-24.8, 2.0, n_beams))
+    n_az = n_points // n_beams
+    cars = [dict(radius=8.0 + 4.0 * k, angle=rng.uniform(-np.pi, np.pi), step=rng.uniform(0.2, 0.35),
+                 wlh=np.array([1.8, 4.4, 1.6]) * rng.uniform(0.9, 1.1, 3)) for k in range(len(track_frames))]
+    clouds, tracks = [], {k: {} for k in range(len(track_frames))}
+    for f in range(n_frames):
+        az = (np.arange(n_az) / n_az * 2 * np.pi + rng.uniform(0, 2 * np.pi / n_az))[None, :]
+        el = elev[:, None] + rng.normal(0, 1e-3, (n_beams, n_az))
+        ground = el < -0.02
+        rng_m = np.where(ground, SENSOR_HEIGHT / np.tan(-np.minimum(el, -0.02)), rng.uniform(20, 60, el.shape))
+        rng_m = np.minimum(rng_m, 120.0) + rng.normal(0, 0.02, el.shape)
+        pts = np.stack([rng_m * np.cos(el) * np.cos(az), rng_m * np.cos(el) * np.sin(az),
+                        np.where(ground, -SENSOR_HEIGHT, rng_m * np.sin(el))], -1).reshape(-1, 3)
+        extra = []
+        for k, car in enumerate(cars):
+            if f >= track_frames[k]:
+                continue
+            theta = car["angle"] + f * car["step"] / car["radius"]
+            center = [car["radius"] * np.cos(theta), car["radius"] * np.sin(theta), -SENSOR_HEIGHT + car["wlh"][2] / 2]
+            box = Box(center, car["wlh"], Quaternion(axis=[0, 0, 1], angle=theta + np.pi / 2))
+            tracks[k][f] = box
+            extra.append(_sample_box_surface(rng, box, int(min(3000, 60000 / car["radius"] ** 2))))
+            poles = box.center[:2] + rng.uniform(-6, 6, (20, 2))
+            extra.append(np.column_stack([np.repeat(poles, 10, 0), rng.uniform(-SENSOR_HEIGHT, 1.0, 200)]))
+        extra = np.concatenate(extra) if extra else np.zeros((0, 3))
+        keep = rng.choice(len(pts), n_points - len(extra), replace=False)
+        clouds.append(np.concatenate([pts[keep], extra]).astype(np.float32))
+    return clouds, tracks
+
+
+def run_cli(module: str, args, timeout: float = 600):
+    """Run ``python3 -m ptt_tpu_torch.tools.<module> args`` from the repo root and
+    return (its ``summary`` record, wall seconds, its log). Fails the run when
+    the CLI fails."""
+    cmd = [sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    text = out.stdout + out.stderr
+    if out.returncode != 0:
+        log(text[-4000:])
+        fail(f"{module} {' '.join(map(str, args))} exited with {out.returncode}")
+    records = [json.loads(line.split("  summary ", 1)[1]) for line in text.splitlines() if "  summary {" in line]
+    if not records:
+        fail(f"{module}: no summary line in its log")
+    return records[-1], wall, text
+
+
+def result_file(extra_tag: str, eval_tag: str = "default", epoch=None) -> str:
+    base = os.path.join(REPO, "output", "kitti_models", "ptt", extra_tag, "eval", eval_tag)
+    return os.path.join(base, *([f"epoch_{epoch}"] if epoch is not None else []), "final_result", "data",
+                        "track_result.txt")
+
+
+def line_count(path) -> int:
+    with open(path) as fh:
+        return sum(1 for _ in fh)
+
+
+def resample_rows_check(cfg, model, root, device):
+    """Phase 11b: the first frame step of the first batch at max_points 16384,
+    in this process: the device's resampled rows (search, and the
+    firstandprevious template over the 32,768-row union) against
+    ``masked_resample`` on the CPU given the same picks."""
+    from ptt_tpu_torch.data.kitti import KittiTrackingDataset
+    from ptt_tpu_torch.eval import device_loop as dl
+
+    data_cfg = dict(cfg["DATA_CONFIG"], DATA_PATH=root)
+    ds = KittiTrackingDataset(data_cfg, cfg["CLASS_NAMES"], training=False)
+    first = [(pcs[:2], boxes[:2], annos[:2]) for pcs, boxes, annos in (ds[i] for i in range(len(ds)))]
+    orig, seen = dl.masked_resample, []
+
+    def recording(pts, mask, n_out, generator=None, picks=None):
+        if picks is None:
+            picks = dl.uniform_picks(mask.sum(-1), n_out, generator)
+        out = orig(pts, mask, n_out, picks=picks)
+        if len(seen) < 2:
+            seen.append((pts.shape[1], out[0].cpu(), orig(pts.cpu(), mask.cpu(), n_out, picks=picks.cpu())[0]))
+        return out
+
+    dl.masked_resample = recording
+    try:
+        dl.DeviceTrackingEvaluator(cfg, model, max_points=16384, batch_size=8, device=device).track_batch(first)
+    finally:
+        dl.masked_resample = orig
+    rows = [n for n, _, _ in seen]
+    same = [torch.equal(a, b) for _, a, b in seen]
+    log(f"[11b] first frame step at max_points 16384: masked_resample over {rows} rows (search, template union), "
+        f"device rows equal to the CPU's from the same picks {same}")
+    if rows != [16384, 32768] or not all(same):
+        fail("[11b] the device's resampled rows differ from masked_resample on the CPU, or the rows are not "
+             "16384 and 32768")
+
+
+def kitti_test_phase(agreement, phase10, model, device, card):
+    """Phase 11: the test CLI, as a subprocess, on KITTI-format trees written
+    here: (a) the agreement tracklets, against phase 10's numbers; (b) a
+    150-frame scene of 120,000-point sweeps at the default max_points."""
+    import tempfile
+
+    from ptt_tpu_torch.config import ptt_config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    try:
+        root = os.path.join(tmp, "agreement")
+        for i, (pcs, boxes, _) in enumerate(agreement):
+            write_kitti_scene(root, f"{i:04d}", pcs, {i: dict(enumerate(boxes))})
+        frames = sum(len(t[0]) for t in agreement)
+        base = ["--ckpt", ASSET, "--max_points", 1024, "--extra_tag", "chip_smoke_11a"]
+        sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "DATA_CONFIG.DATA_SPLIT", "test:all"]
+        got = {}
+        for path, flags in (("device", ["--eval_tag", "device"]), ("host", ["--host_loop", "--eval_tag", "host"])):
+            rec, wall, _ = run_cli("test_tracking", base + flags + sets)
+            got[path] = rec
+            (ref_s, ref_p), lines = phase10[path], line_count(result_file("chip_smoke_11a", path))
+            log(f"[11a] test CLI ({path} path) on the agreement tracklets as KITTI scenes 0000-0007: Success "
+                f"{rec['success']:.2f} Precision {rec['precision']:.2f}, phase 10 {ref_s:.2f}/{ref_p:.2f} (delta "
+                f"{rec['success'] - ref_s:+.2f}/{rec['precision'] - ref_p:+.2f}); {lines} lines of track_result.txt; "
+                f"launches {rec['launches']}; CLI wall {wall:.1f} s; card {card}")
+            if not (abs(rec["success"] - ref_s) <= 1.0 and abs(rec["precision"] - ref_p) <= 1.0):
+                fail(f"[11a] the test CLI's {path} path is not within 1.0 of phase 10's")
+            if lines != frames:
+                fail(f"[11a] track_result.txt holds {lines} lines, not {frames}")
+        steps = 31
+        if got["device"]["launches"]["fps"] != 2 * steps or got["device"]["launches"]["sa"] != 7 * steps:
+            fail(f"[11a] device path launches {got['device']['launches']}, not 2 and 7 per step over {steps} steps")
+
+        # (b) KITTI's frame size: scene 0019, 150 sweeps, cars of 40, 80, 120, 150 frames
+        root = os.path.join(tmp, "sweeps")
+        t0 = time.perf_counter()
+        clouds, tracks = sweep_scene(np.random.default_rng(19), 150, [40, 80, 120, 150])
+        write_kitti_scene(root, "0019", clouds, tracks)
+        n_pts = [len(c) for c in clouds]
+        log(f"[11b] scene 0019 written: 150 frames of {min(n_pts)}-{max(n_pts)} points "
+            f"({os.path.getsize(os.path.join(root, 'training', 'velodyne', '0019', '000000.bin'))} bytes a .bin), "
+            f"4 cars of 40, 80, 120, 150 frames, in {time.perf_counter() - t0:.1f} s")
+        del clouds
+        runs = []
+        for run in ("run1", "run2"):
+            rec, wall, _ = run_cli("test_tracking", ["--ckpt", ASSET, "--batch_size", 8, "--extra_tag",
+                                                     "chip_smoke_11b", "--eval_tag", run, "--set",
+                                                     "DATA_CONFIG.DATA_PATH", root])
+            runs.append(rec)
+            db = [n for n in os.listdir(root) if n.endswith("_torch.pkl")]
+            db_bytes = sum(os.path.getsize(os.path.join(root, n)) for n in db)
+            log(f"[11b] test CLI {run} ({'builds' if run == 'run1' else 'reads'} the database) at max_points 16384, "
+                f"batch 8: Success {rec['success']:.2f} Precision {rec['precision']:.2f}, "
+                f"{rec['frames_per_s']:.1f} frames/s, dataset {rec['dataset_seconds']:.1f} s, CLI wall {wall:.1f} s; "
+                f"database {db} {db_bytes} bytes; launches {rec['launches']} over 159 frame steps "
+                f"({rec['launches']['fps'] / 159:g} FPS + {rec['launches']['sa'] / 159:g} SA a step); card {card}")
+        steps = 160 - 1  # 150 frames pad to the 160-frame bucket
+        for rec in runs:
+            if rec["launches"]["fps"] != 2 * steps or rec["launches"]["sa"] != 7 * steps:
+                fail(f"[11b] launches {rec['launches']}, not 2 FPS and 7 SA per step over {steps} steps")
+        with open(result_file("chip_smoke_11b", "run1")) as a, open(result_file("chip_smoke_11b", "run2")) as b:
+            same = a.read() == b.read()
+        log(f"[11b] the two runs' boxes (track_result.txt, {line_count(result_file('chip_smoke_11b', 'run1'))} "
+            f"lines) equal: {same}")
+        if not same:
+            fail("[11b] the first batch's boxes differ between the two runs")
+        resample_rows_check(ptt_config(), model, root, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for tag in ("chip_smoke_11a", "chip_smoke_11b"):
+            shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt", tag), ignore_errors=True)
+
+
+def kitti_train_phase(model, batch, device, card):
+    """Phase 12: the train CLI at B = 48 on scene 0000 (4 cars x 60 frames of
+    120,000 points) from the trained asset, one epoch and then a resumed
+    second, TRAIN.WITH_EVAL on a shorter scene 0019; ``--eval_all`` over the
+    two checkpoints; and a reference-layout .pth loaded with ``--ckpt``'s
+    loader, against the asset loaded from the .npz."""
+    import tempfile
+
+    from ptt_tpu_torch.config import ptt_config
+    from ptt_tpu_torch.convert import reference_state_dict, state_dict_from_npz
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.train.checkpoint import load_params_from_file
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    run_dir = os.path.join(REPO, "output", "kitti_models", "ptt", "chip_smoke_12")
+    try:
+        root = os.path.join(tmp, "train")
+        rng = np.random.default_rng(12)
+        write_kitti_scene(root, "0000", *sweep_scene(rng, 60, [60, 60, 60, 60]))
+        write_kitti_scene(root, "0019", *sweep_scene(rng, 40, [30, 40]))
+        sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "TRAIN.WITH_EVAL.ENABLE", "True",
+                "TRAIN.WITH_EVAL.START_EPOCH", "0"]
+        runs = []
+        for epochs in (1, 2):
+            rec, wall, _ = run_cli("train_tracking", ["--pretrained_model", ASSET, "--epochs", epochs, "--workers", 8,
+                                                      "--extra_tag", "chip_smoke_12", *sets])
+            runs.append(rec)
+            n = rec["steps"][1] - rec["steps"][0]
+            ev = rec["eval"].get(str(epochs), {})
+            log(f"[12] train CLI --epochs {epochs}: epochs {rec['epochs']}, steps {rec['steps']}, checkpoints "
+                f"{rec['checkpoints']}; {1e3 * rec['train_seconds'] / max(n, 1):.1f} ms a step with the KITTI loader "
+                f"(8 threads, checkpoint included); launches {rec['launches']} "
+                f"({ {k: v / max(n, 1) for k, v in rec['launches'].items()} } a step); WITH_EVAL Success "
+                f"{ev.get('success', float('nan')):.2f} Precision {ev.get('precision', float('nan')):.2f} "
+                f"at {ev.get('frames_per_s', float('nan')):.1f} frames/s; CLI wall {wall:.1f} s; card {card}")
+            if rec["epochs"] != [epochs - 1, epochs] or rec["checkpoints"] != list(range(1, epochs + 1)):
+                fail(f"[12] --epochs {epochs}: epochs {rec['epochs']}, checkpoints {rec['checkpoints']}")
+            if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n} or n != 20:
+                fail(f"[12] {n} steps with launches {rec['launches']}, not 20 steps of 2 FPS + 7 + 7 group")
+            if str(epochs) not in rec["eval"]:
+                fail(f"[12] TRAIN.WITH_EVAL did not score epoch {epochs}")
+        if runs[1]["steps"][0] != runs[0]["steps"][1]:
+            fail(f"[12] the resumed run starts at step {runs[1]['steps'][0]}, not {runs[0]['steps'][1]}")
+        rec, wall, _ = run_cli("test_tracking", ["--eval_all", "--ckpt_dir", os.path.join(run_dir, "ckpt"),
+                                                 "--max_waiting_mins", 0, "--extra_tag", "chip_smoke_12",
+                                                 "--set", "DATA_CONFIG.DATA_PATH", root])
+        with open(os.path.join(run_dir, "eval", "default", "eval_list.txt")) as fh:
+            evals = fh.read().splitlines()
+        log(f"[12] test CLI --eval_all: eval_list.txt {evals}; launches {rec['launches']}; CLI wall {wall:.1f} s; "
+            f"card {card}")
+        if [line.split()[0] for line in evals] != ["1", "2"]:
+            fail("[12] --eval_all did not evaluate checkpoints 1 and 2 once each")
+
+        ref_path = os.path.join(tmp, "reference.pth")
+        torch.save({"model_state": reference_state_dict(state_dict_from_npz(ASSET)), "epoch": 0}, ref_path)
+        from_pth = build_network(ptt_config()["MODEL"], device=device)
+        load_params_from_file(ref_path, from_pth, strict=True)
+        with torch.no_grad():
+            a, b = from_pth(batch)["pred_box_data"], model(batch)["pred_box_data"]
+        log(f"[12] a reference-layout .pth of the asset, loaded strict as --ckpt loads it: forward bit-equal to the "
+            f"asset's from the .npz {torch.equal(a, b)}")
+        if not torch.equal(a, b):
+            fail("[12] the reference-layout .pth does not give the .npz's forward")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a GPU")
@@ -1272,11 +1592,11 @@ def main() -> int:
     bench_rate(ev, bench, 1)  # warm-up
     rates = [bench_rate(ev, bench, 4) for _ in range(3)]
     set_use_kernels(model, False)
-    plain_rate = bench_rate(ev, bench, 1)
+    plain_rate = bench_rate(ev, first_frames(bench, 32), 1)
     set_use_kernels(model, True)
     log(f"[4] throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); "
-        f"plain path {plain_rate:.1f} frames/s; card {card}")
+        f"plain path {plain_rate:.1f} frames/s (one batch cut to 32 frames); card {card}")
     profile_batch(ev, bench, n_frames)
     del ev
     torch.cuda.empty_cache()
@@ -1292,7 +1612,11 @@ def main() -> int:
                                           agreement, bench)
 
     # 10. every tracking mode and the host evaluator on the trained weights
-    modes_phase(cfg, model, meta, agreement, device)
+    phase10 = modes_phase(cfg, model, meta, agreement, device)
+
+    # 11 and 12: the CLIs on KITTI-format trees
+    kitti_test_phase(agreement, phase10, model, device, card)
+    kitti_train_phase(model, batch, device, card)
     del model
 
     record = {"kernels": []}

@@ -19,6 +19,12 @@ two sub-paths it has no mapping for, ``fc_sim`` and ``fc3``, keep their flax
 names.
 ``variables_from_state_dict`` is the reverse: a ``state_dict`` -> the flat
 ``params/...`` and ``batch_stats/...`` dict of numpy arrays of such a file.
+
+The reference PyTorch code names its modules otherwise
+(``backbone_3d.SA_modules.0.mlp_module.layer0.conv.weight``, 1x1 convolutions
+with trailing unit dimensions), as the JAX package's
+``utils/torch_converter.py`` writes them. ``reference_state_dict`` and
+``state_dict_from_reference`` translate between the two layouts.
 """
 
 from __future__ import annotations
@@ -170,3 +176,131 @@ def npz_metadata(path) -> dict:
     """The ``__meta__/*`` entries of a JAX-package ``.npz`` file, as Python scalars."""
     with np.load(path, allow_pickle=False) as data:
         return {k.split("/", 1)[1]: data[k][()].item() for k in data.files if k.startswith("__meta__/")}
+
+
+# the reference's sequential names of the flax ConvStack_k of each top-level module
+_CONVSTACK_NAMES = {
+    "similarity_module": ["conv"],
+    "centroid_voting_head": ["cla_layer", "vote_layer"],
+    "box_voting_head": ["refine_layer"],
+}
+# tensors of a reference state_dict that are not weights of the tracker
+IGNORED_REFERENCE_SUFFIXES = ("num_batches_tracked", "cls_loss_func.pos_weight", "global_step")
+
+
+def _reference_bn_leaf(collection: str, leaf: str) -> str:
+    if collection == "batch_stats":
+        return {"mean": "running_mean", "var": "running_var"}[leaf]
+    return {"scale": "weight", "bias": "bias"}[leaf]
+
+
+def _reference_key_of_flax(collection: str, segs: list) -> str:
+    """A flax variable path -> the reference state_dict key (the JAX package's
+    ``torch_converter._flax_to_torch_key``)."""
+    top = segs[0]
+    out = [top]
+    i = 1
+    while i < len(segs):
+        seg = segs[i]
+        if seg.startswith("sa_stages_"):
+            out.append(f"SA_modules.{seg.split('_')[-1]}")
+        elif seg.startswith("SharedMLP"):
+            out.append("mlp" if top == "similarity_module" else "mlp_module")
+            sub, leaf = segs[i + 1], segs[i + 2]
+            j = sub.split("_")[-1]
+            out.append(f"layer{j}.conv.weight" if sub.startswith("Dense")
+                       else f"layer{j}.normlayer.bn.{_reference_bn_leaf(collection, leaf)}")
+            return ".".join(out)
+        elif seg.startswith("ConvStack"):
+            out.append(_CONVSTACK_NAMES[top][int(seg.split("_")[-1])])
+            sub, leaf = segs[i + 1], segs[i + 2]
+            j = sub.split("_")[-1]
+            out.append(f"{j}.conv.{'weight' if leaf == 'kernel' else 'bias'}" if sub.startswith("Dense")
+                       else f"{j}.normlayer.bn.{_reference_bn_leaf(collection, leaf)}")
+            return ".".join(out)
+        elif seg == "transformer_block":
+            out.append(seg)
+            rest = segs[i + 1:]
+            if rest[0].startswith("layer_"):
+                out.append(f"layers.{rest[0].split('_')[-1]}")
+                rest = rest[1:]
+            name = "weight" if rest[-1] in ("kernel", "scale") else "bias"
+            if rest[0] in ("fc1", "fc2", "proj") or rest[0].startswith("w_") or rest[0] in ("norm1", "norm2"):
+                out.append(f"{rest[0]}.{name}")
+            elif rest[0] in ("fc_delta", "fc_gamma"):
+                out.append(f"{rest[0]}.{2 * int(rest[1].split('_')[-1])}.{name}")
+            else:
+                raise KeyError(f"the reference layout has no name for transformer sub-path {rest}")
+            return ".".join(out)
+        elif seg == "cov_final":
+            out.append(f"cov_final.{'weight' if segs[i + 1] == 'kernel' else 'bias'}")
+            return ".".join(out)
+        else:
+            out.append(seg)
+        i += 1
+    raise KeyError(f"unmapped flax path {collection}:{'/'.join(segs)}")
+
+
+def reference_key(key: str) -> str | None:
+    """The reference state_dict key of this package's ``key``; None for
+    ``num_batches_tracked``. Sub-paths the reference layout has no name for
+    (``fc_sim``, ``fc3``) keep this package's key."""
+    fkey = _flax_key(key)
+    if fkey is None:
+        return None
+    collection, *segs = fkey.split("/")
+    try:
+        return _reference_key_of_flax(collection, segs)
+    except KeyError:
+        return key
+
+
+def _reference_conv_rank(ref_key: str) -> int:
+    """Spatial rank of the reference's 1x1 convolution a weight belongs to:
+    2 for the SharedMLP layers (Conv2d), 1 for the conv1d stacks and cov_final,
+    0 for anything else."""
+    if ".conv.weight" in ref_key:
+        return 2 if (".mlp." in ref_key or ".mlp_module." in ref_key) else 1
+    return 1 if ref_key.endswith("cov_final.weight") else 0
+
+
+def reference_state_dict(state_dict: Mapping) -> dict:
+    """This package's state_dict -> the reference layout, as the JAX package's
+    ``export_state_dict`` writes it (no ``num_batches_tracked``)."""
+    out = {}
+    for key, value in state_dict.items():
+        rkey = reference_key(key)
+        if rkey is not None:
+            t = value.detach().cpu()
+            out[rkey] = t.reshape(tuple(t.shape) + (1,) * _reference_conv_rank(rkey)).clone()
+    return out
+
+
+def state_dict_from_reference(ref_state: Mapping, template: Mapping):
+    """A reference-layout state_dict -> this package's keys and shapes, for the
+    tracker whose state_dict is ``template``. Returns (state, problems): state
+    holds every template key found with the same shape once the reference's
+    trailing unit dimensions are dropped; problems lists, one line each, the
+    template keys missing or of another shape and the reference tensors left
+    over (those of IGNORED_REFERENCE_SUFFIXES aside). ``num_batches_tracked``
+    is taken from the template."""
+    state, problems, used = {}, [], set()
+    for key, tmpl in template.items():
+        rkey = reference_key(key)
+        if rkey is None:
+            state[key] = tmpl.clone()
+            continue
+        if rkey not in ref_state:
+            problems.append(f"missing: {key} (reference {rkey})")
+            continue
+        used.add(rkey)
+        src = torch.as_tensor(ref_state[rkey])
+        shape = tuple(src.shape)
+        while len(shape) > tmpl.dim() and shape[-1] == 1:
+            shape = shape[:-1]
+        if shape != tuple(tmpl.shape):
+            problems.append(f"shape: {key} {tuple(tmpl.shape)} vs reference {rkey} {tuple(src.shape)}")
+            continue
+        state[key] = src.reshape(shape).to(tmpl.dtype)
+    problems += [f"unused: {k}" for k in ref_state if k not in used and not k.endswith(IGNORED_REFERENCE_SUFFIXES)]
+    return state, problems

@@ -1,6 +1,5 @@
-"""Tracking dataset base (the JAX package's ``data/dataset.py``): its train
-items. (The evaluator takes whole tracklets, ``data/synthetic.py``
-``make_tracklets``.)
+"""Tracking dataset base (the JAX package's ``data/dataset.py``): train items and
+test items.
 
 A train item: a Kalman-sampled box offset, the canonical-frame search crop with
 per-point in-box labels and the 4-dof regression target, resampled to
@@ -8,9 +7,10 @@ SEARCH_INPUT_SIZE; the template, the first and previous frames' crops fused (the
 previous box slightly offset), resampled to TEMPLATE_INPUT_SIZE. A degenerate
 crop (<= 20 points) retries at a random index. Each item draws from its own
 ``np.random.Generator`` seeded by ``SeedSequence([seed, index])``, in the JAX
-package's order, so both packages give the same items bit for bit.
+package's order (item, point feature encoder, DATA_AUGMENTOR, DATA_PROCESSOR),
+so both packages give the same items bit for bit.
 
-DATA_AUGMENTOR and DATA_PROCESSOR are not ported (ROADMAP.md).
+A test item is a whole tracklet: (list of clouds, list of boxes, list of annos).
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import geometry as geo
+from .augmentor import DataAugmentor
 from .encoder import PointFeatureEncoder
+from .processor import DataProcessor
 
 
 class TrackingDataset:
@@ -26,33 +28,63 @@ class TrackingDataset:
     a list of frame dicts {'pc': (N, 3) float array, 'box': geo.Box, 'anno':
     dict}, then call ``_finalize``."""
 
-    def __init__(self, dataset_cfg: dict, seed: int = 0):
-        for key in ("DATA_AUGMENTOR", "DATA_PROCESSOR"):
-            if dataset_cfg.get(key):
-                raise NotImplementedError(f"DATA_CONFIG.{key} is not ported yet")
+    def __init__(self, dataset_cfg: dict, class_names, training: bool = True, root_path=None, logger=None,
+                 seed: int = 0):
         self.dataset_cfg = dataset_cfg
+        self.class_names = class_names
+        self.training = training
+        self.root_path = root_path
+        self.logger = logger.info if logger is not None else (lambda *a: None)
         self.seed = seed
         self.num_candidates_perframe = int(dataset_cfg.get("NUM_CANDIDATES_PERFRAME", 4))
         self.sample_interval = int(dataset_cfg.get("SAMPLED_INTERVAL", 1))
         self.use_z = bool(dataset_cfg.get("USE_Z_AXIS", False))
         pfe_cfg = dataset_cfg.get("POINT_FEATURE_ENCODING")
         self.point_feature_encoder = PointFeatureEncoder(pfe_cfg) if pfe_cfg else None
+        aug_cfg = dataset_cfg.get("DATA_AUGMENTOR")
+        self.data_augmentor = DataAugmentor(aug_cfg) if (aug_cfg and training) else None
+        proc_cfg = dataset_cfg.get("DATA_PROCESSOR")
+        self.data_processor = DataProcessor(proc_cfg, training) if proc_cfg else None
         self.tracklets: list[list[dict]] = []
         self._frame_map: list[tuple[int, int]] = []
 
     def _finalize(self):
         self._frame_map = [(t, f) for t, trk in enumerate(self.tracklets) for f in range(len(trk))]
 
+    @property
+    def mode(self) -> str:
+        return "train" if self.training else "test"
+
+    @property
+    def num_frames(self) -> int:
+        return len(self._frame_map)
+
+    @property
+    def num_tracklets(self) -> int:
+        return len(self.tracklets)
+
     def __len__(self):
-        return len(self._frame_map) * self.num_candidates_perframe // self.sample_interval
+        if self.training:
+            return len(self._frame_map) * self.num_candidates_perframe // self.sample_interval
+        return len(self.tracklets)
 
     def __getitem__(self, index):
+        if not self.training:
+            return self.get_test_item(index)
         index *= self.sample_interval
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, int(index)]))
         item = self.get_train_item(index, rng)
         if self.point_feature_encoder is not None:
             item = self.point_feature_encoder.forward(item)
+        if self.data_augmentor is not None:
+            item = self.data_augmentor.forward(item, rng=rng)
+        if self.data_processor is not None:
+            item = self.data_processor.forward(item, rng=rng)
         return item
+
+    def get_test_item(self, index):
+        trk = self.tracklets[index]
+        return [f["pc"] for f in trk], [f["box"] for f in trk], [f.get("anno", {}) for f in trk]
 
     def get_train_item(self, index, rng, _depth=0):
         if _depth > 50:

@@ -1,8 +1,10 @@
 """Batch loader (the JAX package's ``data/loader.py``): epoch-seeded shuffling,
-``drop_last``, collation into (B, ...) numpy arrays, and a thread pool that
-builds the items of the next batches while the device trains on the current
-one (item construction is numpy work that releases the GIL). The train step
-uploads each batch to the device.
+``drop_last``, collation into (B, ...) numpy arrays (or, for test items, lists
+of whole tracklets), and a thread pool that builds the items of the next
+batches while the device trains on the current one (item construction is numpy
+work that releases the GIL). The train step uploads each batch to the device.
+``build_dataloader`` makes a dataset by its DATA_CONFIG.DATASET name and its
+loader, for training or for tests.
 """
 
 from __future__ import annotations
@@ -21,10 +23,16 @@ def default_collate(items):
     return {key: np.stack([it[key] for it in items], axis=0) for key in items[0]}
 
 
+def identity_collate(items):
+    """Test items: a batch is the list of its whole tracklets."""
+    return items
+
+
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, num_workers: int = 4):
+                 seed: int = 0, num_workers: int = 4, collate_fn=default_collate):
         self.dataset = dataset
+        self.collate_fn = collate_fn
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -61,7 +69,7 @@ class DataLoader:
                 for batch_idx in self.batch_indices():
                     if stop.is_set():
                         return
-                    out_q.put(default_collate(list(pool.map(self.dataset.__getitem__, batch_idx))))
+                    out_q.put(self.collate_fn(list(pool.map(self.dataset.__getitem__, batch_idx))))
             except BaseException as e:  # surface worker errors to the consumer
                 out_q.put(e)
             finally:
@@ -85,3 +93,17 @@ class DataLoader:
                 except queue.Empty:
                     pass
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+def build_dataloader(dataset_cfg: dict, class_names, batch_size: int, root_path=None, workers: int = 4, logger=None,
+                     training: bool = True, seed: int = 0):
+    """The dataset DATA_CONFIG.DATASET names and its loader: shuffled, stacked
+    train batches without the last partial batch, or sequential batches of
+    whole test tracklets. Returns (dataset, loader)."""
+    from . import ALL_DATASETS
+
+    dataset = ALL_DATASETS[dataset_cfg["DATASET"]](dataset_cfg=dataset_cfg, class_names=class_names,
+                                                   training=training, root_path=root_path, logger=logger, seed=seed)
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=training, drop_last=training, seed=seed,
+                        num_workers=workers, collate_fn=default_collate if training else identity_collate)
+    return dataset, loader

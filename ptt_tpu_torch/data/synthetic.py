@@ -5,7 +5,8 @@ A copy of the JAX package's ``data/synthetic.py`` generator with the same numpy
 draw order, so the same config and seed give the same clouds and boxes bit for
 bit. ``make_tracklets`` returns the eval split as the evaluator consumes it, a
 list of ``(pcs, boxes, annos)`` per tracklet; ``SyntheticTrackingDataset``
-serves the train split's items to the trainer.
+serves the train split's items to the trainer, or with ``training=False`` the
+eval split's tracklets as test items.
 """
 
 from __future__ import annotations
@@ -85,13 +86,14 @@ def _generate(data_cfg: dict, seed_offset: int) -> list:
 
 
 class SyntheticTrackingDataset(TrackingDataset):
-    """The train-split tracklets of ``dataset_cfg`` (optional keys
-    NUM_TRACKLETS, FRAMES_PER_TRACKLET, POINTS_PER_FRAME, CLUTTER_POINTS,
-    SYNTH_SEED) as train items."""
+    """The tracklets of ``dataset_cfg`` (optional keys NUM_TRACKLETS,
+    FRAMES_PER_TRACKLET, POINTS_PER_FRAME, CLUTTER_POINTS, SYNTH_SEED): the
+    train split as train items, or the eval split as test items."""
 
-    def __init__(self, dataset_cfg: dict, seed: int = 0):
-        super().__init__(dataset_cfg, seed)
-        tracklets = _generate(dataset_cfg, 0)
+    def __init__(self, dataset_cfg: dict, class_names="Car", training: bool = True, root_path=None, logger=None,
+                 seed: int = 0):
+        super().__init__(dataset_cfg, class_names, training, root_path, logger, seed)
+        tracklets = _generate(dataset_cfg, 0 if training else _EVAL_SEED_OFFSET)
         self.tracklets = [[{"pc": pc, "box": box, "anno": anno} for pc, box, anno in zip(*trk)]
                           for trk in tracklets]
         self._finalize()

@@ -14,11 +14,13 @@ while the template follows the predicted trajectory; and
 ``all`` (the crops of every earlier frame around its predicted box, one
 resample over their union).
 
-Resampling draws its picks from a ``torch.Generator``, so the stream differs
-from the JAX tracker's; ``masked_resample`` also takes explicit ``picks``. It
-picks the same rows from the same picks as the JAX package's
-``masked_resample`` and ``masked_resample_long``, with one prefix-sum path for
-every row length.
+Resampling draws its picks from a ``torch.Generator`` (``uniform_picks``), so
+the stream differs from the JAX tracker's; ``masked_resample`` also takes
+explicit ``picks``. It picks the same rows from the same picks as the JAX
+package's ``masked_resample`` and ``masked_resample_long``, with one prefix-sum
+path for every row length. The evaluator reseeds its generator at every
+dispatch, as the JAX evaluator derives its keys from its seed at every
+dispatch, so a batch's boxes depend only on the seed and the batch.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 
 from .. import resolve_device
 from ..core import geometry as geo
-from .evaluator import RESULT_FILE, aggregation_mode, anno_scene_frame, ref_box_mode, result_line
+from .evaluator import (RESULT_FILE, aggregation_mode, anno_scene_frame, ref_box_mode, result_line,
+                        save_candidate_pcd)
 from .metrics import Evaluator
 
 QUANT_SCALE = 1.0 / 256.0  # int16 fixed-point grid for the upload: 3.9 mm, range +-128 m
@@ -77,6 +80,14 @@ def precrop_mask(pts, box_vec, wlh, offset: float, scale: float):
     return ((d < half) & (d > -half)).all(-1)
 
 
+def uniform_picks(count, n_out: int, generator=None):
+    """(B, n_out) draws from ``generator``, uniform in [0, count) per row
+    (count (B,)); the picks ``masked_resample`` takes when it is given none."""
+    hi = count[:, None].clamp_min(1)
+    u = torch.rand(count.shape[0], n_out, generator=generator, device=count.device)
+    return torch.minimum((u * hi).long(), hi - 1)
+
+
 def masked_resample(pts, mask, n_out: int, generator=None, picks=None):
     """Uniform-with-replacement resample of each row's masked points to exactly
     ``n_out`` (rows with <= 2 valid points give zeros). The pick-th valid point
@@ -86,10 +97,8 @@ def masked_resample(pts, mask, n_out: int, generator=None, picks=None):
     pts (B, L, 3), mask (B, L) -> (out (B, n_out, 3), count (B,))."""
     csum = torch.cumsum(mask, dim=-1)
     count = csum[:, -1]
-    if picks is None:  # uniform in [0, count) per row
-        hi = count[:, None].clamp_min(1)
-        u = torch.rand(mask.shape[0], n_out, generator=generator, device=mask.device)
-        picks = torch.minimum((u * hi).long(), hi - 1)
+    if picks is None:
+        picks = uniform_picks(count, n_out, generator)
     rows = torch.searchsorted(csum, picks.long() + 1, side="left").clamp_max(mask.shape[1] - 1)
     out = torch.gather(pts, 1, rows[..., None].expand(-1, -1, pts.shape[-1]))
     return torch.where((count > 2)[:, None, None], out, torch.zeros_like(out)), count
@@ -200,7 +209,9 @@ class DeviceTrackingEvaluator:
     REF_BOX modes also upload the (B, T, 4) ground truth, padded frames with the
     last box. With ``output_dir``, every scored frame is a line of
     ``<output_dir>/final_result/data/track_result.txt``, as the host evaluator
-    writes it.
+    writes it, and with TEST.SAVE_PCD each frame's search cloud is a file of
+    ``<output_dir>/pcd/``: the crop and resample of the host evaluator around
+    the boxes this tracker used, since the device's own clouds stay there.
     """
 
     def __init__(self, cfg: dict, model, max_points: int = 16384, batch_size: int = 8,
@@ -212,8 +223,7 @@ class DeviceTrackingEvaluator:
         self.seed = seed
         self.track_fn = make_device_tracker(model, cfg["DATA_CONFIG"], cfg["TEST"])
         self.needs_gt = ref_box_mode(cfg["TEST"]) != "PREVIOUS_RESULT"
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator = torch.Generator(device=self.device)  # reseeded at every dispatch
         self.evaluator = Evaluator(ref_coord=str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")))
         self._fp = None
         self._tracklet_num = 0
@@ -221,6 +231,10 @@ class DeviceTrackingEvaluator:
             final_dir = Path(output_dir) / "final_result" / "data"
             final_dir.mkdir(parents=True, exist_ok=True)
             self._fp = open(final_dir / RESULT_FILE, "w")
+        self._pcd_dir = None
+        if output_dir is not None and bool(cfg["TEST"].get("SAVE_PCD", False)):
+            self._pcd_dir = Path(output_dir) / "pcd"
+            self._pcd_dir.mkdir(parents=True, exist_ok=True)
 
     def close(self):
         if self._fp is not None:
@@ -247,7 +261,12 @@ class DeviceTrackingEvaluator:
     def dispatch_batch(self, tracklets):
         """Pack a batch of ``(pcs, boxes, annos)`` tracklets, upload it and enqueue
         the whole loop on the device. Returns a handle for ``finish_batch``; the
-        host can score an earlier batch while the device runs this one."""
+        host can score an earlier batch while the device runs this one.
+
+        The generator is reseeded first, so the batch's draws depend on the seed
+        alone. The draws are made as the work is enqueued: an earlier batch still
+        running on the device drew all of its own before this call."""
+        self.generator.manual_seed(self.seed)
         if len(tracklets) > self.batch_size:
             raise ValueError(f"dispatch_batch got {len(tracklets)} tracklets > batch_size={self.batch_size}")
         T_max = max(len(pcs) for pcs, _, _ in tracklets)
@@ -293,6 +312,23 @@ class DeviceTrackingEvaluator:
             results.extend(self.finish_batch(self.dispatch_batch(tracklets[i: i + self.batch_size])))
         return results
 
+    def _save_pcds(self, pcs, gt_boxes, results, annos):
+        """TEST.SAVE_PCD: each frame's search crop and resample on the host, as
+        the host evaluator makes them, around the box this tracker cropped
+        around, written in the world frame."""
+        data_cfg = self.cfg["DATA_CONFIG"]
+        mode = ref_box_mode(self.cfg["TEST"])
+        for t in range(1, len(pcs)):
+            ref_box = {"PREVIOUS_RESULT": results[t - 1], "PREVIOUS_GT": gt_boxes[t - 1],
+                       "CURRENT_GT": gt_boxes[t]}[mode]
+            crop, _, _ = geo.crop_center_pc(np.asarray(pcs[t], np.float32), ref_box, gt_box=gt_boxes[t],
+                                            offset=float(data_cfg.get("SEARCH_BB_OFFSET", 0.0)),
+                                            scale=float(data_cfg.get("SEARCH_BB_SCALE", 1.25)))
+            crop = geo.regularize_pc(crop, int(data_cfg["SEARCH_INPUT_SIZE"]), istrain=False)
+            anno = annos[t] if annos is not None and t < len(annos) else {}
+            save_candidate_pcd(self._pcd_dir, crop, ref_box, anno, default_scene=self._tracklet_num,
+                               default_frame=t)
+
     def _score(self, boxes_out, tracklets):
         all_results = []
         for b, (pcs, gt_boxes, annos) in enumerate(tracklets):
@@ -308,6 +344,8 @@ class DeviceTrackingEvaluator:
             # 1-based tracklet numbers, counted before writing, as the host
             # evaluator's, so the two loops' result files line up row by row
             self._tracklet_num += 1
+            if self._pcd_dir is not None:
+                self._save_pcds(pcs, gt_boxes, results, annos)
             if self._fp is not None:
                 for t, box in enumerate(results):
                     anno = annos[t] if annos is not None and t < len(annos) else {}

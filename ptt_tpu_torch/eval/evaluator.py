@@ -8,7 +8,8 @@ network and decodes the best proposal back to the world frame
 (``get_box_by_offset``). The crops and resamples are the numpy code of
 ``core/geometry.py`` with its reseeded RNG, so they are the JAX host loop's
 exactly; the forward and the argmax over the proposals run on the device, and
-5 floats come back a frame.
+5 floats come back a frame. With TEST.SAVE_PCD each frame's search cloud is
+written as a ``.pcd`` in the world frame.
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ def anno_scene_frame(anno, default_scene, default_frame):
     track = anno.get("track_id", 0)
     frame = anno.get("frame", anno.get("frame_num", default_frame))
     return scene, track, frame
+
+
+def save_candidate_pcd(pcd_dir, points_canonical, ref_box, anno, default_scene, default_frame) -> None:
+    """TEST.SAVE_PCD: a frame's canonical search cloud, rotated and moved back to
+    the world frame by its crop's reference box, as
+    ``<scene>_<track>_candidatePC_<frame>.pcd``."""
+    from ..utils.file_io import save_pts_as_pcd
+
+    world = points_canonical @ ref_box.rotation_matrix.T + ref_box.center
+    scene, track, frame = anno_scene_frame(anno, default_scene, default_frame)
+    save_pts_as_pcd(world, pcd_dir, name=f"{scene}_{track}_candidatePC_{frame}.pcd")
 
 
 def result_line(scene, frame, tracklet: int, box) -> str:
@@ -83,9 +95,10 @@ def make_track_step(model):
 class TrackingEvaluator:
     """The per-tracklet tracking loop. ``cfg`` holds DATA_CONFIG and TEST;
     ``model`` is the tracker, already on ``device``. ``output_dir``, when
-    given, receives ``track_result.txt``."""
+    given, receives ``track_result.txt``; with TEST.SAVE_PCD the search clouds
+    go to ``pcd_dir`` (default ``<output_dir>/pcd``)."""
 
-    def __init__(self, cfg: dict, model, output_dir=None, device="cuda"):
+    def __init__(self, cfg: dict, model, output_dir=None, device="cuda", pcd_dir=None):
         self.cfg = cfg
         self.data_cfg = cfg["DATA_CONFIG"]
         self.test_cfg = cfg["TEST"]
@@ -102,6 +115,10 @@ class TrackingEvaluator:
             output_dir = Path(output_dir)
             output_dir.mkdir(parents=True, exist_ok=True)
             self._fp = open(output_dir / RESULT_FILE, "w")
+        self._pcd_dir = None
+        if bool(self.test_cfg.get("SAVE_PCD", False)) and (pcd_dir is not None or output_dir is not None):
+            self._pcd_dir = Path(pcd_dir) if pcd_dir is not None else Path(output_dir) / "pcd"
+            self._pcd_dir.mkdir(parents=True, exist_ok=True)
 
     def _prepare_search(self, this_pc, this_box, results, gt_boxes, frame_id):
         ref_box = {"PREVIOUS_RESULT": results[-1], "PREVIOUS_GT": gt_boxes[frame_id - 1],
@@ -148,6 +165,10 @@ class TrackingEvaluator:
                         best = self.track_step(self._upload(search), self._upload(template)).cpu().numpy()
                     with timer.env("post process"):
                         results.append(geo.get_box_by_offset(ref_box, best[:4], use_z))
+                    if self._pcd_dir is not None:
+                        save_candidate_pcd(self._pcd_dir, search, ref_box,
+                                           annos[i] if annos is not None and i < len(annos) else {},
+                                           default_scene=self.batch_num, default_frame=i)
                     self.frame_time.update(time.perf_counter() - t0)
                 self.evaluator.update_iou(this_box, results[-1])
                 if self._fp is not None:
@@ -177,13 +198,15 @@ class TrackingEvaluator:
 def eval_one_epoch(cfg, model, dataloader, epoch_id="?", logger=None, result_dir=None, device="cuda"):
     """Track every tracklet of ``dataloader`` (an iterable of batches, each a
     list of (pcs, boxes, annos) tracklets) with the host loop; writes
-    ``<result_dir>/final_result/data/track_result.txt`` when ``result_dir`` is
-    given. Returns (success, precision)."""
+    ``<result_dir>/final_result/data/track_result.txt`` (and with TEST.SAVE_PCD
+    ``<result_dir>/pcd/``) when ``result_dir`` is given. Returns (success,
+    precision)."""
     emit = logger.info if logger is not None else print
     emit(f"*************** EPOCH {epoch_id} EVALUATION *****************")
     timer.reset()
     final_dir = Path(result_dir) / "final_result" / "data" if result_dir else None
-    ev = TrackingEvaluator(cfg, model, output_dir=final_dir, device=device)
+    ev = TrackingEvaluator(cfg, model, output_dir=final_dir, device=device,
+                           pcd_dir=Path(result_dir) / "pcd" if result_dir else None)
     start = time.perf_counter()
     for batch in dataloader:
         for pcs, boxes, annos in batch:

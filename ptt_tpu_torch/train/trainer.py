@@ -48,13 +48,15 @@ class Trainer:
         self.accumulated_iter = 0
         self._best_succ = float("-inf")
 
-    def resume(self):
-        """Continue from the newest checkpoint of the run directory, if any."""
-        if self.ckpt.latest_epoch() is None:
+    def resume(self, path=None):
+        """Continue from the training checkpoint ``path``, or else from the
+        newest checkpoint of the run directory, if any."""
+        if path is None and self.ckpt.latest_epoch() is None:
             self.logger.info("no checkpoint found; starting from scratch")
             return self
-        self.start_epoch, self.accumulated_iter = self.ckpt.restore(self.model, self.optimizer)
-        self.logger.info(f"resumed from epoch {self.start_epoch} (step {self.accumulated_iter})")
+        self.start_epoch, self.accumulated_iter = self.ckpt.restore(self.model, self.optimizer, path=path)
+        self.logger.info(f"resumed from {path or self.ckpt.ckpt_dir} at epoch {self.start_epoch} "
+                         f"(step {self.accumulated_iter})")
         return self
 
     def _bn_momentum(self, epoch: int):

@@ -1,6 +1,38 @@
-"""The running-statistics meter of the JAX package's ``utils/common.py``."""
+"""Logging, seeding and the running-statistics meter of the JAX package's
+``utils/common.py``."""
 
 from __future__ import annotations
+
+import logging
+import random
+
+import numpy as np
+import torch
+
+
+def create_logger(log_file=None, log_level=logging.INFO) -> logging.Logger:
+    """A logger that writes to the console and, given ``log_file``, to that file."""
+    logger = logging.getLogger(f"ptt_tpu_torch.{log_file}")
+    logger.setLevel(log_level)
+    logger.propagate = False
+    if logger.handlers:
+        return logger
+    formatter = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
+    handlers = [logging.StreamHandler()]
+    if log_file is not None:
+        handlers.append(logging.FileHandler(str(log_file)))
+    for handler in handlers:
+        handler.setLevel(log_level)
+        handler.setFormatter(formatter)
+        logger.addHandler(handler)
+    return logger
+
+
+def set_manual_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 class AverageMeter:
