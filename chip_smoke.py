@@ -60,7 +60,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      TRAIN.WITH_EVAL on a shorter test scene; ms a step with the KITTI loader,
      2 FPS + 7 + 7 group launches a step; ``--eval_all`` over both
      checkpoints; a reference-layout ``.pth`` loaded as ``--ckpt`` loads it,
-     its forward bit-equal to the asset's.
+     its forward bit-equal to the asset's;
+  13. ``ptt_waymo.yaml`` (8192 / 2048-point clouds, stage 0 to 2048 / 1024
+     centers) as phases 8-9 take a configuration, the FPS calls also against
+     the kernel's round in plain PyTorch (``furthest_point_sample_packed``);
+     then (13b) the test CLI with it on phase 11b's scene 0019;
+  14. ``ptt_waymo.yaml`` training at B = 48 on synthetic items resampled to
+     8192 / 2048 points: the group kernels at its 7 shapes and on a
+     heavy-duplication cloud, as phase 6 checks them, then train steps:
+     launches, ms a step, peak memory;
+  15. mixed precision and the optimizers: one bf16 step on the kernel path and
+     one on the plain path from the same state with the same FPS picks, within
+     a stated band; bf16 and float32 step times alternated; the train CLI on
+     ``p2b_synth_strong.yaml`` (bf16 from the file) and on ``ptt_synth.yaml``
+     once per OPTIMIZER, finite losses;
+  16. the agreement tracklets written as a nuScenes release, scored by the
+     test CLI on ``nuscenes_models/ptt.yaml`` with the trained asset, within
+     1.0 of phase 10's numbers.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 """
@@ -74,6 +90,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -383,7 +400,12 @@ def fps_hard_cases(device):
             ("ragged N = 1000", cloud(4, 1000), 300), ("ragged N = 100", cloud(4, 100), 100),
             ("npoint == N", cloud(3, 512), 512), ("N = 129, the 8-warp form nearly empty", cloud(2, 129), 129),
             ("N = 2048, the 16-warp form", cloud(4, 2048), 512),
-            ("ragged N = 1500, 16 warps, ties", resampled(2, 1500, 8), 400), ("N = 1", cloud(2, 1), 1)]
+            ("ragged N = 1500, 16 warps, ties", resampled(2, 1500, 8), 400), ("N = 1", cloud(2, 1), 1),
+            ("N = 2049, the 16 x 16 form nearly empty", cloud(4, 2049), 512),
+            ("N = 8192, the 16 x 16 form", cloud(2, 8192), 2048),
+            ("8192 identical points", cloud(2, 1).expand(2, 8192, 3).contiguous(), 256),
+            ("8192 resampled from 8 distinct points", resampled(2, 8192, 8), 300),
+            ("ragged N = 5000, the 16 x 16 form", resampled(2, 5000, 600), 1000)]
 
 
 def fps_clock(device):
@@ -414,10 +436,14 @@ def check_fps(calls, device, clock, extras=True):
     for label, xyz, npoint in [("frame step", x, m) for (x, m), _ in calls] + train:
         got = fps.furthest_point_sample(xyz, npoint)
         ref = point_ops.furthest_point_sample(xyz, npoint)
+        packed = fps.furthest_point_sample_packed(xyz, npoint, *fps.kernel_form(xyz.shape[1])) if label == "frame step" \
+            else ref
         torch.cuda.synchronize()
         shape = f"{tuple(xyz.shape)}->{npoint}"
         if not torch.equal(got, ref):
             fail(f"FPS kernel differs from its plain version at {shape} ({label}): {int((got != ref).sum())} indices")
+        if not torch.equal(got, packed):
+            fail(f"FPS kernel differs from furthest_point_sample_packed at {shape} ({label})")
         ms = cuda_ms(lambda: fps.furthest_point_sample(xyz, npoint), 20)
         dev_ms = queued_ms(lambda: fps.furthest_point_sample(xyz, npoint), 20)
         plain_ms = cuda_ms(lambda: point_ops.furthest_point_sample(xyz, npoint), 3, warmup=1)
@@ -445,7 +471,7 @@ def check_fps(calls, device, clock, extras=True):
         log(f"  fps {tuple(xyz.shape)}->{npoint} ({label}), form {fps.kernel_form(xyz.shape[1])}: equal to plain {same}")
         if not same:
             fail(f"FPS kernel differs from its plain version on the hard case '{label}': {int((got != ref).sum())} indices")
-    for n in (fps.MAX_POINTS + 1, 4096) if extras else ():
+    for n in (fps.MAX_POINTS + 1, 2 * fps.MAX_POINTS) if extras else ():
         try:
             fps.furthest_point_sample(torch.zeros((1, n, 3), device=device), 8)
         except ValueError:
@@ -1072,7 +1098,7 @@ def train_phase(cfg, device, card):
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
     from ptt_tpu_torch.nn import build_network, set_use_kernels
     from ptt_tpu_torch.ops import fps, group, point_ops, sa
-    from ptt_tpu_torch.train.optim import Adam
+    from ptt_tpu_torch.train.optim import Optimizer
     from ptt_tpu_torch.train.train_step import make_train_step
     from ptt_tpu_torch.train.trainer import Trainer
 
@@ -1088,7 +1114,7 @@ def train_phase(cfg, device, card):
         model = build_network(model_cfg, device=device, train=True)
         model.load_state_dict(weights, strict=True)
         set_use_kernels(model, use_kernels)
-        return model, Adam(model.parameters(), optim_cfg, len(loader))
+        return model, Optimizer(model.parameters(), optim_cfg, len(loader))
 
     # 6. group kernels at the train step's shapes
     calls = capture_group_calls(fresh(True)[0], batches[0], device)
@@ -1307,6 +1333,53 @@ def sweep_scene(rng, n_frames: int, track_frames, n_points: int = 120_000):
     return clouds, tracks
 
 
+NUSCENES_TABLES = ("scene", "sample", "sample_data", "sample_annotation", "instance", "ego_pose",
+                   "calibrated_sensor", "category", "log")
+
+
+def write_nuscenes_tree(root, tracklets, category: str = "vehicle.trailer", version: str = "v1.0-trainval") -> None:
+    """Tracklets as a nuScenes release under ``root``: tracklet t is scene t of
+    the 'val' split (the test split of nuscenes_models/ptt.yaml), one instance
+    of ``category`` with an annotation a frame chained by ``next``, and a
+    LIDAR_TOP sweep a frame (x, y, z, intensity, ring rows); the sensor and
+    ego poses are the identity, so the dataset reads back the same clouds and
+    boxes."""
+    from ptt_tpu_torch.data.nuscenes_splits import get_split_scenes
+
+    scenes = get_split_scenes("val")
+    os.makedirs(os.path.join(root, version), exist_ok=True)
+    os.makedirs(os.path.join(root, "samples", "LIDAR_TOP"), exist_ok=True)
+    identity = {"translation": [0.0, 0.0, 0.0], "rotation": [1.0, 0.0, 0.0, 0.0]}
+    tables = {name: [] for name in NUSCENES_TABLES}
+    tables["log"].append({"token": "log0"})
+    tables["category"].append({"token": "cat0", "name": category})
+    tables["calibrated_sensor"].append(dict(identity, token="cs0"))
+    tables["ego_pose"].append(dict(identity, token="ego0"))
+    for t, (pcs, boxes, _) in enumerate(tracklets):
+        tables["scene"].append({"token": f"scene{t}", "name": scenes[t], "log_token": "log0"})
+        annos = [f"anno{t}_{f}" for f in range(len(pcs))]
+        for f, (pc, box) in enumerate(zip(pcs, boxes)):
+            fname = f"samples/LIDAR_TOP/{scenes[t]}_{f:03d}.bin"
+            scan = np.zeros((len(pc), 5), np.float32)
+            scan[:, :3] = pc
+            scan.tofile(os.path.join(root, fname))
+            tables["sample_data"].append({"token": f"sd{t}_{f}", "sample_token": f"sample{t}_{f}", "filename": fname,
+                                          "ego_pose_token": "ego0", "calibrated_sensor_token": "cs0",
+                                          "is_key_frame": True})
+            tables["sample"].append({"token": f"sample{t}_{f}", "scene_token": f"scene{t}", "timestamp": 1000 * f,
+                                     "data": {"LIDAR_TOP": f"sd{t}_{f}"}})
+            tables["sample_annotation"].append({
+                "token": annos[f], "sample_token": f"sample{t}_{f}", "instance_token": f"inst{t}",
+                "translation": [float(x) for x in box.center], "size": [float(x) for x in box.wlh],
+                "rotation": [float(x) for x in box.orientation.elements], "num_lidar_pts": len(pc),
+                "prev": annos[f - 1] if f else "", "next": annos[f + 1] if f + 1 < len(pcs) else ""})
+        tables["instance"].append({"token": f"inst{t}", "category_token": "cat0", "first_annotation_token": annos[0],
+                                   "nbr_annotations": len(pcs)})
+    for name, rows in tables.items():
+        with open(os.path.join(root, version, f"{name}.json"), "w") as fh:
+            json.dump(rows, fh)
+
+
 def run_cli(module: str, args, timeout: float = 600):
     """Run ``python3 -m ptt_tpu_torch.tools.<module> args`` from the repo root and
     return (its ``summary`` record, wall seconds, its log). Fails the run when
@@ -1371,15 +1444,13 @@ def resample_rows_check(cfg, model, root, device):
              "16384 and 32768")
 
 
-def kitti_test_phase(agreement, phase10, model, device, card):
+def kitti_test_phase(agreement, phase10, model, device, card, tmp):
     """Phase 11: the test CLI, as a subprocess, on KITTI-format trees written
-    here: (a) the agreement tracklets, against phase 10's numbers; (b) a
-    150-frame scene of 120,000-point sweeps at the default max_points."""
-    import tempfile
-
+    under ``tmp``: (a) the agreement tracklets, against phase 10's numbers; (b)
+    a 150-frame scene of 120,000-point sweeps at the default max_points, left
+    in ``tmp/sweeps`` for phase 13b."""
     from ptt_tpu_torch.config import ptt_config
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     try:
         root = os.path.join(tmp, "agreement")
         for i, (pcs, boxes, _) in enumerate(agreement):
@@ -1439,7 +1510,6 @@ def kitti_test_phase(agreement, phase10, model, device, card):
             fail("[11b] the first batch's boxes differ between the two runs")
         resample_rows_check(ptt_config(), model, root, device)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
         for tag in ("chip_smoke_11a", "chip_smoke_11b"):
             shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt", tag), ignore_errors=True)
 
@@ -1512,12 +1582,223 @@ def kitti_train_phase(model, batch, device, card):
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# ------------------------------------------------------ ptt_waymo, bf16, optimizers, nuScenes (phases 13-16)
+
+
+def waymo_cli_phase(root, card):
+    """Phase 13b: the test CLI with ptt_waymo.yaml on phase 11b's scene 0019
+    (150 sweeps of 120,000 points, max_points 16384, seeded init)."""
+    steps = 160 - 1
+    rec, wall, text = run_cli("test_tracking", ["--cfg_file", "tools/cfgs/kitti_models/ptt_waymo.yaml", "--batch_size", 8,
+                                                "--extra_tag", "chip_smoke_13b", "--set", "DATA_CONFIG.DATA_PATH", root])
+    log(f"[13b] test CLI ptt_waymo.yaml on scene 0019 (150 x 120,000-point sweeps, max_points 16384, batch 8, "
+        f"seeded init): {rec['frames_per_s']:.1f} frames/s, Success {rec['success']:.2f} Precision "
+        f"{rec['precision']:.2f} (seeded weights: not a gate), CLI wall {wall:.1f} s; launches {rec['launches']} over "
+        f"{steps} frame steps; the one-device POINT_SHARDING line logged "
+        f"{'the point axis' in text and 'is not split' in text}; card {card}")
+    if rec["launches"]["fps"] != 2 * steps or rec["launches"]["sa"] != 7 * steps:
+        fail(f"[13b] launches {rec['launches']}, not 2 FPS and 7 SA per step over {steps} steps")
+    if not ("the point axis" in text and "is not split" in text):
+        fail("[13b] the test CLI did not log that POINT_SHARDING splits nothing on one device")
+    shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt_waymo"), ignore_errors=True)
+
+
+def waymo_train_phase(device, card):
+    """Phase 14: ptt_waymo.yaml training at B = 48 on synthetic items resampled
+    to 8192 / 2048 points, on the port's seeded init: the group kernels at the 7
+    shapes of its step and a heavy-duplication cloud, then steps: launches, ms
+    a step, peak memory. Returns phase 6's rows at these shapes."""
+    from ptt_tpu_torch.config import config_by_path, ptt_synth_config
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.ops import fps, group, sa
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import make_train_step
+
+    cfg = config_by_path("kitti_models/ptt_waymo.yaml")
+    data_cfg = dict(ptt_synth_config()["DATA_CONFIG"], SEARCH_INPUT_SIZE=8192, TEMPLATE_INPUT_SIZE=2048)
+    t0 = time.perf_counter()
+    loader, batches = train_batches(data_cfg, 3)
+    log(f"[14] ptt_waymo.yaml training, B = {TRAIN_B}: 3 batches of synthetic items resampled to 8192 / 2048 points "
+        f"built in {time.perf_counter() - t0:.1f} s; the port's init from torch.manual_seed({SEED})")
+
+    def fresh():
+        torch.manual_seed(SEED)
+        return build_network(cfg["MODEL"], device=device, train=True)
+
+    calls = capture_group_calls(fresh(), batches[0], device)
+    if len(calls) != 7:
+        fail(f"[14] a ptt_waymo train forward made {len(calls)} grouped_first_linear calls, not 7")
+    log(f"[14] group kernels vs plain versions at ptt_waymo's train shapes (B = {TRAIN_B}); CSR ranges of the "
+        f"backward at N = 8192: {group.kernel_csr_ranges(8192)} (ops/group.py says {group.csr_ranges(8192)})")
+    if group.kernel_csr_ranges(8192) != group.csr_ranges(8192) or \
+            group.kernel_csr_ranges(group.BACKWARD_MAX_POINTS + 1) != 0:
+        fail("[14] csrc/group.cu's CSR ranges differ from ops/group.py's")
+    rows = check_group_kernels(calls + [heavy_duplication_call(calls[0])])
+    del calls
+    rows = [r for r in rows if not r["heavy"]]
+
+    model = fresh()
+    opt = Optimizer(model.parameters(), ptt_synth_config()["OPTIMIZATION"], len(loader))
+    step = make_train_step(cfg["MODEL"], device=device)
+    torch.cuda.reset_peak_memory_stats()
+    fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+    losses = [float(step(model, opt, b)["loss"]) for b in batches]
+    launches = {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches, "group_bwd": group.bwd_launches}
+    ms = median_step_ms(step, model, opt, [batches[0]] * 5)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[14] ptt_waymo train steps at B = {TRAIN_B}: losses {[f'{x:.4f}' for x in losses]}; launches {launches} "
+        f"over 3 steps; {ms:.1f} ms a step on one pre-made batch (median of 5); peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); card {card}")
+    if not all(np.isfinite(losses)):
+        fail("[14] ptt_waymo training: non-finite loss")
+    if launches != {"fps": 6, "sa": 0, "group_fwd": 21, "group_bwd": 21}:
+        fail(f"[14] ptt_waymo training launches {launches}, not 2 FPS and 7 + 7 group a step")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
+OPTIMIZER_RUNS = ("adam", "adamw", "sgd", "adam_onecycle")
+
+
+def phase15_cli_jobs() -> dict:
+    """Phase 15's train CLI runs, name -> (arguments, --set pairs): 4 steps of
+    B = 48 each (8 tracklets x 6 frames); p2b_synth_strong.yaml as the file
+    sets it (bf16), ptt_synth.yaml once per OPTIMIZER. WEIGHT_DECAY stays the
+    file's integer 0 (``--set`` keeps a key's type, as the JAX package's does),
+    so adamw steps as adam does here; the CPU lockstep covers weight decay."""
+    small = ["DATA_CONFIG.NUM_TRACKLETS", "8", "DATA_CONFIG.FRAMES_PER_TRACKLET", "6", "TRAIN.WITH_EVAL.ENABLE", "False"]
+    jobs = {"p2b_synth_strong": (["--cfg_file", "tools/cfgs/synthetic_models/p2b_synth_strong.yaml"], small)}
+    for name in OPTIMIZER_RUNS:
+        jobs[name] = (["--cfg_file", "tools/cfgs/synthetic_models/ptt_synth.yaml"], small + ["OPTIMIZATION.OPTIMIZER", name])
+    return jobs
+# Kernel path against plain path, one bf16 step from the same state with the same
+# FPS picks, relative to the plain step. The kernel path's stages compute in
+# float32 after grouped_first_linear, the plain path's in bf16 (as the JAX
+# package's two paths do), so they part by bf16 rounding, not by float32's 1e-4.
+# BF16_PATHS_RTOL is the band stated in PERF.md before the first run, reported
+# beside the reading; the phase fails beyond BF16_FAULT_RTOL, the size of a
+# fault (a lost cast or gradient moves the step by O(1)), not of bf16 rounding
+# on a trained model whose loss is ~0.007 and gradient norm ~0.08.
+BF16_PATHS_RTOL = 5e-2
+BF16_FAULT_RTOL = 0.2
+
+
+def bf16_phase(device, card):
+    """Phase 15: one bf16 train step on the kernel path and one on the plain
+    path from the same state with the kernel's FPS picks; bf16 and float32
+    step times alternated; the train CLI on p2b_synth_strong.yaml (bf16 from
+    the file) and on ptt_synth.yaml once per optimizer, subprocesses side by
+    side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ptt_tpu_torch.config import ptt_synth_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.nn import build_network, set_use_kernels
+    from ptt_tpu_torch.ops import fps, point_ops
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import make_train_step
+
+    cfg = ptt_synth_config()
+    loader, batches = train_batches(cfg["DATA_CONFIG"], 1, seed=15)
+    weights = state_dict_from_npz(ASSET)
+
+    def fresh(use_kernels):
+        model = build_network(cfg["MODEL"], device=device, train=True)
+        model.load_state_dict(weights, strict=True)
+        set_use_kernels(model, use_kernels)
+        return model, Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
+
+    step16 = make_train_step(cfg["MODEL"], device=device, mixed_precision=True)
+    step32 = make_train_step(cfg["MODEL"], device=device)
+    (mk, ok), (mp, op) = fresh(True), fresh(False)
+    with FpsReplay(fps, point_ops) as replay:
+        k = step16(mk, ok, batches[0])
+        replay.start()
+        p = step16(mp, op, batches[0])
+    m32, o32 = fresh(True)
+    f = step32(m32, o32, batches[0])
+    rel = {m: abs(float(k[m]) - float(p[m])) / abs(float(p[m])) for m in ("loss", "grad_norm")}
+    to_f32 = {m: abs(float(k[m]) - float(f[m])) / abs(float(f[m])) for m in ("loss", "grad_norm")}
+    master = all(t.dtype == torch.float32 for t in list(mk.parameters()) + ok.mu + ok.nu)
+    log(f"[15] one bf16 step of ptt_synth.yaml from the trained asset, B = {TRAIN_B}: kernel path loss "
+        f"{float(k['loss']):.6f} grad_norm {float(k['grad_norm']):.4f}, plain path with the kernel's FPS picks "
+        f"{float(p['loss']):.6f} / {float(p['grad_norm']):.4f}: rel diff {rel['loss']:.2e} / {rel['grad_norm']:.2e} "
+        f"(stated band {BF16_PATHS_RTOL}: {'held' if max(rel.values()) <= BF16_PATHS_RTOL else 'missed'}; fault "
+        f"threshold {BF16_FAULT_RTOL}); the float32 kernel step {float(f['loss']):.6f} / {float(f['grad_norm']):.4f}, "
+        f"rel diff to it {to_f32['loss']:.2e} / {to_f32['grad_norm']:.2e}; FPS = plain on the kernel's input at "
+        f"{replay.checked}, picks the plain step's own FPS would change {replay.changed}; master parameters and "
+        f"optimizer state float32 {master}")
+    if max(rel.values()) > BF16_FAULT_RTOL or not np.isfinite(float(k["loss"])) or not master:
+        fail("[15] the bf16 kernel and plain steps part by a fault's size, or the master state left float32")
+
+    median_step_ms(step16, mk, ok, [batches[0]] * 2)
+    median_step_ms(step32, m32, o32, [batches[0]] * 2)
+    times = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        model, opt, step = (m32, o32, step32) if name == "f32" else (mk, ok, step16)
+        times[name].append(median_step_ms(step, model, opt, [batches[0]] * 10))
+    log(f"[15] train step at B = {TRAIN_B} on one pre-made batch, medians of 10, alternated f32, bf16, bf16, f32: "
+        f"f32 {', '.join(f'{t:.1f}' for t in times['f32'])} ms, bf16 {', '.join(f'{t:.1f}' for t in times['bf16'])} ms; "
+        f"card {card}")
+    del mk, ok, mp, op, m32, o32
+    torch.cuda.empty_cache()
+
+    with ThreadPoolExecutor(3) as pool:
+        futures = {name: pool.submit(run_cli, "train_tracking", args + ["--pretrained_model", ASSET] * (name in OPTIMIZER_RUNS)
+                                     + ["--epochs", 1, "--workers", 4, "--extra_tag", f"chip_smoke_15_{name}", "--set",
+                                        *sets]) for name, (args, sets) in phase15_cli_jobs().items()}
+        results = {name: fut.result() for name, fut in futures.items()}
+    for name, (rec, wall, text) in results.items():
+        losses = [float(line.split("  loss ", 1)[1].split()[0]) for line in text.splitlines() if "  loss " in line]
+        precision = "bf16" if "mixed_precision=bf16" in text else "f32"
+        n = rec["steps"][1] - rec["steps"][0]
+        log(f"[15] train CLI {name}: {n} steps at B = {TRAIN_B}, {precision}, epoch loss {losses}, "
+            f"{1e3 * rec['train_seconds'] / max(n, 1):.1f} ms a step (3 runs side by side), launches {rec['launches']}, "
+            f"CLI wall {wall:.1f} s")
+        if n < 1 or not losses or not all(np.isfinite(losses)):
+            fail(f"[15] the train CLI with {name} did not train finite steps")
+        if precision != ("f32" if name in OPTIMIZER_RUNS else "bf16"):
+            fail(f"[15] the train CLI with {name} trained in {precision}")
+        if name in OPTIMIZER_RUNS and f"optimizer={name} " not in text:
+            fail(f"[15] the train CLI run for {name} did not log optimizer={name}")
+    for tag in ("p2b_synth_strong", "ptt_synth"):
+        shutil.rmtree(os.path.join(REPO, "output", "synthetic_models", tag), ignore_errors=True)
+
+
+def nuscenes_phase(agreement, phase10, card):
+    """Phase 16: the agreement tracklets as a nuScenes release, scored by the
+    test CLI on nuscenes_models/ptt.yaml with the trained asset; within 1.0 of
+    phase 10's device numbers."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
+    try:
+        write_nuscenes_tree(tmp, agreement)
+        rec, wall, _ = run_cli("test_tracking", ["--cfg_file", "tools/cfgs/nuscenes_models/ptt.yaml", "--ckpt", ASSET,
+                                                 "--max_points", 1024, "--extra_tag", "chip_smoke_16", "--set",
+                                                 "DATA_CONFIG.DATA_PATH", tmp])
+        ref_s, ref_p = phase10["device"]
+        steps = 31
+        log(f"[16] test CLI nuscenes_models/ptt.yaml on the agreement tracklets as a nuScenes release (8 val "
+            f"scenes, class trailer): Success {rec['success']:.2f} Precision {rec['precision']:.2f}, phase 10 "
+            f"{ref_s:.2f}/{ref_p:.2f} (delta {rec['success'] - ref_s:+.2f}/{rec['precision'] - ref_p:+.2f}); "
+            f"dataset {rec['dataset_seconds']:.1f} s; launches {rec['launches']}; CLI wall {wall:.1f} s; card {card}")
+        if not (abs(rec["success"] - ref_s) <= 1.0 and abs(rec["precision"] - ref_p) <= 1.0):
+            fail("[16] the nuScenes test CLI is not within 1.0 of phase 10's")
+        if rec["launches"]["fps"] != 2 * steps or rec["launches"]["sa"] != 7 * steps:
+            fail(f"[16] launches {rec['launches']}, not 2 and 7 per step over {steps} steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(os.path.join(REPO, "output", "nuscenes_models"), ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a GPU")
         return 1
     sys.path.insert(0, REPO)
-    from ptt_tpu_torch.config import p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
+    from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
     from ptt_tpu_torch.data.synthetic import make_tracklets
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
@@ -1614,10 +1895,21 @@ def main() -> int:
     # 10. every tracking mode and the host evaluator on the trained weights
     phase10 = modes_phase(cfg, model, meta, agreement, device)
 
-    # 11 and 12: the CLIs on KITTI-format trees
-    kitti_test_phase(agreement, phase10, model, device, card)
-    kitti_train_phase(model, batch, device, card)
-    del model
+    # 11 and 12: the CLIs on KITTI-format trees; 13 to 16: ptt_waymo, bf16 and the optimizers, nuScenes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    try:
+        kitti_test_phase(agreement, phase10, model, device, card, tmp)
+        kitti_train_phase(model, batch, device, card)
+        del model
+        torch.cuda.empty_cache()
+        waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
+                                                  device, card, clock, 2, agreement, bench)
+        waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    waymo_group_rows = waymo_train_phase(device, card)
+    bf16_phase(device, card)
+    nuscenes_phase(agreement, phase10, card)
 
     record = {"kernels": []}
     for name, src, replaces in (("fps", "ptt_tpu_torch/csrc/fps.cu", "ptt_tpu/ops/pallas_fps.py:37"),
@@ -1634,10 +1926,12 @@ def main() -> int:
         record["kernels"][-1]["launches_by_path"] = {
             "ptt.yaml tracker (agreement batch)": launches[name],
             "ptt_large.yaml tracker (benchmark batch)": large_launches[name],
-            "p2b_synth.yaml tracker (benchmark batch)": p2b_launches[name]}
+            "p2b_synth.yaml tracker (benchmark batch)": p2b_launches[name],
+            "ptt_waymo.yaml tracker (benchmark batch)": waymo_launches[name]}
         record["kernels"][-1]["shapes"] = [
             {"config": config, **{k: r[k] for k in ("shape", "err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
-            for config, rs_ in (("ptt.yaml", rs), ("ptt_large.yaml", large_rows[name]), ("p2b_synth.yaml", p2b_rows[name]))
+            for config, rs_ in (("ptt.yaml", rs), ("ptt_large.yaml", large_rows[name]), ("p2b_synth.yaml", p2b_rows[name]),
+                                ("ptt_waymo.yaml", waymo_rows[name]))
             for r in rs_]
         if name == "fps":
             record["kernels"][-1].update(bound_term=max(rs, key=lambda r: r["bound_ms"])["bound_term"],
@@ -1653,6 +1947,11 @@ def main() -> int:
             "library_ms": sum(r["lib_ms"] for r in group_rows) if pre == "bwd" else None,
         })
         record["kernels"][-1]["device_ms"] = sum(r[f"{pre}_device_ms"] for r in group_rows)
+        record["kernels"][-1]["shapes"] = [
+            {"config": config, "shape": r["shape"], "err": r[f"{pre}_err"], "ms": r[f"{pre}_ms"],
+             "device_ms": r[f"{pre}_device_ms"], "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound"],
+             "bound_by": r[f"{pre}_by"], **({"library_ms": r["lib_ms"]} if pre == "bwd" else {})}
+            for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

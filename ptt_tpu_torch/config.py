@@ -300,29 +300,37 @@ def p2b_synth_config() -> dict:
     return config_by_path("synthetic_models/p2b_synth.yaml")
 
 
-def check_ported(cfg: dict, training: bool) -> None:
+def check_ported(cfg: dict, training: bool, devices: int = 1, sync_bn: bool = False) -> None:
     """Raises NotImplementedError, naming the ROADMAP.md item, for what the port
-    does not run yet: the CLIs call it before they build a loader."""
+    does not run: what needs more than one GPU (POINT_SHARDING over ``devices``
+    > 1, ``--sync_bn``), and clouds beyond the kernels' largest forms. The CLIs
+    call it before they build a loader; they run on one device, where
+    POINT_SHARDING splits nothing, as in the JAX package."""
     from .ops.fps import MAX_POINTS
+    from .ops.group import BACKWARD_MAX_POINTS
 
     todo = []
-    if cfg["DATA_CONFIG"].get("DATASET") not in ("KittiTrackingDataset", "SyntheticTrackingDataset"):
-        todo.append(f"DATA_CONFIG.DATASET {cfg['DATA_CONFIG'].get('DATASET')} (Queue 1 item 6)")
-    if cfg["MODEL"].get("POINT_SHARDING", {}).get("ENABLED", False):
-        todo.append("MODEL.POINT_SHARDING (Queue 1 item 10)")
-    sample = cfg["MODEL"]["BACKBONE_3D"]["SA_CONFIG"]["SAMPLE_METHOD"][0]
-    if sample in ("fps", "ffps") and int(cfg["DATA_CONFIG"]["SEARCH_INPUT_SIZE"]) > MAX_POINTS:
-        todo.append(f"FPS over {cfg['DATA_CONFIG']['SEARCH_INPUT_SIZE']} points, the FPS kernel takes at most "
-                    f"{MAX_POINTS} (Queue 1 item 8, Queue 2 item 1)")
-    if training:
-        optim = cfg["OPTIMIZATION"]
-        if optim.get("MIXED_PRECISION", False):
-            todo.append("OPTIMIZATION.MIXED_PRECISION (Queue 1 item 4)")
-        if optim.get("OPTIMIZER") != "adam" or optim.get("SCHEDULER") != "step":
-            todo.append(f"OPTIMIZATION.OPTIMIZER {optim.get('OPTIMIZER')} with SCHEDULER {optim.get('SCHEDULER')}, "
-                        "adam with step only (Queue 1 item 4)")
+    if cfg["MODEL"].get("POINT_SHARDING", {}).get("ENABLED", False) and devices > 1:
+        todo.append(f"MODEL.POINT_SHARDING over {devices} devices (Queue 1 item 10)")
+    if sync_bn:
+        todo.append("--sync_bn: multi-GPU training (Queue 1 item 9)")
+    n = int(cfg["DATA_CONFIG"]["SEARCH_INPUT_SIZE"])
+    if cfg["MODEL"]["BACKBONE_3D"]["SA_CONFIG"]["SAMPLE_METHOD"][0] in ("fps", "ffps") and n > MAX_POINTS:
+        todo.append(f"FPS over {n} points, the FPS kernel takes at most {MAX_POINTS}")
+    if training and n > BACKWARD_MAX_POINTS:
+        todo.append(f"training on {n}-point clouds, the group backward takes at most {BACKWARD_MAX_POINTS}")
     if todo:
-        raise NotImplementedError("not ported yet (ROADMAP.md): " + "; ".join(todo))
+        raise NotImplementedError("not ported (ROADMAP.md): " + "; ".join(todo))
+
+
+def point_sharding_note(cfg: dict):
+    """The log line of a configuration with POINT_SHARDING run on one device,
+    or None."""
+    ps = cfg["MODEL"].get("POINT_SHARDING", {})
+    if ps.get("ENABLED", False):
+        return (f"POINT_SHARDING: one device, so the point axis '{ps.get('AXIS', 'point')}' is not split "
+                "(the JAX package installs a point mesh only over several local devices)")
+    return None
 
 
 def log_config_to_file(config: dict, pre: str = "cfg", logger=None) -> None:

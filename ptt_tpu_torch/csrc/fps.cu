@@ -9,8 +9,8 @@
 // and a round is a chain: read the chosen point, update the distances, find the
 // argmax over the row. The design shortens that chain:
 //
-//  * A thread keeps its 4 points and their running minima in registers for the
-//    whole kernel (point i = p * threads + thread: slot p of a thread is
+//  * A thread keeps its 4 (or 16) points and their running minima in registers
+//    for the whole kernel (point i = p * threads + thread: slot p of a thread is
 //    ascending in i). Shared memory holds the coordinates only for the one
 //    broadcast read of the chosen point a round (16 B a point, one load).
 //  * A warp's argmax is two instructions. Every running minimum is a float in
@@ -25,10 +25,13 @@
 //    no second barrier publishes a choice. Two buffers suffice: a warp reaches
 //    round k + 2's write only after every warp has left round k + 1's barrier
 //    and so has read round k's slots. With one warp a row there is no barrier.
-//  * Forms, chosen by N, all of 4 points a thread: 1 warp a row up to 128
-//    points, 8 warps up to 1024, 16 up to 2048; larger clouds are refused. Slots
-//    past N hold a running minimum of 0 and an index above every real one, so
-//    they never win.
+//  * Forms, chosen by N (FPS_FORMS below): 1 warp a row of 4 points a thread
+//    up to 128 points, 8 warps up to 1024, 16 up to 2048, and 16 warps of 16
+//    points a thread up to 8192 (ptt_waymo.yaml's search cloud, and its
+//    2048-point template padded to it in the pair call); larger clouds are
+//    refused. A form's cloud copy lies in dynamic shared
+//    memory (128 KB at 8192 points). Slots past N hold a running minimum of 0
+//    and an index above every real one, so they never win.
 //
 // Tried and dropped, times of (16, 1024, 3) -> 512 on an H100 (PERF.md): the
 // first design (the cloud and the minima in shared memory, 16 warps, a
@@ -45,6 +48,11 @@
 // taken: a row split over a thread-block cluster; an exchange through another
 // SM's shared memory costs more than the block barrier it would replace, and
 // the chain, not the SM's rate, is what bounds the kernel.
+// At 8192 points, (16, 8192, 3) -> 2048 (ptt_waymo.yaml's pair call) on an
+// H100 (PERF.md, python3 -m ptt_tpu_torch.variants): 16 warps of 16 points a
+// thread 1.472 ms, 32 warps of 8 points 1.525 (its 32-warp barrier costs more
+// than the longer distance chain of 16 points); a cluster form is not tried
+// (the note above; every row is a block of its own, 16 of 132 SMs).
 //
 // Bit-exactness: the distance is ((dx*dx + dy*dy) + dz*dz) with every product
 // and sum rounded on its own (__fmul_rn/__fadd_rn stop nvcc contracting them
@@ -63,7 +71,9 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoIndex = 0xffffffffu;
-constexpr int kPts = 4;  // points a thread keeps in registers
+
+// (largest N, warps a row, points a thread) of each form, in order of N
+#define FPS_FORMS(X) X(128, 1, 4) X(1024, 8, 4) X(2048, 16, 4) X(8192, 16, 16)
 
 // the warp's largest `bits` and the lowest `index` among the lanes that hold it
 __device__ __forceinline__ void warp_argmax(unsigned& bits, unsigned& index) {
@@ -72,11 +82,11 @@ __device__ __forceinline__ void warp_argmax(unsigned& bits, unsigned& index) {
   bits = top;
 }
 
-template <int kWarps>
+template <int kWarps, int kPts>
 __global__ void __launch_bounds__(kWarps * 32)
 fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
   constexpr int kThreads = kWarps * 32;
-  __shared__ float4 pts[kThreads * kPts];  // (x, y, z, -): read once a round, the chosen point
+  extern __shared__ float4 pts[];          // kThreads * kPts (x, y, z, -): read once a round, the chosen point
   __shared__ uint2 slot[2][kWarps];        // a warp's (bits, index), buffer by the round's parity
 
   const float* src = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
@@ -224,12 +234,16 @@ __global__ void __launch_bounds__(512) fps_probe_kernel(long long* __restrict__ 
   }
 }
 
-// warps a row of the form that takes a cloud of n points; 0 past the largest
-int warps_of(int n) {
-  if (n <= 1 * 32 * kPts) return 1;
-  if (n <= 8 * 32 * kPts) return 8;
-  if (n <= 16 * 32 * kPts) return 16;
-  return 0;
+template <int kWarps, int kPts>
+cudaError_t launch(const float* xyz, int* out, int batch, int n, int npoint, cudaStream_t st) {
+  constexpr size_t smem = sizeof(float4) * kWarps * 32 * kPts;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(fps_kernel<kWarps, kPts>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  fps_kernel<kWarps, kPts><<<batch, kWarps * 32, smem, st>>>(xyz, out, n, npoint);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -237,9 +251,17 @@ int warps_of(int n) {
 // The form fps_forward runs a cloud of n points in: *warps a row and *pts points
 // a thread. Returns 0, or -1 when n is beyond the largest form.
 extern "C" int fps_form(int n, int* warps, int* pts) {
-  *warps = warps_of(n);
-  *pts = kPts;
-  return *warps > 0 ? 0 : -1;
+#define FPS_FORM(limit, w, p) \
+  if (n <= (limit)) {         \
+    *warps = (w);             \
+    *pts = (p);               \
+    return 0;                 \
+  }
+  FPS_FORMS(FPS_FORM)
+#undef FPS_FORM
+  *warps = 0;
+  *pts = 0;
+  return -1;
 }
 
 // Times the primitives of a round in one block of `threads` threads (a multiple
@@ -252,16 +274,14 @@ extern "C" int fps_probe(long long* out, int iters, int threads, void* stream) {
 }
 
 // xyz (B, N, 3) float32 and out (B, npoint) int32, both contiguous on the
-// device, N at most 2048; launches on `stream`. Returns the cudaError_t of the
+// device, N at most 8192; launches on `stream`. Returns the cudaError_t of the
 // launch (0 = ok).
 extern "C" int fps_forward(const float* xyz, int* out, int batch, int n, int npoint, void* stream) {
   if (batch < 1 || n < 1 || npoint < 1 || npoint > n) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (warps_of(n)) {
-    case 1: fps_kernel<1><<<batch, 32, 0, st>>>(xyz, out, n, npoint); break;
-    case 8: fps_kernel<8><<<batch, 256, 0, st>>>(xyz, out, n, npoint); break;
-    case 16: fps_kernel<16><<<batch, 512, 0, st>>>(xyz, out, n, npoint); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+#define FPS_LAUNCH(limit, w, p) \
+  if (n <= (limit)) return launch<w, p>(xyz, out, batch, n, npoint, st);
+  FPS_FORMS(FPS_LAUNCH)
+#undef FPS_LAUNCH
+  return cudaErrorInvalidValue;
 }

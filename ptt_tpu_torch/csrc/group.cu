@@ -41,6 +41,11 @@
 // in shared memory and written by the bulk-copy engine (cp.async.bulk from a
 // ring of three tiles, one thread issuing), 0.49-0.55 ms: its ring costs the
 // blocks an SM that hide the ball query, and a block barrier a slot.
+// Not designed for: ptt_waymo.yaml's 8192-point stage 0, where a block's cloud
+// takes 98 KB (2 blocks an SM) and a warp scans far into it before its ball
+// fills. There the forward takes 1.38 ms against a 0.28 ms bytes bound on an
+// H100, and 0.64 ms on a heavy-duplication cloud whose balls fill at once
+// (PERF.md): the scan, then the cloud's load per tile of 8 centers.
 //
 // The forward also stores the neighbour table idx (B, M, ns) int32 for the
 // backward, 16 bytes a store (ns is a multiple of 4). The TPU kernel recomputes
@@ -70,15 +75,19 @@
 //      each range is added in order from zero, and the ranges' sums are added
 //      in order.
 // Two kernels build and use that order, a third handles the rare long segments:
-//   group_csr_kernel, one block of 16 warps per batch row. Each warp owns a
-//     contiguous range of the row's M * ns entries: it counts its references to
-//     every point (shared-memory integer atomics on its own counters,
-//     order-free), the block turns the counts into per-(range, point) offsets
-//     and scans the per-point totals, and then every warp fills its range into
-//     the CSR table at its own offsets in ascending e (__match_any_sync ranks
-//     the lanes that share a point). Ranges are contiguous and ascending, so
-//     each segment comes out sorted by e without a sort, whichever warp ran
-//     first. The table holds dD row numbers s * M + m, so the summing loop has
+//   group_csr_kernel, one block of 16 warps per batch row. The row's M * ns
+//     entries are cut into R contiguous ranges, each with its own counters in
+//     shared memory: R = 16 while R counters a point fit (N up to 3227), fewer
+//     for larger clouds (8 up to 5809, 4 up to 9682, so ptt_waymo.yaml's 8192
+//     points take 4; 2 up to 14523, 1 up to 19364, where the refusal is). The
+//     block counts the references of each range to every point (shared-memory
+//     integer atomics, order-free), turns the counts into per-(range, point)
+//     offsets and scans the per-point totals, and then warp r < R fills range
+//     r into the CSR table at its own offsets in ascending e (__match_any_sync
+//     ranks the lanes that share a point). Ranges are contiguous and
+//     ascending, so each segment comes out sorted by e without a sort,
+//     whichever warp ran first, and for any R: R changes how the table is
+//     built, not the table or the order of the sums. The table holds dD row numbers s * M + m, so the summing loop has
 //     no division. Chunk descriptors are written one thread per chunk (a
 //     binary search of the chunk scan), so a point with hundreds of chunks
 //     costs no more than hundreds of points.
@@ -105,7 +114,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCsrThreads = 512;
-constexpr int kRanges = kCsrThreads / 32;  // ranges of a batch row's entries, one per warp of the CSR build
+constexpr int kCsrWarps = kCsrThreads / 32;  // the most ranges of a batch row's entries: a filling warp each
 constexpr int kChunk = 32;                 // rows per chunk of a segment in the backward
 constexpr int kInFlight = 8;               // loads a lane issues before it adds them
 constexpr int kCombineBlocks = 8;          // blocks per batch row that walk the multi-chunk points
@@ -216,32 +225,32 @@ __device__ __forceinline__ int2 pack_chunk(int k0, int j, int len, bool single) 
 __global__ void __launch_bounds__(kCsrThreads)
 group_csr_kernel(const int* __restrict__ idx, int* __restrict__ rows, int* __restrict__ chunk_start,
                  int2* __restrict__ chunks, int* __restrict__ multi, int n, int m_total, int ns,
-                 int max_chunks) {
+                 int max_chunks, int ranges) {
   extern __shared__ int sm[];
-  int* cnt = sm;                     // kRanges x n: references of range r to point j, then offsets
-  int* start = cnt + kRanges * n;    // n + 1: per-point totals, then their exclusive scan
-  int* cstart = start + n + 1;       // n + 1: chunks per point, then their exclusive scan
-  int* warp_tot = cstart + n + 1;    // kRanges
-  int* n_multi = warp_tot + kRanges;  // 1
+  int* cnt = sm;                      // ranges x n: references of range r to point j, then offsets
+  int* start = cnt + ranges * n;      // n + 1: per-point totals, then their exclusive scan
+  int* cstart = start + n + 1;        // n + 1: chunks per point, then their exclusive scan
+  int* warp_tot = cstart + n + 1;     // kCsrWarps
+  int* n_multi = warp_tot + kCsrWarps;  // 1
   const int b = blockIdx.x;
   const int entries = m_total * ns;
   const int* ib = idx + static_cast<size_t>(b) * entries;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int range = (((entries + kRanges - 1) / kRanges) + 31) & ~31;
+  const int range = (((entries + ranges - 1) / ranges) + 31) & ~31;
   const int e_begin = min(entries, warp * range);
-  const int e_end = min(entries, e_begin + range);
-  int* mine = cnt + warp * n;
+  const int e_end = warp < ranges ? min(entries, e_begin + range) : e_begin;  // warps past R fill nothing
+  int* mine = cnt + min(warp, ranges - 1) * n;
 
-  for (int e = threadIdx.x; e < kRanges * n; e += kCsrThreads) cnt[e] = 0;
+  for (int e = threadIdx.x; e < ranges * n; e += kCsrThreads) cnt[e] = 0;
   if (threadIdx.x == 0) *n_multi = 0;
   __syncthreads();
-  for (int e = e_begin + lane; e < e_end; e += 32) atomicAdd(mine + ib[e], 1);
+  for (int e = threadIdx.x; e < entries; e += kCsrThreads) atomicAdd(cnt + (e / range) * n + ib[e], 1);
   __syncthreads();
   // per point: offsets of the ranges within its segment, the total, the chunks
   for (int j = threadIdx.x; j < n; j += kCsrThreads) {
     int run = 0;
-    for (int r = 0; r < kRanges; ++r) {
+    for (int r = 0; r < ranges; ++r) {
       const int x = cnt[r * n + j];
       cnt[r * n + j] = run;
       run += x;
@@ -398,11 +407,19 @@ group_combine_kernel(const float* __restrict__ partial, const int* __restrict__ 
   }
 }
 
-// The backward's scratch layout, known here only: the CSR build's shared memory,
-// the tables' sizes and the number of chunks a batch row can have (every point ends a chunk, and
-// a point without rows has an empty one).
-size_t csr_smem_bytes(int n) {
-  return (static_cast<size_t>(kRanges) * n + 2 * (static_cast<size_t>(n) + 1) + kRanges + 1) * sizeof(int);
+// The backward's scratch layout, known here only: the CSR build's shared memory
+// for R ranges, the ranges it takes for a cloud of n points (the most, up to
+// kCsrWarps, whose counters fit a block; 0 when not even one range fits), the
+// tables' sizes and the number of chunks a batch row can have (every point
+// ends a chunk, and a point without rows has an empty one).
+size_t csr_smem_bytes(int n, int ranges) {
+  return (static_cast<size_t>(ranges) * n + 2 * (static_cast<size_t>(n) + 1) + kCsrWarps + 1) * sizeof(int);
+}
+
+int csr_ranges(int n) {
+  int ranges = kCsrWarps;
+  while (ranges > 0 && csr_smem_bytes(n, ranges) > kMaxSmem) ranges >>= 1;
+  return ranges;
 }
 
 int backward_max_chunks(int n, int m_total, int ns) { return (m_total * ns + kChunk - 1) / kChunk + n; }
@@ -473,15 +490,17 @@ extern "C" int group_forward(const float* xyz, const float* ctr, const float* z,
 // Sizes of group_backward's scratch for `batch` rows of N source points and
 // M * ns entries: *scratch_ints int32 of tables and *max_chunks rows of H floats
 // of partial sums per batch row. Returns 0, or -1 if the CSR build's shared
-// memory exceeds what the current device gives one block or a chunk descriptor
-// cannot hold N (-2 if the device cannot be queried).
+// memory for one range exceeds what the current device gives one block (N
+// above 19364 on an H100) or a chunk descriptor cannot hold N (-2 if the
+// device cannot be queried).
 extern "C" int group_backward_scratch(int batch, int n, int m_total, int ns, long long* scratch_ints,
                                       int* max_chunks) {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return -2;
-  if (csr_smem_bytes(n) > static_cast<size_t>(limit) || n >= (1 << 23)) return -1;
+  const int ranges = csr_ranges(n);
+  if (ranges == 0 || csr_smem_bytes(n, ranges) > static_cast<size_t>(limit) || n >= (1 << 23)) return -1;
   *max_chunks = backward_max_chunks(n, m_total, ns);
   *scratch_ints = scratch_ints_total(batch, n, m_total, ns);
   return 0;
@@ -494,6 +513,13 @@ extern "C" int group_backward_order(int h, int* chunk, int* ranges, int* sub) {
   *chunk = kChunk;
   *ranges = kWarps;
   *sub = rows_per_load(h / 4);
+  return 0;
+}
+
+// The ranges of a batch row's entries the CSR build takes for a cloud of n
+// points (0 when it refuses n). Returns 0.
+extern "C" int group_csr_ranges(int n, int* ranges) {
+  *ranges = csr_ranges(n);
   return 0;
 }
 
@@ -519,11 +545,13 @@ extern "C" int group_backward(const float* dd, const int* idx, int* scratch, flo
   int* rows = scratch + 2 * b * max_chunks;
   int* chunk_start = rows + b * m_total * ns;
   int* multi = chunk_start + b * (n + 1);
-  const size_t smem = csr_smem_bytes(n);
+  const int ranges = csr_ranges(n);
+  if (ranges == 0) return cudaErrorInvalidValue;
+  const size_t smem = csr_smem_bytes(n, ranges);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(group_csr_kernel), smem);
   if (err != cudaSuccess) return err;
   group_csr_kernel<<<batch, kCsrThreads, smem, st>>>(idx, rows, chunk_start, kb, multi, n, m_total, ns,
-                                                     max_chunks);
+                                                     max_chunks, ranges);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sums(dd, rows, chunk_start, kb, multi, partial, dz, batch, n, m_total * ns, h, max_chunks, st);
 }

@@ -1,17 +1,11 @@
-"""Tracklet datasets (KITTI, synthetic), host-side item construction (crop,
-resample, augment in numpy) and the prefetching loader."""
+"""Tracklet datasets (KITTI, nuScenes, synthetic), host-side item construction
+(crop, resample, augment in numpy) and the prefetching loader."""
 
 from .dataset import TrackingDataset
 from .kitti import KittiTrackingDataset
 from .loader import DataLoader, build_dataloader
+from .nuscenes import NuscenesTrackingDataset
 from .synthetic import SyntheticTrackingDataset
-
-
-class NuscenesTrackingDataset:
-    """Not ported yet (ROADMAP.md Queue 1 item 6)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("NuscenesTrackingDataset is not ported yet (ROADMAP.md Queue 1 item 6)")
 
 
 ALL_DATASETS = {

@@ -77,6 +77,29 @@ def box_from_arrays(d: dict) -> Box:
     return Box(d["center"], d["wlh"], Quaternion(d["orientation"]))
 
 
+def read_database(path) -> list:
+    """The tracklets of a database file written by ``write_database``."""
+    with open(path, "rb") as f:
+        db = pickle.load(f)
+    if not isinstance(db, dict) or db.get("format") != DATABASE_FORMAT:
+        raise ValueError(f"{path} is not a {DATABASE_FORMAT!r} file")
+    return [[{"pc": fr["pc"], "box": box_from_arrays(fr), "anno": fr["anno"]} for fr in trk] for trk in db["tracklets"]]
+
+
+def write_database(path, tracklets) -> None:
+    """``tracklets`` as numpy arrays and dicts at ``path``, written whole or not
+    at all; a cloud shared by several frames is stored once."""
+    db = {"format": DATABASE_FORMAT,
+          "tracklets": [[dict(pc=fr["pc"], anno=fr["anno"], **box_to_arrays(fr["box"])) for fr in trk]
+                        for trk in tracklets]}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(db, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
 class KittiTrackingDataset(TrackingDataset):
     def __init__(self, dataset_cfg: dict, class_names, training: bool = True, root_path=None, logger=None,
                  seed: int = 0):
@@ -169,20 +192,8 @@ class KittiTrackingDataset(TrackingDataset):
         path = self.database_path()
         if path.exists():
             self.logger(f"loading tracklet database from {path}")
-            with open(path, "rb") as f:
-                db = pickle.load(f)
-            if not isinstance(db, dict) or db.get("format") != DATABASE_FORMAT:
-                raise ValueError(f"{path} is not a {DATABASE_FORMAT!r} file")
-            self.tracklets = [[{"pc": fr["pc"], "box": box_from_arrays(fr), "anno": fr["anno"]} for fr in trk]
-                              for trk in db["tracklets"]]
+            self.tracklets = read_database(path)
             return
         self.logger(f"generating tracklet database at {path}")
         self.tracklets = [[self._frame_from_anno(a) for a in trk] for trk in self.per_sequence_anno]
-        db = {"format": DATABASE_FORMAT,
-              "tracklets": [[dict(pc=fr["pc"], anno=fr["anno"], **box_to_arrays(fr["box"])) for fr in trk]
-                            for trk in self.tracklets]}
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        with open(tmp, "wb") as f:
-            pickle.dump(db, f, protocol=pickle.HIGHEST_PROTOCOL)
-        os.replace(tmp, path)
+        write_database(path, self.tracklets)

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..ops import fps, point_ops
+from .layers import Linear
 from .sa_module import PointnetSAModule
 
 
@@ -36,7 +37,7 @@ class PointNet2BackboneLight(nn.Module):
             )
         self.sa_stages = nn.ModuleList(stages)
         c_last = sa_cfg["MLPS"][-1][-1]
-        self.cov_final = nn.Linear(c_last, 256)
+        self.cov_final = Linear(c_last, 256)
         self.use_kernels = True
 
     def _branch(self, points, npoints, inds0=None):
@@ -62,8 +63,8 @@ class PointNet2BackboneLight(nn.Module):
         if sa_cfg["SAMPLE_METHOD"][0] == "fps":
             sample = fps.furthest_point_sample if self.use_kernels else point_ops.furthest_point_sample
             inds0_s, inds0_t = fps.furthest_point_sample_pair(
-                batch["search_points"][..., 0:3].contiguous(), int(sa_cfg["NPOINTS_SEARCH"][0]),
-                batch["template_points"][..., 0:3].contiguous(), int(sa_cfg["NPOINTS_TEMPLATE"][0]),
+                batch["search_points"][..., 0:3].float().contiguous(), int(sa_cfg["NPOINTS_SEARCH"][0]),
+                batch["template_points"][..., 0:3].float().contiguous(), int(sa_cfg["NPOINTS_TEMPLATE"][0]),
                 sample=sample,
             )
         out["search_seeds"], out["search_feats"], out["search_inds"] = self._branch(

@@ -14,8 +14,15 @@ features 1e-4 from a float64 run, which the tests could not tell from a fault.)
 
 Linear layers inside BatchNorm stacks get kaiming-normal weights (fan_in, ReLU
 gain) and no bias when BatchNorm follows, as in the JAX package; the bare
-linear layers of the transformer are ``torch.nn.Linear`` with its default init,
+linear layers of the transformer keep ``torch.nn.Linear``'s default init,
 which is the init the JAX package copies.
+
+Mixed precision (``train/train_step.py``) runs the model on bfloat16 copies of
+the parameters, and every layer here follows flax's promotion rather than
+autocast: a linear layer computes in the promoted type of its input and
+weights (``Linear``, ``matmul``: bf16 weights under a float32 input compute in
+float32), BatchNorm takes its statistics in float32 and returns the promoted
+type of its input and parameters, and the running statistics stay float32.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sa import fold_bn
@@ -30,8 +38,33 @@ from ..ops.sa import fold_bn
 BN_EPS = 1e-5
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose input, weight and bias meet in their promoted type,
+    as in flax's Dense (a float32 input under bf16 weights computes in float32)."""
+
+    def forward(self, x):
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with its statistics in float32 and its output in the
+    promoted type of its input and parameters, as flax's LayerNorm."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def matmul(a, b):
+    """``a @ b`` in the promoted type of the two, as jnp's ``@``."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dtype), b.to(dtype))
+
+
 def _bn_linear(c_in: int, c_out: int, bias: bool) -> nn.Linear:
-    lin = nn.Linear(c_in, c_out, bias=bias)
+    lin = Linear(c_in, c_out, bias=bias)
     nn.init.kaiming_normal_(lin.weight, nonlinearity="relu")
     return lin
 
@@ -43,17 +76,18 @@ def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     flat = x.reshape(-1, x.shape[-1])
     if not bn.training:
         return bn(flat).reshape(x.shape)
-    var, mean = torch.var_mean(flat, dim=0, unbiased=False)
+    var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
     with torch.no_grad():
         keep = 1.0 - bn.momentum  # flax momentum: the weight of the old statistics
         bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
         bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
-    return torch.addcmul(bn.bias, x - mean, torch.rsqrt(var + bn.eps) * bn.weight)
+    y = torch.addcmul(bn.bias, x - mean, torch.rsqrt(var + bn.eps) * bn.weight)
+    return y.to(torch.promote_types(x.dtype, bn.weight.dtype))
 
 
 def mlp2(c_in: int, hidden: int, c_out: int) -> nn.Sequential:
     """Linear -> ReLU -> Linear (the JAX package's MLP2)."""
-    return nn.Sequential(nn.Linear(c_in, hidden), nn.ReLU(), nn.Linear(hidden, c_out))
+    return nn.Sequential(Linear(c_in, hidden), nn.ReLU(), Linear(hidden, c_out))
 
 
 class SharedMLP(nn.Module):

@@ -31,9 +31,9 @@ def sample_indices(method: str, xyz: torch.Tensor, npoint: int, use_kernels: boo
     features] space, plain PyTorch as in the JAX package, which has no kernel
     for it), or 'sequence'/'rs' (the first ``npoint`` points, as in the
     reference). -> (B, npoint) int32."""
-    if method == "fps":
+    if method == "fps":  # on float32 coordinates, bf16-rounded ones under mixed precision
         fn = fps.furthest_point_sample if use_kernels else point_ops.furthest_point_sample
-        return fn(xyz.detach(), npoint)
+        return fn(xyz.detach().float().contiguous(), npoint)
     if method == "ffps":
         fused = xyz if features is None else torch.cat([xyz, features], dim=-1)
         fused = fused.detach()

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ConvStack, SharedMLP
+from .layers import ConvStack, SharedMLP, matmul
 
 
 class CosineSimAug(nn.Module):
@@ -28,14 +28,14 @@ class CosineSimAug(nn.Module):
 
         t_norm = template_feats / template_feats.norm(dim=-1, keepdim=True).clamp_min(1e-8)
         s_norm = search_feats / search_feats.norm(dim=-1, keepdim=True).clamp_min(1e-8)
-        sim = torch.bmm(t_norm, s_norm.transpose(1, 2))  # (B, n1, n2)
+        sim = torch.bmm(t_norm.float(), s_norm.float().transpose(1, 2))  # (B, n1, n2), float32 as in the JAX module
 
         # Layer 0 is linear over [sim | xyz_i | feats_i] and only the sim term
         # varies with j: project (xyz_i | feats_i) once per template seed and add
         # the sim row as an outer product, instead of building the (B, n1, n2,
         # 1+3+C) concat (the same function, with ~1/260 of layer 0's work)
         def first_linear(kernel):  # (1+3+C, C1)
-            proj_t = torch.matmul(torch.cat([template_xyz, template_feats], dim=-1), kernel[1:])
+            proj_t = matmul(torch.cat([template_xyz, template_feats], dim=-1), kernel[1:])
             return sim[..., None] * kernel[0] + proj_t[:, :, None, :]
 
         fused = self.mlp(None, first_linear_apply=first_linear)

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.point_ops import group_points, knn
-from .layers import mlp2
+from .layers import LayerNorm, Linear, matmul, mlp2
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -33,8 +33,9 @@ def _neighbourhood(xyz, k):
 
 def _attend(logits, values, scale: int):
     """Softmax of ``logits / sqrt(scale)`` over the neighbour axis (-2) and the
-    weighted sum of ``values`` over it: (attn, (..., F))."""
-    attn = torch.softmax(logits / math.sqrt(scale), dim=-2)
+    weighted sum of ``values`` over it: (attn, (..., F)). The JAX blocks divide
+    by a numpy float, which promotes bf16 logits to float32: so do these."""
+    attn = torch.softmax(logits.float() / math.sqrt(scale), dim=-2)
     return attn, (attn * values).sum(dim=-2)
 
 
@@ -46,10 +47,10 @@ class _QKV(nn.Module):
         super().__init__()
         self.k = k
         self.d_model = d_model
-        self.fc1 = fc1 if fc1 is not None else nn.Linear(d_points, d_model)
-        self.w_qs = nn.Linear(d_model, d_model, bias=False)
-        self.w_ks = nn.Linear(d_model, d_model, bias=False)
-        self.w_vs = nn.Linear(d_model, d_model, bias=False)
+        self.fc1 = fc1 if fc1 is not None else Linear(d_points, d_model)
+        self.w_qs = Linear(d_model, d_model, bias=False)
+        self.w_ks = Linear(d_model, d_model, bias=False)
+        self.w_vs = Linear(d_model, d_model, bias=False)
         self.fc_delta = mlp2(3, d_model, d_model)
 
     def qkv(self, xyz, features):
@@ -67,7 +68,7 @@ class TransformerBlock(_QKV):
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
-        self.fc2 = nn.Linear(d_model, d_points)
+        self.fc2 = Linear(d_model, d_points)
 
     def forward(self, xyz, features):
         """(B, N, 3), (B, N, d_points) -> (features (B, N, d_points), attn (B, N, k, d_model))."""
@@ -96,7 +97,7 @@ class TransformerBlockOffset(_QKV):
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
-        self.fc2 = nn.Linear(d_model, d_points)
+        self.fc2 = Linear(d_model, d_points)
 
     def forward(self, xyz, features):
         x, q, k, v, pos_enc = self.qkv(xyz, features)
@@ -110,9 +111,9 @@ class TransformerBlockCosine(_QKV):
 
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__(d_points, d_model, k)
-        self.fc_sim = nn.Linear(d_model + 1, d_model)
+        self.fc_sim = Linear(d_model + 1, d_model)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
-        self.fc2 = nn.Linear(d_model, d_points)
+        self.fc2 = Linear(d_model, d_points)
 
     def forward(self, xyz, features):
         _, q, k, v, pos_enc = self.qkv(xyz, features)
@@ -151,7 +152,7 @@ class CrossAttentionBlock(_QKV):
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
-        self.fc3 = nn.Linear(d_model, d_points)
+        self.fc3 = Linear(d_model, d_points)
 
     def forward(self, xyz, search_feat, template_feat):
         idx, knn_xyz = _neighbourhood(xyz, self.k)
@@ -171,12 +172,12 @@ class _Global(nn.Module):
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__()
         self.d_model = d_model
-        self.fc1 = nn.Linear(d_points, d_model)
-        self.w_qs = nn.Linear(d_model, d_model, bias=False)
-        self.w_ks = nn.Linear(d_model, d_model, bias=False)
-        self.w_vs = nn.Linear(d_model, d_model, bias=False)
+        self.fc1 = Linear(d_points, d_model)
+        self.w_qs = Linear(d_model, d_model, bias=False)
+        self.w_ks = Linear(d_model, d_model, bias=False)
+        self.w_vs = Linear(d_model, d_model, bias=False)
         self.fc_delta = mlp2(3, d_model, d_model)
-        self.fc2 = nn.Linear(d_model, d_points)
+        self.fc2 = Linear(d_model, d_points)
 
 
 class TransformerBlockSTD(_Global):
@@ -185,8 +186,9 @@ class TransformerBlockSTD(_Global):
     def forward(self, xyz, features):
         x = self.fc1(features)
         q, k, v = self.w_qs(x), self.w_ks(x), self.w_vs(x)
-        attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(self.d_model), dim=-1)
-        res = torch.matmul(attn, v + self.fc_delta(xyz))
+        # the logits in float32 whatever q and k are (the JAX block's preferred type)
+        attn = torch.softmax(torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(self.d_model), dim=-1)
+        res = matmul(attn, v + self.fc_delta(xyz))
         return self.fc2(res) + features, attn
 
 
@@ -201,7 +203,7 @@ class TransformerBlockALL(_Global):
         x = self.fc1(features)
         q, k, v = self.w_qs(x), self.w_ks(x), self.w_vs(x)
         pos_enc = self.fc_delta(xyz)
-        attn = torch.softmax(self.fc_gamma(q - k + pos_enc) / math.sqrt(self.d_model), dim=-2)
+        attn = torch.softmax(self.fc_gamma(q - k + pos_enc).float() / math.sqrt(self.d_model), dim=-2)
         return self.fc2(attn * (v + pos_enc)) + features, attn
 
 
@@ -217,10 +219,10 @@ class MulHeadTransformerLayer(_QKV):
         self.heads = heads
         self.head_dim = d_model // heads
         self.fc_gamma = mlp2(self.head_dim, self.head_dim, self.head_dim)
-        self.proj = nn.Linear(d_model, d_model, bias=False)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.fc2 = nn.Linear(d_model, d_points)
-        self.norm2 = nn.LayerNorm(d_points, eps=LN_EPS)
+        self.proj = Linear(d_model, d_model, bias=False)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
+        self.fc2 = Linear(d_model, d_points)
+        self.norm2 = LayerNorm(d_points, eps=LN_EPS)
 
     def forward(self, xyz, features):
         _, q, k, v, pos_enc = self.qkv(xyz, features)

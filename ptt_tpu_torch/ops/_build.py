@@ -53,6 +53,7 @@ _FUNCTIONS = {
     "group_backward": ("group", [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
     "group_backward_scratch": ("group", [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)]),
     "group_backward_order": ("group", [_i, ctypes.POINTER(_i), ctypes.POINTER(_i), ctypes.POINTER(_i)]),
+    "group_csr_ranges": ("group", [_i, ctypes.POINTER(_i)]),
 }
 
 _loaded: dict = {}

@@ -15,9 +15,9 @@ from . import _build, point_ops
 launches = 0
 
 # The kernel's forms, (largest N, warps a row, points a thread), as csrc/fps.cu
-# states them: a cloud runs in the first form that holds it, a thread keeps its
-# points in registers, and a cloud beyond the last form is refused.
-KERNEL_FORMS = ((128, 1, 4), (1024, 8, 4), (2048, 16, 4))
+# states them (FPS_FORMS): a cloud runs in the first form that holds it, a thread
+# keeps its points in registers, and a cloud beyond the last form is refused.
+KERNEL_FORMS = ((128, 1, 4), (1024, 8, 4), (2048, 16, 4), (8192, 16, 16))
 MAX_POINTS = KERNEL_FORMS[-1][0]
 
 

@@ -145,6 +145,46 @@ def check_kernel_width(h: int) -> None:
         raise ValueError(f"grouped_first_linear: the backward kernel takes H >= 64 in multiples of 4, got {h}")
 
 
+# csrc/group.cu's CSR build: a block's counters, one set per range of a batch
+# row's entries, up to one range a warp of its 16
+CSR_WARPS = 16
+
+
+def csr_shared_bytes(n: int, ranges: int) -> int:
+    """Shared memory of the backward's CSR build for a cloud of ``n`` points cut
+    into ``ranges`` ranges (csrc/group.cu ``csr_smem_bytes``)."""
+    return 4 * (ranges * n + 2 * (n + 1) + CSR_WARPS + 1)
+
+
+def csr_ranges(n: int) -> int:
+    """The ranges the CSR build takes for ``n`` points (``csr_ranges`` in
+    csrc/group.cu): the most, up to 16, whose counters fit a block; 0 beyond
+    ``BACKWARD_MAX_POINTS``."""
+    ranges = CSR_WARPS
+    while ranges and csr_shared_bytes(n, ranges) > _MAX_SHARED_BYTES:
+        ranges //= 2
+    return ranges
+
+
+BACKWARD_MAX_POINTS = 19364  # the largest cloud whose CSR build fits one range
+
+
+def check_backward_points(n: int) -> None:
+    """Raises ValueError unless ``csrc/group.cu``'s backward takes a cloud of
+    ``n`` points: its CSR build keeps a count of every point for at least one
+    range of the entries in a block's shared memory."""
+    if not 1 <= n <= BACKWARD_MAX_POINTS:
+        raise ValueError(f"grouped_first_linear: the backward kernel takes N in [1, {BACKWARD_MAX_POINTS}] "
+                         f"(its CSR build counts every point in shared memory), got {n}")
+
+
+def kernel_csr_ranges(n: int) -> int:
+    """``csr_ranges`` as the built library has it (builds it: only where nvcc is)."""
+    ranges = ctypes.c_int(0)
+    _build.function("group_csr_ranges")(n, ctypes.byref(ranges))
+    return ranges.value
+
+
 def documented_order(h: int):
     """(rows per chunk, ranges of a point's chunks, rows per warp-wide load) of
     the backward's summation order as ``csrc/group.cu``'s header note states it
@@ -267,7 +307,8 @@ def _bwd_scratch(B: int, n: int, M: int, ns: int, device_index: int):
     ints, max_chunks = ctypes.c_longlong(0), ctypes.c_int(0)
     err = _build.function("group_backward_scratch")(B, n, M, ns, ctypes.byref(ints), ctypes.byref(max_chunks))
     if err == -1:
-        raise ValueError(f"grouped_first_linear: backward of N = {n} does not fit in shared memory")
+        raise ValueError(f"grouped_first_linear: the backward's CSR build of N = {n} does not fit the device's "
+                         "shared memory")
     if err != 0:
         raise RuntimeError("grouped_first_linear: cannot query the device's shared memory")
     return ints.value, max_chunks.value
@@ -281,6 +322,7 @@ def _launch_bwd(dd, idx, n):
     if idx.shape != (B, M, ns):
         raise ValueError("grouped_first_linear: idx does not match dD")
     check_kernel_width(H)
+    check_backward_points(n)
     dev = dd.device
     fn = _build.function("group_backward")
     guard, stream = _build.on_device(dev)
@@ -342,6 +384,12 @@ def grouped_first_linear(xyz, new_xyz, features, w1, radius: float, nsample: int
     xyz (B, N, 3), new_xyz (B, M, 3), features (B, N, C) or None, w1 (C + 3, H)
     when ``use_xyz`` else (C, H), the (in, out) kernel of the stage MLP's layer 0
     -> (B, nsample, M, H) pre-BatchNorm activations, slot-major (pool over
-    axis 1). Differentiable in xyz, new_xyz, features and w1."""
-    return GroupedFirstLinear.apply(xyz, new_xyz, features, w1, float(radius), int(nsample),
+    axis 1). Differentiable in xyz, new_xyz, features and w1. Inputs of another
+    floating type (bf16 under mixed precision) are taken in float32, as the JAX
+    function casts them: the output is float32 and each input's gradient comes
+    back in that input's type."""
+    def f32(t):
+        return None if t is None else t.float()
+
+    return GroupedFirstLinear.apply(f32(xyz), f32(new_xyz), f32(features), f32(w1), float(radius), int(nsample),
                                     bool(normalize_xyz), bool(use_xyz))

@@ -131,8 +131,8 @@ def query_and_group(radius, nsample, xyz, new_xyz, features=None, use_xyz=True,
     (B, M, ns, 3) relative to the centers, idx (B, M, ns))."""
     idx = ball_query(radius, nsample, xyz, new_xyz)
     grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
-    if normalize_xyz:
-        grouped_xyz = grouped_xyz / radius
+    if normalize_xyz:  # bf16 points (mixed precision): by the radius rounded to bf16, as jnp takes a Python float
+        grouped_xyz = grouped_xyz / (radius if grouped_xyz.dtype == torch.float32 else grouped_xyz.new_tensor(radius))
     if features is None:
         if not use_xyz:
             raise ValueError("cannot group with neither features nor xyz")

@@ -101,7 +101,7 @@ def repeat_eval_ckpt(args, cfg, model, loader, ckpt_dir, logger, result_dir, pol
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from ..config import check_ported, cli_config, log_config_to_file
+    from ..config import check_ported, cli_config, log_config_to_file, point_sharding_note
 
     cfg = cli_config(args.cfg_file, args.set_cfgs)
     check_ported(cfg, training=False)
@@ -120,6 +120,8 @@ def main(argv=None) -> int:
     logger = create_logger(result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
     logger.info(f"device {describe_device(device)}")
     log_config_to_file(cfg, logger=logger)
+    if point_sharding_note(cfg):
+        logger.info(point_sharding_note(cfg))
 
     t0 = time.perf_counter()
     _, loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=1, workers=args.workers,

@@ -33,7 +33,7 @@ def parse_args(argv=None):
     parser.add_argument("--pretrained_model", type=str, default=None,
                         help="weights to start from, shape-checked and partial")
     parser.add_argument("--launcher", choices=["none"], default="none", help="one process on one GPU")
-    parser.add_argument("--sync_bn", action="store_true", default=False, help="not ported yet (multi-GPU)")
+    parser.add_argument("--sync_bn", action="store_true", default=False, help="refused: one GPU (multi-GPU)")
     parser.add_argument("--fix_random_seed", action="store_true", default=True)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt_save_interval", type=int, default=1)
@@ -46,12 +46,10 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from ..config import check_ported, cli_config, log_config_to_file
+    from ..config import check_ported, cli_config, log_config_to_file, point_sharding_note
 
     cfg = cli_config(args.cfg_file, args.set_cfgs)
-    if args.sync_bn:
-        raise NotImplementedError("--sync_bn is not ported yet: multi-GPU training (ROADMAP.md Queue 1 item 9)")
-    check_ported(cfg, training=True)
+    check_ported(cfg, training=True, sync_bn=args.sync_bn)
 
     from .. import resolve_device
     from ..data.loader import build_dataloader
@@ -71,6 +69,8 @@ def main(argv=None) -> int:
     logger.info("**********************Start logging**********************")
     logger.info(f"device {describe_device(device)}")
     log_config_to_file(cfg, logger=logger)
+    if point_sharding_note(cfg):
+        logger.info(point_sharding_note(cfg))
 
     batch_size = args.batch_size or cfg["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"]
     if args.epochs is not None:

@@ -18,7 +18,7 @@ import numpy as np
 from .. import resolve_device
 from .bn_momentum import bn_momentum_for_epoch
 from .checkpoint import CheckpointManager, save_variables_npz
-from .optim import Adam
+from .optim import Optimizer
 from .train_step import make_train_step
 
 
@@ -38,8 +38,16 @@ class Trainer:
         self.total_epochs = int(total_epochs if total_epochs is not None else optim_cfg["NUM_EPOCHS"])
         self.tb_writer = tb_writer
         self.eval_fn = eval_fn
-        self.optimizer = Adam(self.model.parameters(), optim_cfg, len(train_loader))
-        self.train_step = make_train_step(model_cfg, device=self.device)
+        self.optimizer = Optimizer(self.model.parameters(), optim_cfg, len(train_loader), self.total_epochs)
+        self.logger.info(f"optimizer={self.optimizer.name} with the "
+                         f"{'OneCycle' if optim_cfg.get('SCHEDULER') is None else optim_cfg['SCHEDULER']} lr schedule"
+                         f"{', OneCycle b1' if self.optimizer.mom_schedule else ''}")
+        mixed_precision = bool(optim_cfg.get("MIXED_PRECISION", False))
+        # the effective precision in every run log, as the JAX trainer logs it
+        self.logger.info("mixed_precision=%s (%s; set OPTIMIZATION.MIXED_PRECISION: %s to flip)"
+                         % ("bf16" if mixed_precision else "f32",
+                            "default" if "MIXED_PRECISION" not in optim_cfg else "from config", not mixed_precision))
+        self.train_step = make_train_step(model_cfg, device=self.device, mixed_precision=mixed_precision)
         self.bn_sched_cfg = optim_cfg.get("BN_SCHEDULER")
         self.output_dir = Path(output_dir)
         self.ckpt = CheckpointManager(self.output_dir / "ckpt", max_to_keep=max_ckpt_save_num)

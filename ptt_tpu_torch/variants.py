@@ -55,18 +55,17 @@ GROUP_VARIANTS = {
                                            ("constexpr int kFwdBlocksPerSm = 6;", "constexpr int kFwdBlocksPerSm = 4;")], True),
     "no thread groups": ([("  const int groups = tile_pairs < kThreads ? kThreads / tile_pairs : 1;", "  const int groups = 1;")], True),
 }
-# other forms for N = 1024 (warps x points a thread); csrc/fps.cu runs it in 8 x 4
-EIGHT = ("  if (n <= 8 * 32 * kPts) return 8;\n", "    case 8: fps_kernel<8><<<batch, 256, 0, st>>>(xyz, out, n, npoint); break;\n")
-# with more points a thread the 16-warp form outgrows static shared memory: those variants drop it
-NO_SIXTEEN = [("  if (n <= 16 * 32 * kPts) return 16;\n", ""),
-              ("    case 16: fps_kernel<16><<<batch, 512, 0, st>>>(xyz, out, n, npoint); break;\n", "")]
+# other forms (warps x points a thread), each for the clouds of one form of
+# csrc/fps.cu: name -> (edits, N of the calls it changes)
+FORMS = "X(128, 1, 4) X(1024, 8, 4) X(2048, 16, 4) X(8192, 16, 16)"
 FPS_VARIANTS = {
-    "2 warps x 16 points": [("constexpr int kPts = 4;", "constexpr int kPts = 16;"), (EIGHT[0], "  if (n <= 2 * 32 * kPts) return 2;\n"),
-                            (EIGHT[1], "    case 2: fps_kernel<2><<<batch, 64, 0, st>>>(xyz, out, n, npoint); break;\n"), *NO_SIXTEEN],
-    "4 warps x 8 points": [("constexpr int kPts = 4;", "constexpr int kPts = 8;"), (EIGHT[0], "  if (n <= 4 * 32 * kPts) return 4;\n"),
-                           (EIGHT[1], "    case 4: fps_kernel<4><<<batch, 128, 0, st>>>(xyz, out, n, npoint); break;\n"), *NO_SIXTEEN],
-    "16 warps x 2 points": [("constexpr int kPts = 4;", "constexpr int kPts = 2;"), (EIGHT[0], "")],
+    "2 warps x 16 points": ([(FORMS, FORMS.replace("X(1024, 8, 4)", "X(1024, 2, 16)"))], 1024),
+    "4 warps x 8 points": ([(FORMS, FORMS.replace("X(1024, 8, 4)", "X(1024, 4, 8)"))], 1024),
+    "16 warps x 2 points": ([(FORMS, FORMS.replace("X(1024, 8, 4)", "X(1024, 16, 2)"))], 1024),
+    "32 warps x 8 points at 8192": ([(FORMS, FORMS.replace("X(8192, 16, 16)", "X(8192, 32, 8)"))], 8192),
 }
+
+
 def apply(text: str, edits, name: str) -> str:
     """``text`` with every (old, new) of ``edits`` applied; raises when a source
     no longer holds an ``old``, so that a variant cannot silently time the
@@ -216,8 +215,8 @@ def main() -> int:
     jobs = {"this tree": (CSRC / "group.cu", CSRC, "group_forward", FWD_ARGS, True)}
     for name, (edits, exact) in GROUP_VARIANTS.items():
         jobs[name] = (patched(CSRC / "group.cu", name, edits), CSRC, "group_forward", FWD_ARGS, exact)
-    fps_jobs = {"this tree, 8 warps x 4 points": (CSRC / "fps.cu", CSRC, "fps_forward", FPS_ARGS)}
-    for name, edits in FPS_VARIANTS.items():
+    fps_jobs = {"this tree": (CSRC / "fps.cu", CSRC, "fps_forward", FPS_ARGS)}
+    for name, (edits, _) in FPS_VARIANTS.items():
         fps_jobs[name] = (patched(CSRC / "fps.cu", name, edits), CSRC, "fps_forward", FPS_ARGS)
     sa_jobs = {}
     if args.parent:
@@ -232,17 +231,18 @@ def main() -> int:
         prep.argtypes, prep.restype = _build._FUNCTIONS["sa_prep_floats"][1], ctypes.c_int
         time_sa_against_parent(cs, fns["sa: parent"], prep, dev)
 
-    # FPS at the four call shapes of the main paths
+    # FPS at the call shapes of the main paths, ptt_waymo.yaml's two last
     gen = torch.Generator(device=dev).manual_seed(4)
     extent = torch.tensor([2.2, 1.0, 0.8], device=dev)
-    for B, N, m in ((16, 1024, 512), (8, 128, 64), (2 * cs.TRAIN_B, 1024, 512), (cs.TRAIN_B, 128, 64)):
+    for B, N, m in ((16, 1024, 512), (8, 128, 64), (2 * cs.TRAIN_B, 1024, 512), (cs.TRAIN_B, 128, 64),
+                    (16, 8192, 2048), (8, 256, 128)):
         xyz = (torch.rand((B, N, 3), device=dev, generator=gen) * 2 - 1) * extent
         ref = point_ops.furthest_point_sample(xyz, m)
         out = torch.empty((B, m), dtype=torch.int32, device=dev)
         line = [f"wrapper {cs.queued_ms(lambda: fps.furthest_point_sample(xyz, m), 20):.4f}"]
         for name in fps_jobs:
-            if N <= 128 and name in FPS_VARIANTS:
-                continue  # the variants change the form of N = 1024 only
+            if name in FPS_VARIANTS and FPS_VARIANTS[name][1] != N:
+                continue  # a variant changes the form of one N only
             fn = fns["fps: " + name]
             call = lambda: fn(xyz.data_ptr(), out.data_ptr(), B, N, m, stream)
             out.zero_()

@@ -22,7 +22,7 @@ from ptt_tpu_torch.data.loader import DataLoader
 from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
 from ptt_tpu_torch.nn import build_network
 from ptt_tpu_torch.train.checkpoint import CheckpointManager, save_variables_npz
-from ptt_tpu_torch.train.optim import Adam
+from ptt_tpu_torch.train.optim import Optimizer
 from ptt_tpu_torch.train.trainer import Trainer
 from tests.test_torch_port_train import narrow_model_cfg, small_data_cfg
 
@@ -165,7 +165,7 @@ def _flat(tree, prefix=""):
 
 def test_checkpoint_round_trip_and_retention(tmp_path):
     model = build_network(narrow_model_cfg(), device="cpu", train=True)
-    opt = Adam(model.parameters(), ptt_synth_config()["OPTIMIZATION"], iters_per_epoch=4)
+    opt = Optimizer(model.parameters(), ptt_synth_config()["OPTIMIZATION"], iters_per_epoch=4)
     for p in opt.params:
         p.grad = torch.ones_like(p)
     opt.step()
@@ -178,7 +178,7 @@ def test_checkpoint_round_trip_and_retention(tmp_path):
     mu = [m.clone() for m in opt.mu]
 
     fresh = build_network(narrow_model_cfg(), device="cpu", train=True)
-    fresh_opt = Adam(fresh.parameters(), ptt_synth_config()["OPTIMIZATION"], iters_per_epoch=4)
+    fresh_opt = Optimizer(fresh.parameters(), ptt_synth_config()["OPTIMIZATION"], iters_per_epoch=4)
     assert CheckpointManager(tmp_path / "ckpt").restore(fresh, fresh_opt) == (3, 12)
     for key, value in fresh.state_dict().items():
         assert torch.equal(value, expected[key]), key

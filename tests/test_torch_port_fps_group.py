@@ -48,7 +48,7 @@ def _cloud(rng, kind, B, N):
 
 # N inside each form's range; "ragged" is no multiple of 32 or of the block
 FORM_SIZES = {(1, 4): {"random": 128, "ragged": 100}, (8, 4): {"random": 512, "ragged": 333},
-              (16, 4): {"random": 1280, "ragged": 1100}}
+              (16, 4): {"random": 1280, "ragged": 1100}, (16, 16): {"random": 8192, "ragged": 2049}}
 
 
 @pytest.mark.parametrize("kind", ["random", "duplicated", "identical", "ragged"])
@@ -146,7 +146,7 @@ def test_fps_ragged_and_full_shapes_are_accepted(N, npoint):
     fps.check_kernel_shapes(N, npoint)
 
 
-@pytest.mark.parametrize("N,npoint", [(2049, 16), (4096, 512), (128, 129), (128, 0), (0, 0)],
+@pytest.mark.parametrize("N,npoint", [(8193, 16), (16384, 512), (128, 129), (128, 0), (0, 0)],
                          ids=["beyond_the_largest_form", "far_beyond", "npoint_over_n", "no_point", "no_cloud"])
 def test_fps_shapes_outside_the_design_are_refused(N, npoint):
     with pytest.raises(ValueError):
@@ -212,7 +212,7 @@ def test_variant_patches_fit_the_sources(source, name):
     """Every variant ``ptt_tpu_torch/variants.py`` times is a patch of the current
     source: a patch that no longer applies raises instead of timing the kernel
     unchanged."""
-    edits = variants.GROUP_VARIANTS[name][0] if source == "group.cu" else variants.FPS_VARIANTS[name]
+    edits = variants.GROUP_VARIANTS[name][0] if source == "group.cu" else variants.FPS_VARIANTS[name][0]
     text = (variants.CSRC / source).read_text()
     assert variants.apply(text, edits, name) != text
     with pytest.raises(RuntimeError):

@@ -213,9 +213,13 @@ def test_database_round_trip_and_name(tree, tmp_path):
     assert again.tracklets[1][0]["pc"] is again.tracklets[2][0]["pc"]
 
 
-def test_nuscenes_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        NuscenesTrackingDataset({}, "car")
+def test_nuscenes_is_refused(tmp_path):
+    """The port reads nuScenes now (tests/test_torch_port_nuscenes.py); what it
+    refuses is a tree without the version's tables."""
+    assert ALL_DATASETS["NuscenesTrackingDataset"] is NuscenesTrackingDataset
+    cfg = config_by_path("tools/cfgs/nuscenes_models/ptt.yaml")["DATA_CONFIG"]
+    with pytest.raises(FileNotFoundError):
+        NuscenesTrackingDataset(dict(cfg, DATA_PATH=str(tmp_path)), "car")
 
 
 def test_chip_smoke_trees_read_back(tmp_path):

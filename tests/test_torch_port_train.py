@@ -27,7 +27,7 @@ from ptt_tpu_torch.data.loader import DataLoader
 from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
 from ptt_tpu_torch.nn import build_network, heads, layers, losses, sa_module, similarity
 from ptt_tpu_torch.train import bn_momentum
-from ptt_tpu_torch.train.optim import Adam
+from ptt_tpu_torch.train.optim import Optimizer
 from ptt_tpu_torch.train.train_step import make_train_step
 
 torch.set_num_threads(1)
@@ -153,7 +153,7 @@ def test_adam_step_schedule_clip_match_optax(rng, weight_decay):
     jparams = {k: jnp.asarray(v) for k, v in init.items()}
     jstate = tx.init(jparams)
     tparams = [_t(init["a"]).requires_grad_(True), _t(init["b"]).requires_grad_(True)]
-    opt = Adam(tparams, optim_cfg, iters_per_epoch=10)
+    opt = Optimizer(tparams, optim_cfg, iters_per_epoch=10)
     clipped = 0
     for step in range(30):
         scale = 30.0 if step % 3 == 0 else 0.5
@@ -173,12 +173,17 @@ def test_adam_step_schedule_clip_match_optax(rng, weight_decay):
 
 
 def test_optimizer_refuses_unported_choices():
+    """Every OPTIMIZER x SCHEDULER of the JAX package is ported; what it refuses
+    (an unknown optimizer, a scheduler other than 'step' or none), the port
+    refuses too."""
     base = ptt_synth_config()["OPTIMIZATION"]
     p = [torch.zeros(3, requires_grad=True)]
-    for change in ({"OPTIMIZER": "adamw"}, {"OPTIMIZER": "sgd"}, {"OPTIMIZER": "adam_onecycle"},
-                   {"SCHEDULER": None}):
+    for change in ({"OPTIMIZER": "rmsprop"}, {"OPTIMIZER": "lamb"}, {"SCHEDULER": "cosine"},
+                   {"OPTIMIZER": "sgd", "SCHEDULER": "cosine"}):
         with pytest.raises(NotImplementedError):
-            Adam(p, dict(base, **change), iters_per_epoch=4)
+            build_optimizer_and_schedule(dict(base, **change), iters_per_epoch=4, total_epochs=2)
+        with pytest.raises(NotImplementedError):
+            Optimizer(p, dict(base, **change), iters_per_epoch=4)
 
 
 # -------------------------------------------------------------- BN momentum
@@ -309,7 +314,7 @@ def test_train_step_lockstep_with_jax():
     variables = jax.device_get(jax.jit(lambda b: jm.init(jax.random.PRNGKey(3), b, train=False))(sample))
     tm = build_network(model_cfg, device="cpu", train=True)
     tm.load_state_dict(state_dict_from_variables(variables), strict=True)
-    opt = Adam(tm.parameters(), optim_cfg, iters_per_epoch=3)
+    opt = Optimizer(tm.parameters(), optim_cfg, iters_per_epoch=3)
     tstep = make_train_step(model_cfg, device="cpu")
 
     with jax.enable_x64(True):
