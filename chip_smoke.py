@@ -16,10 +16,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      below, held under what a probe kernel reads for each primitive on this card;
   3. the whole forward at full ``ptt.yaml`` width on the trained weights of
      ``tests/assets/ptt_synth_trained.npz``, kernel path against plain path;
-  4. the device tracker (``DeviceTrackingEvaluator``) on 8 x 24 synthetic
-     tracklets with the trained weights: Success/Precision, launch counts, then
-     frames/s over pipelined batches of the benchmark workload (8 x 64 frames);
-  5. a profile of one tracker batch: device busy and idle shares, top kernels;
+  4. the device tracker (``DeviceTrackingEvaluator``, every frame step a replay
+     of its captured CUDA graph) on 8 x 24 synthetic tracklets with the trained
+     weights: Success/Precision, launch counts (by the wrappers' counters, which
+     a replay advances by what its capture counted, then by the device under
+     torch.profiler in a batch of replays), then frames/s over pipelined
+     batches of the benchmark workload (8 x 64 frames);
+  5. a profile of one tracker batch: device busy and idle shares, top kernels,
+     the device's launch counts;
   6. the training kernels (``csrc/group.cu``, forward and backward) against
      their plain versions at the 7 shapes of a ptt_synth train step (B = 48):
      forward bit-equal to its plain version, neighbour table, dZ and the four
@@ -76,7 +80,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      once per OPTIMIZER, finite losses;
   16. the agreement tracklets written as a nuScenes release, scored by the
      test CLI on ``nuscenes_models/ptt.yaml`` with the trained asset, within
-     1.0 of phase 10's numbers.
+     1.0 of phase 10's numbers;
+  17. the captured frame step against the eager loop (the Python loop over
+     the same step body), in one call: for ptt.yaml, ptt_large.yaml, P2B and
+     ptt_waymo.yaml on the benchmark batch (run with phases 4, 8, 9 and 13) the
+     boxes bit-equal (torch.equal) from the same seed, frames/s of both loops
+     alternated, host enqueue ms, device busy ms and idle share, the device's
+     launch counts, capture ms, graphs cached and pool bytes; on the agreement
+     batch all 12 modes bit-equal; the host evaluator's graphed forward against
+     its eager forward; a replay after weights are loaded in place into a
+     captured model, against the eager loop on those weights; and
+     ``set_use_kernels(False)`` after a capture: a new graph that launches no
+     FPS or SA kernel.
+The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
+device's launch counts must equal the wrappers' and replays' counts.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 """
@@ -546,9 +563,15 @@ def check_kernels(calls, clock, extras=True):
     return rows
 
 
-def profile_batch(ev, tracklets, n_frames, tag="[5]"):
+TRACKER_KERNELS = ("fps_kernel", "sa_pre_kernel", "sa_kernel")
+
+
+def profile_batch(ev, tracklets, n_frames, tag="[5]", quiet=False):
     """One batch of the tracker under torch.profiler: host time to enqueue it,
-    wall time, the device's busy and idle shares, and the kernels by device time."""
+    wall time, the device's busy and idle shares, and (unless ``quiet``) the
+    kernels by device time. Returns those numbers and the device's own count
+    of each tracker kernel's launches (``launches``), which a graph replay
+    shows as the eager loop does."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -561,19 +584,115 @@ def profile_batch(ev, tracklets, n_frames, tag="[5]"):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     steps = len(tracklets[0][0]) - 1
+    stats = {"wall_ms": wall * 1e3, "enqueue_ms": t_enqueue * 1e3, "busy_ms": busy_us / 1e3,
+             "idle_pct": 100 - 100 * busy_us / 1e6 / wall, "device_ops": sum(e.count for e in kernels),
+             "launches": {name: sum(e.count for e in kernels if name in e.key) for name in TRACKER_KERNELS}}
+    if quiet:
+        return stats
     log(f"{tag} profile of one batch ({n_frames} frames, {steps} frame steps): wall {wall * 1e3:.1f} ms, "
         f"host enqueue {t_enqueue * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-        f"({100 * busy_us / 1e6 / wall:.1f}% busy, {100 - 100 * busy_us / 1e6 / wall:.1f}% idle), "
-        f"{sum(e.count for e in kernels)} device operations")
+        f"({100 * busy_us / 1e6 / wall:.1f}% busy, {stats['idle_pct']:.1f}% idle), "
+        f"{stats['device_ops']} device operations")
     if busy_us == 0:
         log("  the profiler saw no device time: busy share not measured")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
-    own = {name: [e for e in kernels if name in e.key] for name in ("fps_kernel", "sa_pre_kernel", "sa_kernel")}
+    own = {name: [e for e in kernels if name in e.key] for name in TRACKER_KERNELS}
     log("  the port's kernels in that batch: " + ", ".join(
         f"{name} {sum(e.self_device_time_total for e in es) / 1e3:.2f} ms in {sum(e.count for e in es)} launches "
         f"({100 * sum(e.self_device_time_total for e in es) / max(busy_us, 1):.1f}% of the busy time)"
         for name, es in own.items()))
+    return stats
+
+
+def check_device_launches(tag, counts, n_fps, steps):
+    """The device's own launch counts (``profile_batch``) against n_fps FPS
+    and 7 SA calls (each sa_pre_kernel + sa_kernel) a frame step."""
+    want = {"fps_kernel": n_fps * steps, "sa_pre_kernel": 7 * steps, "sa_kernel": 7 * steps}
+    log(f"{tag} launches the device ran in a batch of replays: {counts} over {steps} frame steps "
+        f"({n_fps} FPS and 7 SA calls a step expected)")
+    if counts != want:
+        fail(f"{tag} the device ran {counts}, not {want}")
+
+
+def eager(ev):
+    """``ev`` (a DeviceTrackingEvaluator) on its eager loop, the Python loop
+    over the step body: the witness the captured graph is held against."""
+    ev._track = ev._track_eager
+    return ev
+
+
+def graph_stats(ev) -> dict:
+    """Capture ms, graphs cached and pool bytes of a DeviceTrackingEvaluator."""
+    entries = [e for e in ev.graphs.values() if e.graph is not None]
+    return {"graphs": len(ev.graphs), "captures": ev.graphs.captures,
+            "capture_ms": [round(e.graph.capture_s * 1e3, 3) for e in entries],
+            "pool_bytes": [e.graph.pool_bytes() for e in entries]}
+
+
+def graph_vs_eager(tag, name, cfg, model, bench, device, card, n_fps):
+    """Phase 17 for one configuration on the benchmark batch (8 x 64 frames,
+    max_points 2048): the graphed tracker's boxes bit-equal to the eager
+    loop's from the same seed; frames/s of both, alternated (eager, graph,
+    graph, eager; 2 pipelined batches a run); host enqueue ms, device busy ms
+    and idle share of one profiled batch each, the device's launch counts of
+    each; capture ms, graphs cached, pool bytes."""
+    from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
+
+    loops = {"graph": DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device),
+               "eager": eager(DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device))}
+    boxes, first_s = {}, {}
+    for drv, ev in loops.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boxes[drv] = ev.boxes(ev.dispatch_batch(bench))
+        torch.cuda.synchronize()
+        first_s[drv] = time.perf_counter() - t0
+    same = torch.equal(boxes["graph"], boxes["eager"])
+    rates = {"eager": [], "graph": []}
+    for drv in ("eager", "graph", "graph", "eager"):
+        rates[drv].append(bench_rate(loops[drv], bench, 2))
+    n_frames = sum(len(t[0]) for t in bench)
+    prof = {drv: profile_batch(ev, bench, n_frames, tag, quiet=True) for drv, ev in loops.items()}
+    g = graph_stats(loops["graph"])
+    # the host's time to enqueue a graphed batch behind ~0.5 s of queued device work: about
+    # the packing alone if the launch queue holds the batch's 63 replays, about the queued
+    # work's length if the host waits for room in it
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    handle = loops["graph"].dispatch_batch(bench)
+    behind_ms = (time.perf_counter() - t0) * 1e3
+    loops["graph"].finish_batch(handle)
+    # the host's own work on a batch, beside the device's: packing it, and scoring its boxes
+    t0 = time.perf_counter()
+    loops["graph"]._pack(bench)
+    host_ms = {"pack": (time.perf_counter() - t0) * 1e3}
+    boxes_host = boxes["graph"].numpy()
+    t0 = time.perf_counter()
+    loops["graph"]._score(boxes_host, bench)
+    host_ms["score"] = (time.perf_counter() - t0) * 1e3
+    host_ms["enqueue_behind_sleep"] = behind_ms
+    for drv in ("eager", "graph"):
+        p = prof[drv]
+        log(f"{tag} {name} {drv} loop: {', '.join(f'{r:.1f}' for r in rates[drv])} frames/s (2 pipelined batches a "
+            f"run, alternated), one profiled batch: wall {p['wall_ms']:.1f} ms, host enqueue {p['enqueue_ms']:.1f} ms, "
+            f"device busy {p['busy_ms']:.1f} ms ({p['idle_pct']:.1f}% idle), {p['device_ops']} device operations; "
+            f"first batch {first_s[drv] * 1e3:.1f} ms; card {card}")
+    log(f"{tag} {name}: graphed boxes bit-equal to the eager loop's {same}; capture {g['capture_ms']} ms, "
+        f"{g['graphs']} graph(s) cached, pool {g['pool_bytes']} bytes; host work on a batch: packing "
+        f"{host_ms['pack']:.1f} ms, scoring {host_ms['score']:.1f} ms; a graphed batch enqueued behind ~0.5 s of "
+        f"queued device work in {behind_ms:.1f} ms")
+    if not same:
+        fail(f"{tag} {name}: the graphed tracker's boxes differ from the eager loop's "
+             f"(max |diff| {float((boxes['graph'] - boxes['eager']).abs().max()):.3e})")
+    for drv in ("eager", "graph"):
+        check_device_launches(f"{tag} {name} {drv}", prof[drv]["launches"], n_fps, len(bench[0][0]) - 1)
+    for ev in loops.values():
+        ev.close()
+    return {"config": name, "bit_equal": same, "frames_per_s": rates,
+            **{f"{drv}_profile": {k: v for k, v in prof[drv].items() if k != "launches"} for drv in prof},
+            "first_batch_s": first_s, "host_ms": host_ms, **g}
 
 
 def bench_tracklets():
@@ -643,13 +762,15 @@ def check_forward(model, batch, tag, trained=False):
              f"{replay.changed}, max |pred_box_data| difference {free_err:.3e})")
 
 
-def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench):
+def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, graph_rows):
     """Phases 8 and 9: one more configuration at its full published width, on
     the port's own seeded init (no trained weights exist for it): every FPS
     and SA call of the first frame step's forward against its plain version,
     the forward against the plain path, then the tracker on the benchmark
-    workload: launches per frame step, frames/s, a profile of one batch.
-    Returns (rows by kernel, launches of one batch)."""
+    workload: launches per frame step (counted by the wrappers and the
+    replays, then by the device in a profiled batch), frames/s, a profile of
+    one batch; then phase 17's graph-against-eager rows, appended to
+    ``graph_rows``. Returns (rows by kernel, launches of one batch)."""
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
     from ptt_tpu_torch.nn import build_network, set_use_kernels
     from ptt_tpu_torch.ops import fps, sa
@@ -688,8 +809,12 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench):
     set_use_kernels(model, True)
     log(f"{tag} {name} throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); plain path "
-        f"{plain_rate:.1f} frames/s (one batch cut to 32 frames); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
-    profile_batch(ev, bench, sum(len(t[0]) for t in bench), tag)
+        f"{plain_rate:.1f} frames/s (one batch cut to 32 frames, graphed, its capture included); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
+    prof = profile_batch(ev, bench, sum(len(t[0]) for t in bench), tag)
+    check_device_launches(tag, prof["launches"], n_fps, steps)
+    ev.close()
+    graph_rows.append(graph_vs_eager("[17]", name, cfg, model, bench, device, card, n_fps))
     del ev, model
     torch.cuda.empty_cache()
     return rows, launches
@@ -795,6 +920,92 @@ def modes_phase(cfg, model, meta, agreement, device):
     if kn != frames or pn != frames:
         fail(f"[10] host evaluator: track_result.txt holds {kn} / {pn} lines, not {frames}")
     return {"device": deployed, "host": (ks, kp)}
+
+
+def graph_phase(cfg, model, agreement, device):
+    """Phase 17 on the agreement batch and the trained asset: in all 12
+    REF_BOX x SHAPE_AGGREGATION modes the graphed tracker's boxes bit-equal to
+    the eager loop's; the host evaluator's graphed forward against its eager
+    forward, the same boxes; weights swapped in place after a capture (captured
+    on a seeded init, then the asset loaded): the replay equals the eager
+    loop on the asset; ``set_use_kernels(False)`` after a capture: a new
+    graph, whose replays launch no FPS or SA kernel, equal to the eager plain
+    path. Returns what it measured."""
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
+    from ptt_tpu_torch.eval.evaluator import TrackingEvaluator, best_proposal
+    from ptt_tpu_torch.nn import build_network, set_use_kernels
+
+    def both(c, m):
+        return (DeviceTrackingEvaluator(c, m, max_points=1024, batch_size=8, device=device),
+                eager(DeviceTrackingEvaluator(c, m, max_points=1024, batch_size=8, device=device)))
+
+    out = {"modes": {}}
+    for ref, agg in MODES:
+        mcfg = copy.deepcopy(cfg)
+        mcfg["TEST"].update(REF_BOX=ref, SHAPE_AGGREGATION=agg)
+        g, e = both(mcfg, model)
+        out["modes"][f"{ref}/{agg}"] = torch.equal(g.boxes(g.dispatch_batch(agreement)),
+                                                   e.boxes(e.dispatch_batch(agreement)))
+        g.close()
+    log(f"[17] the 12 modes on the agreement batch, graphed boxes bit-equal to the eager loop's: {out['modes']}")
+    if not all(out["modes"].values()):
+        fail("[17] a mode's graphed boxes differ from the eager loop's")
+
+    hosts = {"graph": TrackingEvaluator(cfg, model, device=device), "eager": TrackingEvaluator(cfg, model, device=device)}
+    hosts["eager"].track_step = lambda s, t: best_proposal(model, s, t)
+    got = {}
+    for drv, ev in hosts.items():
+        t0 = time.perf_counter()
+        got[drv] = [ev.test_tracklet(pcs, boxes, annos) for pcs, boxes, annos in agreement]
+        got[f"{drv}_s"] = time.perf_counter() - t0
+    same = all(np.array_equal(a.center, b.center) and np.array_equal(a.orientation.elements, b.orientation.elements)
+               for ta, tb in zip(got["graph"], got["eager"]) for a, b in zip(ta, tb))
+    steps = sum(len(t[0]) - 1 for t in agreement)
+    sg, se = hosts["graph"].summary(), hosts["eager"].summary()
+    out["host"] = {"same_boxes": same, "graphs": len(hosts["graph"].track_step.graphs),
+                   "graph_s": got["graph_s"], "eager_s": got["eager_s"],
+                   "success": (float(sg["success"]), float(se["success"]))}
+    log(f"[17] host evaluator, graphed forward against the eager forward over {steps} frame steps: the same boxes "
+        f"{same}, Success/Precision {sg['success']:.2f}/{sg['precision']:.2f} and {se['success']:.2f}/"
+        f"{se['precision']:.2f}; {len(hosts['graph'].track_step.graphs)} graph cached; {got['graph_s']:.2f} s "
+        f"against {got['eager_s']:.2f} s")
+    if not same or len(hosts["graph"].track_step.graphs) != 1:
+        fail("[17] the host evaluator's graphed forward differs from its eager forward, or it cached other than 1 graph")
+    hosts["graph"].close()
+
+    torch.manual_seed(SEED)
+    fresh = build_network(cfg["MODEL"], device=device)
+    g, e = both(cfg, fresh)
+    seeded = g.boxes(g.dispatch_batch(agreement))
+    fresh.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    swapped = g.boxes(g.dispatch_batch(agreement))
+    want = e.boxes(e.dispatch_batch(agreement))
+    out["swap"] = {"equal_eager": torch.equal(swapped, want), "moved": not torch.equal(seeded, swapped),
+                   "captures": g.graphs.captures}
+    log(f"[17] weights loaded in place after a capture on torch.manual_seed({SEED}) init: the replay equals the eager "
+        f"loop on the asset {out['swap']['equal_eager']}, its boxes moved from the seeded init's "
+        f"{out['swap']['moved']}, captures {g.graphs.captures}")
+    if not (out["swap"]["equal_eager"] and out["swap"]["moved"] and g.graphs.captures == 1):
+        fail("[17] a replay after an in-place weight load does not track with the new weights")
+
+    set_use_kernels(fresh, False)
+    plain = g.boxes(g.dispatch_batch(agreement))  # captured anew; the profiled batch is all replays
+    prof = profile_batch(g, agreement, sum(len(t[0]) for t in agreement), "[17]", quiet=True)
+    plain_eager = e.boxes(e.dispatch_batch(agreement))
+    set_use_kernels(fresh, True)
+    out["plain"] = {"launches": prof["launches"], "captures": g.graphs.captures,
+                    "equal_eager": torch.equal(plain, plain_eager)}
+    log(f"[17] set_use_kernels(False) after the capture: captures {g.graphs.captures}, the device ran "
+        f"{prof['launches']} in a batch (none expected), boxes bit-equal to the eager plain path "
+        f"{out['plain']['equal_eager']}")
+    if any(prof["launches"].values()) or g.graphs.captures != 2 or not out["plain"]["equal_eager"]:
+        fail("[17] after set_use_kernels(False) the replay still launches a kernel, was not captured anew, or "
+             "differs from the eager plain path")
+    g.close()
+    del g, e, fresh
+    torch.cuda.empty_cache()
+    return out
 
 
 def relerr(got, ref) -> float:
@@ -1380,11 +1591,36 @@ def write_nuscenes_tree(root, tracklets, category: str = "vehicle.trailer", vers
             json.dump(rows, fh)
 
 
-def run_cli(module: str, args, timeout: float = 600):
+# Runs ``python3 -m <module> args`` under torch.profiler (device activity only)
+# and prints, after the module's own output, the device's count of each tracker
+# kernel's launches: a graph replay runs no Python wrapper, so this is the
+# count the wrappers' counters are held against.
+PROFILED_CLI = """
+import json, runpy, sys
+from torch.profiler import DeviceType, ProfilerActivity, profile
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+code = 0
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as exc:
+        code = exc.code or 0
+kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+names = %r
+print("device_launches " + json.dumps({n: sum(e.count for e in kernels if n in e.key) for n in names}), flush=True)
+sys.exit(code)
+""" % (TRACKER_KERNELS,)
+
+
+def run_cli(module: str, args, timeout: float = 600, device_launches: bool = False):
     """Run ``python3 -m ptt_tpu_torch.tools.<module> args`` from the repo root and
     return (its ``summary`` record, wall seconds, its log). Fails the run when
-    the CLI fails."""
-    cmd = [sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)]
+    the CLI fails. With ``device_launches`` the CLI runs under torch.profiler,
+    and the record's ``device_launches`` holds the device's count of each
+    tracker kernel's launches; the wrappers' counts (``launches``) must equal it."""
+    target = f"ptt_tpu_torch.tools.{module}"
+    cmd = [sys.executable, *(["-c", PROFILED_CLI] if device_launches else ["-m"]), target, *map(str, args)]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
@@ -1395,7 +1631,18 @@ def run_cli(module: str, args, timeout: float = 600):
     records = [json.loads(line.split("  summary ", 1)[1]) for line in text.splitlines() if "  summary {" in line]
     if not records:
         fail(f"{module}: no summary line in its log")
-    return records[-1], wall, text
+    record = records[-1]
+    if device_launches:
+        counted = [json.loads(line.split(" ", 1)[1]) for line in out.stdout.splitlines()
+                   if line.startswith("device_launches ")]
+        if not counted:
+            fail(f"{module}: no device_launches line")
+        record["device_launches"] = counted[-1]
+        wrappers = record["launches"]
+        log(f"  {module} {' '.join(map(str, args[:4]))} ...: the device ran {counted[-1]} (torch.profiler)")
+        if counted[-1] != {"fps_kernel": wrappers["fps"], "sa_pre_kernel": wrappers["sa"], "sa_kernel": wrappers["sa"]}:
+            fail(f"{module}: the device ran {counted[-1]}, the wrappers and replays counted {wrappers}")
+    return record, wall, text
 
 
 def result_file(extra_tag: str, eval_tag: str = "default", epoch=None) -> str:
@@ -1432,7 +1679,8 @@ def resample_rows_check(cfg, model, root, device):
 
     dl.masked_resample = recording
     try:
-        dl.DeviceTrackingEvaluator(cfg, model, max_points=16384, batch_size=8, device=device).track_batch(first)
+        # the eager loop: the recorder reads the device, which a capture may not
+        eager(dl.DeviceTrackingEvaluator(cfg, model, max_points=16384, batch_size=8, device=device)).track_batch(first)
     finally:
         dl.masked_resample = orig
     rows = [n for n, _, _ in seen]
@@ -1460,7 +1708,7 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
         sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "DATA_CONFIG.DATA_SPLIT", "test:all"]
         got = {}
         for path, flags in (("device", ["--eval_tag", "device"]), ("host", ["--host_loop", "--eval_tag", "host"])):
-            rec, wall, _ = run_cli("test_tracking", base + flags + sets)
+            rec, wall, _ = run_cli("test_tracking", base + flags + sets, device_launches=True)
             got[path] = rec
             (ref_s, ref_p), lines = phase10[path], line_count(result_file("chip_smoke_11a", path))
             log(f"[11a] test CLI ({path} path) on the agreement tracklets as KITTI scenes 0000-0007: Success "
@@ -1489,7 +1737,7 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
         for run in ("run1", "run2"):
             rec, wall, _ = run_cli("test_tracking", ["--ckpt", ASSET, "--batch_size", 8, "--extra_tag",
                                                      "chip_smoke_11b", "--eval_tag", run, "--set",
-                                                     "DATA_CONFIG.DATA_PATH", root])
+                                                     "DATA_CONFIG.DATA_PATH", root], device_launches=True)
             runs.append(rec)
             db = [n for n in os.listdir(root) if n.endswith("_torch.pkl")]
             db_bytes = sum(os.path.getsize(os.path.join(root, n)) for n in db)
@@ -1590,7 +1838,8 @@ def waymo_cli_phase(root, card):
     (150 sweeps of 120,000 points, max_points 16384, seeded init)."""
     steps = 160 - 1
     rec, wall, text = run_cli("test_tracking", ["--cfg_file", "tools/cfgs/kitti_models/ptt_waymo.yaml", "--batch_size", 8,
-                                                "--extra_tag", "chip_smoke_13b", "--set", "DATA_CONFIG.DATA_PATH", root])
+                                                "--extra_tag", "chip_smoke_13b", "--set", "DATA_CONFIG.DATA_PATH", root],
+                              device_launches=True)
     log(f"[13b] test CLI ptt_waymo.yaml on scene 0019 (150 x 120,000-point sweeps, max_points 16384, batch 8, "
         f"seeded init): {rec['frames_per_s']:.1f} frames/s, Success {rec['success']:.2f} Precision "
         f"{rec['precision']:.2f} (seeded weights: not a gate), CLI wall {wall:.1f} s; launches {rec['launches']} over "
@@ -1777,7 +2026,7 @@ def nuscenes_phase(agreement, phase10, card):
         write_nuscenes_tree(tmp, agreement)
         rec, wall, _ = run_cli("test_tracking", ["--cfg_file", "tools/cfgs/nuscenes_models/ptt.yaml", "--ckpt", ASSET,
                                                  "--max_points", 1024, "--extra_tag", "chip_smoke_16", "--set",
-                                                 "DATA_CONFIG.DATA_PATH", tmp])
+                                                 "DATA_CONFIG.DATA_PATH", tmp], device_launches=True)
         ref_s, ref_p = phase10["device"]
         steps = 31
         log(f"[16] test CLI nuscenes_models/ptt.yaml on the agreement tracklets as a nuScenes release (8 val "
@@ -1866,6 +2115,9 @@ def main() -> int:
         fail(f"tracker: Success {s['success']:.2f} < 50")
     if launches != {"fps": 2 * steps, "sa": 7 * steps}:
         fail(f"tracker: launches {launches}, expected 2 and 7 per frame step over {steps} steps")
+    device_launches = profile_batch(ev, agreement, s["frames"], "[4]", quiet=True)["launches"]
+    check_device_launches("[4]", device_launches, 2, steps)
+    ev.close()
 
     bench = bench_tracklets()
     ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
@@ -1877,10 +2129,14 @@ def main() -> int:
     set_use_kernels(model, True)
     log(f"[4] throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); "
-        f"plain path {plain_rate:.1f} frames/s (one batch cut to 32 frames); card {card}")
-    profile_batch(ev, bench, n_frames)
+        f"plain path {plain_rate:.1f} frames/s (one batch cut to 32 frames, graphed, its capture included); "
+        f"card {card}")
+    prof = profile_batch(ev, bench, n_frames)
+    check_device_launches("[5]", prof["launches"], 2, len(bench[0][0]) - 1)
+    ev.close()
     del ev
     torch.cuda.empty_cache()
+    graph_rows = [graph_vs_eager("[17]", "ptt.yaml", cfg, model, bench, device, card, 2)]
 
     # 6 and 7: the training path
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
@@ -1888,12 +2144,14 @@ def main() -> int:
     # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
     check_sa_limit(device)
     large_rows, large_launches = config_phase("[8]", "ptt_large.yaml", ptt_large_config(), device, card, clock, 2,
-                                              agreement, bench)
+                                              agreement, bench, graph_rows)
     p2b_rows, p2b_launches = config_phase("[9]", "p2b_synth.yaml (P2B)", p2b_synth_config(), device, card, clock, 1,
-                                          agreement, bench)
+                                          agreement, bench, graph_rows)
 
     # 10. every tracking mode and the host evaluator on the trained weights
     phase10 = modes_phase(cfg, model, meta, agreement, device)
+    # 17. the captured frame step against the eager loop (the benchmark batches ran with phases 4, 8, 9, 13)
+    phase17 = graph_phase(cfg, model, agreement, device)
 
     # 11 and 12: the CLIs on KITTI-format trees; 13 to 16: ptt_waymo, bf16 and the optimizers, nuScenes
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
@@ -1903,7 +2161,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
-                                                  device, card, clock, 2, agreement, bench)
+                                                  device, card, clock, 2, agreement, bench, graph_rows)
         waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1918,7 +2176,8 @@ def main() -> int:
         bms = sum(r["bound_ms"] for r in rs)
         record["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": summary[name]["max_abs_err"],
+            "launches": launches[name], "device_launches": device_launches[f"{name}_kernel"],
+            "max_abs_err": summary[name]["max_abs_err"],
             "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"], "bound_ms": bms,
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
         })
@@ -1952,6 +2211,7 @@ def main() -> int:
              "device_ms": r[f"{pre}_device_ms"], "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound"],
              "bound_by": r[f"{pre}_by"], **({"library_ms": r["lib_ms"]} if pre == "bwd" else {})}
             for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
+    log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

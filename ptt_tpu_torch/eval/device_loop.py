@@ -3,23 +3,30 @@ tracklets is uploaded once, and the autoregressive per-frame loop (crop,
 resample, PTT forward, best proposal, box decode) runs on the device. Only the
 (B, T, 4) predicted boxes come back for scoring.
 
-The JAX package compiles the loop into one ``lax.scan``; here it is a Python
-loop over frames that enqueues device work and never waits for it, so the
-host reads nothing until ``finish_batch``. Every primitive is batched over a
-leading tracklet axis. All modes of the JAX tracker run:
-``TEST.REF_BOX`` ``previous_result`` (deployment) and the ``previous_gt`` /
-``current_gt`` diagnostics, which crop and decode around the ground truth
-while the template follows the predicted trajectory; and
-``TEST.SHAPE_AGGREGATION`` ``firstandprevious``, ``first``, ``previous`` and
-``all`` (the crops of every earlier frame around its predicted box, one
-resample over their union).
+The JAX package compiles the loop into one ``lax.scan`` over a step body. Here
+the frame step is one body too (``FrameLoop.step``) over static tensors: the
+frame index ``t`` is a device tensor that the body advances, frames are taken
+with ``index_select``, and the carries (the previous boxes, the (B, T) box and
+score outputs) are written in place. On the GPU the body is captured once per
+batch shape as a CUDA graph and replayed for every frame step
+(``DeviceTrackingEvaluator``); on the CPU the same body runs in a Python loop
+(``FrameLoop.__call__``, the eager loop). Every primitive is batched over a
+leading tracklet axis. All modes of the JAX tracker run: ``TEST.REF_BOX``
+``previous_result`` (deployment) and the ``previous_gt`` / ``current_gt``
+diagnostics, which crop and decode around the ground truth while the template
+follows the predicted trajectory; and ``TEST.SHAPE_AGGREGATION``
+``firstandprevious``, ``first``, ``previous`` and ``all`` (the crops of every
+frame f < t around its predicted box, masked on the fixed (B, T * N) union of
+all frames, one resample over it).
 
-Resampling draws its picks from a ``torch.Generator`` (``uniform_picks``), so
-the stream differs from the JAX tracker's; ``masked_resample`` also takes
-explicit ``picks``. It picks the same rows from the same picks as the JAX
-package's ``masked_resample`` and ``masked_resample_long``, with one prefix-sum
-path for every row length. The evaluator reseeds its generator at every
-dispatch, as the JAX evaluator derives its keys from its seed at every
+The body draws nothing: a batch's uniforms, one (T - 1, B, n) tensor per
+resample site, are drawn up front from a ``torch.Generator`` (``FrameLoop.draw``,
+as the JAX tracker splits its T - 1 keys before the scan), and step t scales
+row t - 1 by its count (``scale_picks``). The stream differs from the JAX
+tracker's; ``masked_resample`` picks the same rows from the same picks as the
+JAX package's ``masked_resample`` and ``masked_resample_long``, with one
+prefix-sum path for every row length. The evaluator reseeds its generator at
+every dispatch, as the JAX evaluator derives its keys from its seed at every
 dispatch, so a batch's boxes depend only on the seed and the batch.
 """
 
@@ -28,12 +35,14 @@ from __future__ import annotations
 import math
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core import geometry as geo
+from ..utils import cuda_graph
 from .evaluator import (RESULT_FILE, aggregation_mode, anno_scene_frame, ref_box_mode, result_line,
                         save_candidate_pcd)
 from .metrics import Evaluator
@@ -58,7 +67,8 @@ def crop_canonical(pts, valid, box_vec, wlh, offset, scale: float):
     [cx, cy, cz, yaw], wlh (B, 3), offset a float or (B,) -> (canon (B, N, 3),
     mask (B, N))."""
     canon = torch.matmul(pts - box_vec[:, None, :3], _rot_z(box_vec[:, 3]))
-    offset = torch.as_tensor(offset, dtype=pts.dtype, device=pts.device).reshape(-1, 1)
+    if isinstance(offset, torch.Tensor):
+        offset = offset.reshape(-1, 1)
     w, l, h = wlh.unbind(-1)
     half = torch.stack([l / 2 * scale, w / 2 * scale, h / 2 * scale], -1) + offset  # (B, 3)
     mask = (canon.abs() <= half[:, None, :]).all(-1) & valid
@@ -80,12 +90,18 @@ def precrop_mask(pts, box_vec, wlh, offset: float, scale: float):
     return ((d < half) & (d > -half)).all(-1)
 
 
+def scale_picks(u, count):
+    """Uniforms ``u`` (B, n_out) in [0, 1) -> picks uniform in [0, count) per
+    row (count (B,))."""
+    hi = count[:, None].clamp_min(1)
+    return torch.minimum((u * hi).long(), hi - 1)
+
+
 def uniform_picks(count, n_out: int, generator=None):
     """(B, n_out) draws from ``generator``, uniform in [0, count) per row
     (count (B,)); the picks ``masked_resample`` takes when it is given none."""
-    hi = count[:, None].clamp_min(1)
     u = torch.rand(count.shape[0], n_out, generator=generator, device=count.device)
-    return torch.minimum((u * hi).long(), hi - 1)
+    return scale_picks(u, count)
 
 
 def masked_resample(pts, mask, n_out: int, generator=None, picks=None):
@@ -114,87 +130,165 @@ def decode_box_offset(box_vec, offset4, use_z: bool):
     return torch.cat([new_center, new_yaw[:, None]], -1)
 
 
-def make_device_tracker(model, data_cfg: dict, test_cfg: dict):
-    """The batched whole-tracklet tracker. ``model`` maps {"search_points" (B, S, 3),
+class FrameLoop:
+    """The batched whole-tracklet tracker as one frame step over static tensors
+    (the JAX tracker's ``step``). ``model`` maps {"search_points" (B, S, 3),
     "template_points" (B, P, 3)} to a dict with "pred_box_data" (B, np, 5).
 
-    Returns ``track(pcs, counts, init_boxes, wlhs, generator, gt_boxes) -> (boxes, scores)``:
-      pcs (B, T, N, 3) padded clouds, float32 or int16 on the QUANT_SCALE grid;
-      counts (B, T) valid points per frame; init_boxes (B, 4) frame-0 boxes
-      [cx, cy, cz, yaw]; wlhs (B, 3) box sizes (every predicted box keeps its
-      tracklet's frame-0 size); gt_boxes (B, T, 4), needed by the GT REF_BOX
-      modes only -> boxes (B, T, 4) with frame 0 = init_boxes, scores (B, T)
-      best-proposal logits with frame 0 = +inf.
+    A batch's state (``allocate``) holds its inputs, the frame index ``t``
+    (a (1,) device tensor), the previous boxes and the outputs: boxes (B, T, 4)
+    with frame 0 = the given box, scores (B, T) best-proposal logits with frame
+    0 = +inf. ``load`` copies a batch in, ``start`` sets the carries to frame 0,
+    and each ``step`` tracks frame t and advances t, reading and writing only
+    the state's tensors, so that one captured step serves every frame.
+
+    Called, it is the eager loop: ``track(pcs, counts, init_boxes, wlhs,
+    generator, gt_boxes) -> (boxes, scores)``; pcs (B, T, N, 3) padded clouds,
+    float32 or int16 on the QUANT_SCALE grid; counts (B, T) valid points per
+    frame; init_boxes (B, 4) frame-0 boxes [cx, cy, cz, yaw]; wlhs (B, 3) box
+    sizes (every predicted box keeps its tracklet's frame-0 size); gt_boxes
+    (B, T, 4), needed by the GT REF_BOX modes only.
     """
-    ref_mode = ref_box_mode(test_cfg)
-    aggregation = aggregation_mode(test_cfg)
-    search_size = int(data_cfg["SEARCH_INPUT_SIZE"])
-    template_size = int(data_cfg["TEMPLATE_INPUT_SIZE"])
-    search_offset = float(data_cfg.get("SEARCH_BB_OFFSET", 0.0))
-    search_scale = float(data_cfg.get("SEARCH_BB_SCALE", 1.25))
-    model_offset = float(data_cfg.get("MODEL_BB_OFFSET", 0.0))
-    model_scale = float(data_cfg.get("MODEL_BB_SCALE", 1.25))
-    use_z = bool(data_cfg.get("USE_Z_AXIS", False))
+
+    def __init__(self, model, data_cfg: dict, test_cfg: dict):
+        self.model = model
+        self.ref_mode = ref_box_mode(test_cfg)
+        self.aggregation = aggregation_mode(test_cfg)
+        self.search_size = int(data_cfg["SEARCH_INPUT_SIZE"])
+        self.template_size = int(data_cfg["TEMPLATE_INPUT_SIZE"])
+        self.search_offset = float(data_cfg.get("SEARCH_BB_OFFSET", 0.0))
+        self.search_scale = float(data_cfg.get("SEARCH_BB_SCALE", 1.25))
+        self.model_offset = float(data_cfg.get("MODEL_BB_OFFSET", 0.0))
+        self.model_scale = float(data_cfg.get("MODEL_BB_SCALE", 1.25))
+        self.use_z = bool(data_cfg.get("USE_Z_AXIS", False))
+
+    def allocate(self, B: int, T: int, N: int, dtype, has_gt: bool, device) -> SimpleNamespace:
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return SimpleNamespace(
+            pcs=zeros(B, T, N, 3, dtype=dtype), counts=zeros(B, T, dtype=torch.int32), init=zeros(B, 4),
+            wlhs=zeros(B, 3), gt=zeros(B, T, 4) if has_gt else None,
+            u_search=zeros(T - 1, B, self.search_size), u_template=zeros(T - 1, B, self.template_size),
+            frame_ids=torch.arange(T, device=device), point_ids=torch.arange(N, device=device),
+            valid=zeros(B, T, N, dtype=torch.bool), search_offsets=zeros(B), first_canon=zeros(B, N, 3),
+            first_mask=zeros(B, N, dtype=torch.bool), t=zeros(1, dtype=torch.long), prev=zeros(B, 4),
+            boxes=zeros(B, T, 4), scores=zeros(B, T),
+        )
+
+    def draw(self, generator, B: int, T: int, device):
+        """The batch's uniforms, search then template: (T - 1, B, S), (T - 1, B, P)."""
+        return (torch.rand((T - 1, B, self.search_size), generator=generator, device=device),
+                torch.rand((T - 1, B, self.template_size), generator=generator, device=device))
+
+    @staticmethod
+    def load(s, pcs, counts, init_boxes, wlhs, u_search, u_template, gt_boxes=None) -> None:
+        for dst, src in ((s.pcs, pcs), (s.counts, counts), (s.init, init_boxes), (s.wlhs, wlhs),
+                         (s.u_search, u_search), (s.u_template, u_template), (s.gt, gt_boxes)):
+            if dst is not None:
+                dst.copy_(src, non_blocking=True)
+
+    @staticmethod
+    def _frames(pcs):
+        return pcs.float() * QUANT_SCALE if pcs.dtype == torch.int16 else pcs
+
+    def _frame(self, s, t):
+        return self._frames(s.pcs.index_select(1, t)[:, 0])
+
+    def _crop_model(self, pts, mask, boxes, wlhs):
+        return crop_canonical(pts, mask, boxes, wlhs, self.model_offset, self.model_scale)
+
+    def _resample(self, pts, mask, n_out, u):
+        # looked up on the module at every call, so that a test's patch reaches it
+        return masked_resample(pts, mask, n_out, picks=scale_picks(u, mask.sum(-1)))[0]
 
     @torch.no_grad()
-    def track(pcs, counts, init_boxes, wlhs, generator=None, gt_boxes=None):
-        if ref_mode != "PREVIOUS_RESULT" and gt_boxes is None:
-            raise ValueError(f"REF_BOX={ref_mode} needs the gt_boxes (B, T, 4) array")
-        B, T, N = pcs.shape[:3]
+    def start(self, s) -> None:
+        """Frame 0: the valid-point masks, the search slack, the first frame's
+        template crop, t = 1 and the carries."""
+        B, T, _ = s.valid.shape
+        s.valid.copy_(s.point_ids[None, None, :] < s.counts[:, :, None])
         # the search crop's slack of 0.6 * length (the reference evaluator's
         # crop_center_pc gt branch), per tracklet
-        search_offsets = search_offset + 0.6 * wlhs[:, 1]
-        valid = torch.arange(N, device=pcs.device)[None, None, :] < counts[:, :, None]
+        s.search_offsets.copy_(self.search_offset + 0.6 * s.wlhs[:, 1])
+        canon, mask = self._crop_model(self._frames(s.pcs[:, 0]), s.valid[:, 0], s.init, s.wlhs)
+        s.first_canon.copy_(canon)
+        s.first_mask.copy_(mask)
+        s.t.fill_(1)
+        s.prev.copy_(s.init)
+        s.boxes.copy_(s.init[:, None].expand(B, T, 4))
+        s.scores.fill_(math.inf)
 
-        def frames(t0, t1):
-            f = pcs[:, t0:t1]
-            return f.float() * QUANT_SCALE if f.dtype == torch.int16 else f
+    @torch.no_grad()
+    def step(self, s) -> None:
+        """Track frame t of every tracklet, write its box and score at t, advance t."""
+        t = s.t
+        prev_t = t - 1
+        if self.ref_mode == "PREVIOUS_GT":
+            ref_boxes = s.gt.index_select(1, prev_t)[:, 0]
+        elif self.ref_mode == "CURRENT_GT":
+            ref_boxes = s.gt.index_select(1, t)[:, 0]
+        else:
+            ref_boxes = s.prev
+        cur_pts = self._frame(s, t)
+        search_canon, search_mask = crop_canonical(cur_pts, s.valid.index_select(1, t)[:, 0], ref_boxes, s.wlhs,
+                                                   s.search_offsets, self.search_scale)
+        search_mask &= precrop_mask(cur_pts, ref_boxes, s.wlhs, self.search_offset, self.search_scale)
+        search = self._resample(search_canon, search_mask, self.search_size, s.u_search.index_select(0, prev_t)[0])
 
-        def crop_model(pts, mask, boxes):
-            return crop_canonical(pts, mask, boxes, wlhs, model_offset, model_scale)
+        # the template follows the predicted trajectory in every REF_BOX mode
+        if self.aggregation == "FIRST":
+            tmpl, tmpl_mask = s.first_canon, s.first_mask
+        elif self.aggregation == "ALL":
+            # every frame cropped around its predicted box so far (frame 0
+            # around the given one), frames f >= t masked out, one resample
+            # over the union
+            B, T, N = s.valid.shape
+            canon, mask = self._crop_model(self._frames(s.pcs).reshape(B * T, N, 3), s.valid.reshape(B * T, N),
+                                           s.boxes.reshape(B * T, 4), s.wlhs[:, None].expand(B, T, 3).reshape(B * T, 3))
+            mask = mask.reshape(B, T, N) & (s.frame_ids < t)[None, :, None]
+            tmpl, tmpl_mask = canon.reshape(B, T * N, 3), mask.reshape(B, T * N)
+        else:
+            tmpl, tmpl_mask = self._crop_model(self._frame(s, prev_t), s.valid.index_select(1, prev_t)[:, 0], s.prev,
+                                               s.wlhs)
+            if self.aggregation == "FIRSTANDPREVIOUS":
+                tmpl, tmpl_mask = torch.cat([s.first_canon, tmpl], 1), torch.cat([s.first_mask, tmpl_mask], 1)
+        template = self._resample(tmpl, tmpl_mask, self.template_size, s.u_template.index_select(0, prev_t)[0])
 
-        prev_boxes, prev_pts = init_boxes, frames(0, 1)[:, 0]
-        first_canon, first_mask = crop_model(prev_pts, valid[:, 0], init_boxes)
-        boxes, scores = [init_boxes], [torch.full((B,), math.inf, device=pcs.device)]
-        for t in range(1, T):
-            if ref_mode == "PREVIOUS_GT":
-                ref_boxes = gt_boxes[:, t - 1]
-            elif ref_mode == "CURRENT_GT":
-                ref_boxes = gt_boxes[:, t]
-            else:
-                ref_boxes = prev_boxes
-            cur_pts = frames(t, t + 1)[:, 0]
-            search_canon, search_mask = crop_canonical(cur_pts, valid[:, t], ref_boxes, wlhs,
-                                                       search_offsets, search_scale)
-            search_mask &= precrop_mask(cur_pts, ref_boxes, wlhs, search_offset, search_scale)
-            search, _ = masked_resample(search_canon, search_mask, search_size, generator)
+        data = self.model({"search_points": search, "template_points": template})["pred_box_data"]
+        best_idx = torch.argmax(data[:, :, 4], dim=1)  # first of equal maxima
+        best = torch.gather(data, 1, best_idx[:, None, None].expand(-1, 1, data.shape[-1]))[:, 0]
+        new_boxes = decode_box_offset(ref_boxes, best[:, :4], self.use_z)
+        s.prev.copy_(new_boxes)
+        s.boxes.index_copy_(1, t, new_boxes[:, None])
+        s.scores.index_copy_(1, t, best[:, 4:5])
+        t.add_(1)
 
-            # the template follows the predicted trajectory in every REF_BOX mode
-            if aggregation == "FIRST":
-                tmpl, tmpl_mask = first_canon, first_mask
-            elif aggregation == "ALL":
-                # every frame f < t cropped around its predicted box (frame 0
-                # around the given one), resampled once over the union
-                hist = torch.stack(boxes, 1)  # (B, t, 4)
-                canon, mask = crop_canonical(frames(0, t).reshape(B * t, N, 3), valid[:, :t].reshape(B * t, N),
-                                             hist.reshape(B * t, 4), wlhs.repeat_interleave(t, 0),
-                                             model_offset, model_scale)
-                tmpl, tmpl_mask = canon.reshape(B, t * N, 3), mask.reshape(B, t * N)
-            else:
-                tmpl, tmpl_mask = crop_model(prev_pts, valid[:, t - 1], prev_boxes)
-                if aggregation == "FIRSTANDPREVIOUS":
-                    tmpl, tmpl_mask = torch.cat([first_canon, tmpl], 1), torch.cat([first_mask, tmpl_mask], 1)
-            template, _ = masked_resample(tmpl, tmpl_mask, template_size, generator)
+    @torch.no_grad()
+    def __call__(self, pcs, counts, init_boxes, wlhs, generator=None, gt_boxes=None):
+        if self.ref_mode != "PREVIOUS_RESULT" and gt_boxes is None:
+            raise ValueError(f"REF_BOX={self.ref_mode} needs the gt_boxes (B, T, 4) array")
+        B, T, N = pcs.shape[:3]
+        s = self.allocate(B, T, N, pcs.dtype, gt_boxes is not None, pcs.device)
+        self.load(s, pcs, counts, init_boxes, wlhs, *self.draw(generator, B, T, pcs.device), gt_boxes)
+        self.start(s)
+        for _ in range(T - 1):
+            self.step(s)
+        return s.boxes, s.scores
 
-            data = model({"search_points": search, "template_points": template})["pred_box_data"]
-            best_idx = torch.argmax(data[:, :, 4], dim=1)  # first of equal maxima
-            best = torch.gather(data, 1, best_idx[:, None, None].expand(-1, 1, data.shape[-1]))[:, 0]
-            prev_boxes, prev_pts = decode_box_offset(ref_boxes, best[:, :4], use_z), cur_pts
-            boxes.append(prev_boxes)
-            scores.append(best[:, 4])
-        return torch.stack(boxes, 1), torch.stack(scores, 1)
 
-    return track
+def make_device_tracker(model, data_cfg: dict, test_cfg: dict) -> FrameLoop:
+    """The batched whole-tracklet tracker, called as ``track(pcs, counts,
+    init_boxes, wlhs, generator, gt_boxes) -> (boxes, scores)`` (``FrameLoop``)."""
+    return FrameLoop(model, data_cfg, test_cfg)
+
+
+def tracker_graph_key(pcs, has_gt: bool, model) -> tuple:
+    """What a captured frame step is keyed by: what the JAX jit retraces on
+    (B, T_pad, n_pad, the cloud's dtype, the ground truth present) and the
+    model's ``cuda_graph.model_signature``."""
+    B, T, N = pcs.shape[:3]
+    return B, T, N, pcs.dtype, has_gt, cuda_graph.model_signature(model)
 
 
 class DeviceTrackingEvaluator:
@@ -212,6 +306,11 @@ class DeviceTrackingEvaluator:
     writes it, and with TEST.SAVE_PCD each frame's search cloud is a file of
     ``<output_dir>/pcd/``: the crop and resample of the host evaluator around
     the boxes this tracker used, since the device's own clouds stay there.
+
+    On the GPU every frame step is a replay of the batch shape's captured step
+    body (``graphs``: at most ``cuda_graph.GRAPH_CACHE_SIZE`` shapes, keyed by
+    ``tracker_graph_key``); a capture that fails raises. On the CPU the same body
+    runs eagerly.
     """
 
     def __init__(self, cfg: dict, model, max_points: int = 16384, batch_size: int = 8,
@@ -221,8 +320,10 @@ class DeviceTrackingEvaluator:
         self.max_points = int(max_points)
         self.batch_size = int(batch_size)
         self.seed = seed
-        self.track_fn = make_device_tracker(model, cfg["DATA_CONFIG"], cfg["TEST"])
+        self.loop = FrameLoop(model, cfg["DATA_CONFIG"], cfg["TEST"])
         self.needs_gt = ref_box_mode(cfg["TEST"]) != "PREVIOUS_RESULT"
+        # captured frame steps by batch shape (GPU)
+        self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
         self.generator = torch.Generator(device=self.device)  # reseeded at every dispatch
         self.evaluator = Evaluator(ref_coord=str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")))
         self._fp = None
@@ -237,6 +338,7 @@ class DeviceTrackingEvaluator:
             self._pcd_dir.mkdir(parents=True, exist_ok=True)
 
     def close(self):
+        self.graphs.clear()
         if self._fp is not None:
             self._fp.close()
             self._fp = None
@@ -269,6 +371,24 @@ class DeviceTrackingEvaluator:
         self.generator.manual_seed(self.seed)
         if len(tracklets) > self.batch_size:
             raise ValueError(f"dispatch_batch got {len(tracklets)} tracklets > batch_size={self.batch_size}")
+        boxes = self._track(self._pack(tracklets))
+        done = None
+        if self.device.type == "cuda":
+            # copied out in stream order, before the next batch can overwrite them,
+            # into pinned memory, so that finish_batch waits for this copy alone and
+            # not for the batches enqueued after it
+            boxes = torch.empty(boxes.shape, dtype=boxes.dtype, pin_memory=True).copy_(boxes, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return boxes, done, tracklets
+
+    def _pack(self, tracklets) -> dict:
+        """The batch as host tensors: pcs (B, T_pad, n_pad, 3) int16, counts,
+        init_boxes, wlhs and, for the GT REF_BOX modes, gt_boxes. For a GPU they
+        are pinned, so that their copies to the device are asynchronous: PyTorch's
+        host allocator hands a pinned block out again only once the copies that
+        read it have run, so the next batch's packing never overwrites this
+        one's before it is on the device."""
         T_max = max(len(pcs) for pcs, _, _ in tracklets)
         T_pad = max(2, -(-T_max // FRAME_BUCKET) * FRAME_BUCKET)
         n_real = len(tracklets)
@@ -277,11 +397,14 @@ class DeviceTrackingEvaluator:
         n_max = max(min(len(pc), self.max_points) for pcs, _, _ in tracklets for pc in pcs)
         n_pad = min(self.max_points, max(256, -(-n_max // 256) * 256))
 
-        pcs_arr = np.zeros((B, T_pad, n_pad, 3), np.int16)
-        counts = np.zeros((B, T_pad), np.int32)
-        init_boxes = np.zeros((B, 4), np.float32)
-        wlhs = np.zeros((B, 3), np.float32)
-        gt = np.zeros((B, T_pad, 4), np.float32) if self.needs_gt else None
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+
+        batch = {"pcs": zeros(B, T_pad, n_pad, 3, dtype=torch.int16), "counts": zeros(B, T_pad, dtype=torch.int32),
+                 "init_boxes": zeros(B, 4), "wlhs": zeros(B, 3),
+                 "gt_boxes": zeros(B, T_pad, 4) if self.needs_gt else None}
+        pcs_arr, counts, init_boxes, wlhs = (batch[k].numpy() for k in ("pcs", "counts", "init_boxes", "wlhs"))
+        gt = None if batch["gt_boxes"] is None else batch["gt_boxes"].numpy()
         for b in range(B):
             pcs, boxes, _ = tracklets[min(b, n_real - 1)]
             pcs_arr[b], counts[b] = self._pad_tracklet(pcs, T_pad, n_pad)
@@ -290,20 +413,59 @@ class DeviceTrackingEvaluator:
             if gt is not None:
                 gt[b, : len(boxes)] = np.stack([self.box_to_vec(g) for g in boxes])
                 gt[b, len(boxes):] = gt[b, len(boxes) - 1]  # padded frames reuse the last box
+        return batch
 
-        dev = self.device
-        boxes_dev, _ = self.track_fn(
-            torch.from_numpy(pcs_arr).to(dev), torch.from_numpy(counts).to(dev),
-            torch.from_numpy(init_boxes).to(dev), torch.from_numpy(wlhs).to(dev), self.generator,
-            None if gt is None else torch.from_numpy(gt).to(dev),
-        )
-        return boxes_dev, wlhs, tracklets
+    def _track(self, batch):
+        """The (B, T, 4) boxes of a packed batch on the device, enqueued: the
+        eager loop on the CPU, the captured frame step on the GPU."""
+        if self.device.type == "cpu":
+            return self._track_eager(batch)
+        return self._track_graphed(batch)
+
+    def _track_eager(self, batch):
+        """``FrameLoop`` called: a Python loop over the step body."""
+        dev = {k: None if v is None else v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        boxes, _ = self.loop(dev["pcs"], dev["counts"], dev["init_boxes"], dev["wlhs"], self.generator,
+                             dev["gt_boxes"])
+        return boxes
+
+    def _track_graphed(self, batch):
+        """The batch shape's captured frame step, replayed T - 1 times. A shape
+        met for the first time runs its first frame step eagerly (which builds
+        the kernels) and is then captured, so that frame step 1 is the eager run
+        and the T - 2 others are replays. Returns the state's boxes, which the
+        next batch of this shape overwrites."""
+        pcs = batch["pcs"]
+        B, T, N = pcs.shape[:3]
+        key = tracker_graph_key(pcs, batch["gt_boxes"] is not None, self.loop.model)
+        entry = self.graphs.get(key)
+        if entry is None:
+            state = self.loop.allocate(B, T, N, pcs.dtype, batch["gt_boxes"] is not None, self.device)
+            entry = self.graphs.put(key, cuda_graph.GraphEntry(state))
+        s = entry.state
+        self.loop.load(s, batch["pcs"], batch["counts"], batch["init_boxes"], batch["wlhs"],
+                       *self.loop.draw(self.generator, B, T, self.device), batch["gt_boxes"])
+        self.loop.start(s)
+        steps = T - 1
+        if entry.graph is None:
+            entry.graph = cuda_graph.StepGraph(lambda: self.loop.step(s), self.device)
+            steps -= 1
+        for _ in range(steps):
+            entry.graph.replay()
+        return s.boxes
+
+    @staticmethod
+    def boxes(handle) -> torch.Tensor:
+        """Wait for a dispatched batch and return its (B, T, 4) boxes on the host."""
+        boxes, done, _ = handle
+        if done is not None:
+            done.synchronize()
+        return boxes
 
     def finish_batch(self, handle):
         """Wait for a dispatched batch, score it, and return per-tracklet lists of
         predicted ``Box``es."""
-        boxes_dev, wlhs, tracklets = handle
-        return self._score(boxes_dev.cpu().numpy(), tracklets)
+        return self._score(self.boxes(handle).numpy(), handle[2])
 
     def track_batch(self, tracklets):
         """Track and score ``tracklets`` in chunks of ``batch_size``."""

@@ -7,9 +7,11 @@ frames TEST.SHAPE_AGGREGATION names around their predicted boxes, runs the
 network and decodes the best proposal back to the world frame
 (``get_box_by_offset``). The crops and resamples are the numpy code of
 ``core/geometry.py`` with its reseeded RNG, so they are the JAX host loop's
-exactly; the forward and the argmax over the proposals run on the device, and
-5 floats come back a frame. With TEST.SAVE_PCD each frame's search cloud is
-written as a ``.pcd`` in the world frame.
+exactly; the forward and the argmax over the proposals run on the device, as
+one replay of a captured CUDA graph on the GPU (``TrackStep``, the JAX
+package's jitted ``track_step``), and 5 floats come back a frame. With
+TEST.SAVE_PCD each frame's search cloud is written as a ``.pcd`` in the world
+frame.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..core import geometry as geo
-from ..utils import timer
+from ..utils import cuda_graph, timer
 from ..utils.common import AverageMeter
 from .metrics import Evaluator
 
@@ -79,17 +81,41 @@ def aggregation_mode(test_cfg: dict) -> str:
     return "ALL"
 
 
-def make_track_step(model):
+@torch.no_grad()
+def best_proposal(model, search_points, template_points):
     """One frame's inference: the forward on a (1, S, 3) search and a (1, P, 3)
-    template, and the best proposal taken on the device. Returns the (5,)
-    tensor [dx, dy, dz, dtheta_deg, score] on the model's device."""
+    template, and the best proposal taken on the device -> the (5,) tensor
+    [dx, dy, dz, dtheta_deg, score] on the model's device."""
+    data = model({"search_points": search_points, "template_points": template_points})["pred_box_data"][0]
+    return data.index_select(0, torch.argmax(data[:, 4]).reshape(1))[0]
+
+
+class TrackStep:
+    """``best_proposal`` of ``model`` as the host loop calls it, the counterpart
+    of the JAX package's jitted ``track_step``: on the GPU a CUDA graph per
+    (search, template) shape and ``cuda_graph.model_signature``, replayed on
+    inputs copied into its static buffers (the first call of a shape runs
+    eagerly, then captures); on the CPU the forward itself."""
+
+    def __init__(self, model):
+        self.model = model
+        self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
 
     @torch.no_grad()
-    def track_step(search_points, template_points):
-        data = model({"search_points": search_points, "template_points": template_points})["pred_box_data"][0]
-        return data[torch.argmax(data[:, 4])]
-
-    return track_step
+    def __call__(self, search_points, template_points):
+        if search_points.device.type == "cpu":
+            return best_proposal(self.model, search_points, template_points)
+        key = (tuple(search_points.shape), tuple(template_points.shape), cuda_graph.model_signature(self.model))
+        entry = self.graphs.get(key)
+        if entry is None:
+            inputs = (search_points.clone(), template_points.clone())
+            graph = cuda_graph.StepGraph(lambda: best_proposal(self.model, *inputs), search_points.device)
+            self.graphs.put(key, cuda_graph.GraphEntry(inputs, graph))
+            return graph.first
+        for dst, src in zip(entry.state, (search_points, template_points)):
+            dst.copy_(src)
+        entry.graph.replay()
+        return entry.graph.output.clone()
 
 
 class TrackingEvaluator:
@@ -106,7 +132,7 @@ class TrackingEvaluator:
         self.aggregation = aggregation_mode(self.test_cfg)
         self.model = model
         self.device = resolve_device(device)
-        self.track_step = make_track_step(model)
+        self.track_step = TrackStep(model)
         self.evaluator = Evaluator(ref_coord=str(self.data_cfg.get("REF_COOR", "lidar")))
         self.frame_time = AverageMeter()
         self.batch_num = 0
@@ -182,6 +208,7 @@ class TrackingEvaluator:
         return 1.0 / self.frame_time.avg if self.frame_time.count else 0.0
 
     def close(self):
+        self.track_step.graphs.clear()
         if self._fp is not None:
             self._fp.close()
             self._fp = None

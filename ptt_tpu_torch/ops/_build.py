@@ -125,7 +125,9 @@ def on_device(device):
     the current device while the kernel is launched, and the handle of its
     current stream. Where it already is the current device, the usual case, the
     guard is the null context: switching devices and wrapping the stream in an
-    object cost more host time than a small kernel runs."""
+    object cost more host time than a small kernel runs. While a CUDA graph is
+    captured the current stream is the capture stream, so the launches (and
+    ``sa.cu``'s programmatic dependency between its two) are captured."""
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     guard = _NO_GUARD if index == current else torch.cuda.device(index)
