@@ -92,10 +92,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      captured model, against the eager loop on those weights; and
      ``set_use_kernels(False)`` after a capture: a new graph that launches no
      FPS or SA kernel.
+  18. data parallelism, two ranks sharing the one card on the gloo backend
+     (NCCL refuses two ranks on one device), each started by torchrun: (a)
+     full-width ptt_synth.yaml training from the trained asset on the kernels,
+     global B = 48 (24 a rank; this script is each rank, ``--train-rank DIR``),
+     against one process with B = 48 on the same batches from the same state:
+     step 0's loss terms, gradient norm, averaged gradient, BatchNorm running
+     statistics and parameters within rel 1e-4, steps 1-2 reported (failing
+     only at a fault's size), the ranks bit-equal after 3 steps, the ranks'
+     kernel launches, ms a step alternated (one process, the ranks, one
+     process); (b) the test CLI as two ranks (``--launcher pytorch``) on phase
+     11a's tree: the two result files hold 11a's frames, the merged
+     Success/Precision within 1.0 of 11a's, each rank's lines equal to one
+     process's on its shard.
 The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
 device's launch counts must equal the wrappers' and replays' counts.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
+``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, not a run.
 """
 
 from __future__ import annotations
@@ -105,6 +119,7 @@ import json
 import logging
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1696,7 +1711,8 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
     """Phase 11: the test CLI, as a subprocess, on KITTI-format trees written
     under ``tmp``: (a) the agreement tracklets, against phase 10's numbers; (b)
     a 150-frame scene of 120,000-point sweeps at the default max_points, left
-    in ``tmp/sweeps`` for phase 13b."""
+    in ``tmp/sweeps`` for phase 13b. Returns (a)'s device-path Success,
+    Precision and frame count."""
     from ptt_tpu_torch.config import ptt_config
 
     try:
@@ -1722,6 +1738,7 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
         steps = 31
         if got["device"]["launches"]["fps"] != 2 * steps or got["device"]["launches"]["sa"] != 7 * steps:
             fail(f"[11a] device path launches {got['device']['launches']}, not 2 and 7 per step over {steps} steps")
+        phase11a = {"success": got["device"]["success"], "precision": got["device"]["precision"], "frames": frames}
 
         # (b) KITTI's frame size: scene 0019, 150 sweeps, cars of 40, 80, 120, 150 frames
         root = os.path.join(tmp, "sweeps")
@@ -1760,6 +1777,7 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
     finally:
         for tag in ("chip_smoke_11a", "chip_smoke_11b"):
             shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt", tag), ignore_errors=True)
+    return phase11a
 
 
 def kitti_train_phase(model, batch, device, card):
@@ -1828,6 +1846,230 @@ def kitti_train_phase(model, batch, device, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# ------------------------------------------------------------ data parallelism (phase 18)
+
+DIST_RANKS = 2  # ranks that share the one card, on the gloo backend (NCCL refuses two ranks on one device)
+DIST_STEPS = 3
+DIST_TIMED = 10  # steps timed after the compared ones
+DIST_TIMEOUT = 600  # seconds a torchrun of the ranks may take
+DIST_STEP0_RTOL = 1e-4  # step 0 against one process: PERF.md section 2's step-0 band
+DIST_FAULT_RTOL = 5e-2  # steps 1-2: FPS picks may flip with the summation order; beyond this, a fault
+ADAM_EPS_FACTOR = 10  # parameters are held where the clipped gradient is at least 10 x Adam's eps
+
+
+def run_ranks(argv, tag):
+    """``python -m torch.distributed.run --standalone --nproc_per_node DIST_RANKS
+    argv`` from the repo root, in a process group of its own that is killed at
+    DIST_TIMEOUT; fails the run unless every rank exited 0. Returns the output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(DIST_RANKS),
+           *map(str, argv)]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        log(out[-4000:])
+        fail(f"{tag}: the ranks did not finish within {DIST_TIMEOUT} s")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        fail(f"{tag}: torchrun exited with {proc.returncode}")
+    return out
+
+
+def dist_train_rank(job_dir) -> int:
+    """Phase 18a, one rank under torchrun (``chip_smoke.py --train-rank DIR``):
+    the port's data-parallel step on its shard ([rank::world]) of the global
+    batches in DIR, from the trained asset, on the kernels; saves the metrics,
+    the averaged gradient and state after step 0, the state after the last
+    step, the launch counts and DIST_TIMED step times to DIR/rank<r>.pt."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from ptt_tpu_torch.config import ptt_synth_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.tools import kernel_launches
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import make_train_step
+    from ptt_tpu_torch.utils.dist import barrier, broadcast_module, init_distributed
+
+    rank, world, device = init_distributed("gloo", "env://", "cuda:0")
+    try:
+        cfg = ptt_synth_config()
+        job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+        model = build_network(cfg["MODEL"], device=device, train=True)
+        if rank == 0:
+            model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+        broadcast_module(model)
+        opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], job["iters_per_epoch"])
+        step = make_train_step(cfg["MODEL"], device=device)
+        shards = [{k: v[rank::world] for k, v in b.items()} for b in job["batches"]]
+        out = {"metrics": []}
+        for i, shard in enumerate(shards):
+            out["metrics"].append({k: float(v) for k, v in step(model, opt, shard).items()})
+            if i == 0:
+                out["grads"] = {n: p.grad.to("cpu", copy=True) for n, p in model.named_parameters()}
+                out["state0"] = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        out["state"] = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        out["launches"] = kernel_launches()
+        out["ms"] = []
+        for _ in range(DIST_TIMED):
+            torch.cuda.synchronize(device)
+            barrier()
+            t0 = time.perf_counter()
+            step(model, opt, shards[0])
+            torch.cuda.synchronize(device)
+            barrier()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.save(out, os.path.join(job_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_train_phase(device, card, tmp):
+    """Phase 18a: two ranks on the one card against one process, both at full
+    ptt_synth.yaml width from the trained asset on the kernels, global B = 48
+    (24 a rank) on the same batches: step 0 within DIST_STEP0_RTOL, steps 1-2
+    reported, the ranks bit-equal after DIST_STEPS steps, ms a step alternated
+    (one process, the ranks, one process)."""
+    from ptt_tpu_torch.config import ptt_synth_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import make_train_step
+
+    cfg = ptt_synth_config()
+    loader, batches = train_batches(cfg["DATA_CONFIG"], DIST_STEPS)
+    job_dir = os.path.join(tmp, "dist_train")
+    os.makedirs(job_dir)
+    torch.save({"batches": batches, "iters_per_epoch": len(loader)}, os.path.join(job_dir, "job.pt"))
+
+    model = build_network(cfg["MODEL"], device=device, train=True)
+    model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
+    step = make_train_step(cfg["MODEL"], device=device)
+    one = []
+    for i, batch in enumerate(batches):
+        one.append({k: float(v) for k, v in step(model, opt, batch).items()})
+        if i == 0:
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    one_ms = [median_step_ms(step, model, opt, [batches[0]] * DIST_TIMED)]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_ranks([__file__, "--train-rank", job_dir], "[18a]")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"), weights_only=False) for r in range(DIST_RANKS)]
+    one_ms.append(median_step_ms(step, model, opt, [batches[0]] * DIST_TIMED))
+
+    r0 = ranks[0]
+    step0 = {k: abs(r0["metrics"][0][k] - one[0][k]) / max(abs(one[0][k]), 1e-12) for k in one[0]}
+    g_scale = max(float(g.abs().max()) for g in grads.values())
+    grad_err = max(float((r0["grads"][n].to(device) - g).abs().max()) for n, g in grads.items()) / g_scale
+    stats_err = max(relerr(r0["state0"][k].to(device).float(), v.float()) for k, v in state0.items() if "running_" in k)
+    # Adam's first update is g / (|g| + eps): where the clipped gradient is near eps (rounding noise, a
+    # parameter the BatchNorm after it makes flat) it moves by up to ~lr under any summation order
+    lr, eps = float(cfg["OPTIMIZATION"]["LR"]), float(cfg["OPTIMIZATION"]["EPS"])
+    clip = min(1.0, float(cfg["OPTIMIZATION"]["GRAD_NORM_CLIP"]) / one[0]["grad_norm"])
+    held_err, noisy, noisy_move, n_params = 0.0, 0, 0.0, 0
+    for n, g in grads.items():
+        diff = (r0["state0"][n].to(device) - state0[n]).abs()
+        well = (g * clip).abs() >= ADAM_EPS_FACTOR * eps
+        held_err = max(held_err, float(diff[well].max()) / float(state0[n].abs().max()) if well.any() else 0.0)
+        noisy += int((~well).sum())
+        noisy_move = max(noisy_move, float(diff[~well].max()) / lr if (~well).any() else 0.0)
+        n_params += g.numel()
+    later = [{k: abs(r0["metrics"][i][k] - one[i][k]) / max(abs(one[i][k]), 1e-12) for k in ("loss", "grad_norm")}
+             for i in range(1, DIST_STEPS)]
+    equal = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ranks[0]["state"])
+    rank_ms = [float(np.median(r["ms"])) for r in ranks]
+    log(f"[18a] {DIST_RANKS} ranks on one card (gloo), ptt_synth.yaml full width, global B = {TRAIN_B} "
+        f"({TRAIN_B // DIST_RANKS} a rank), from the trained asset on the kernels, against one process on the same "
+        f"batches: step 0 rel diff {({k: f'{v:.1e}' for k, v in step0.items()})}; averaged gradient max |diff| "
+        f"{grad_err:.1e} of the largest entry; BatchNorm running statistics {stats_err:.1e}; parameters where the "
+        f"clipped gradient is >= {ADAM_EPS_FACTOR} x eps {held_err:.1e} (relative to each tensor's largest entry), "
+        f"the other {noisy} of {n_params} entries moved by at most {noisy_move:.2f} lr; steps 1-2 rel diff "
+        f"{[{k: f'{v:.1e}' for k, v in d.items()} for d in later]}; ranks bit-equal after {DIST_STEPS} steps "
+        f"{equal}; launches a rank over {DIST_STEPS} steps {[r['launches'] for r in ranks]}")
+    log(f"[18a] ms a step (median of {DIST_TIMED}), alternated: one process {one_ms[0]:.1f}, {DIST_RANKS} ranks "
+        f"{rank_ms} (a step ends when both ranks end), one process {one_ms[1]:.1f}; torchrun wall {wall:.1f} s; "
+        f"card {card}")
+    if max(step0.values()) > DIST_STEP0_RTOL or grad_err > DIST_STEP0_RTOL or stats_err > DIST_STEP0_RTOL \
+            or held_err > DIST_STEP0_RTOL:
+        fail(f"[18a] step 0 of the ranks is not within rel {DIST_STEP0_RTOL} of the one-process step")
+    if any(max(d.values()) > DIST_FAULT_RTOL for d in later):
+        fail(f"[18a] steps 1-2 of the ranks differ from one process beyond rel {DIST_FAULT_RTOL}")
+    if not equal or ranks[0]["metrics"] != ranks[1]["metrics"]:
+        fail("[18a] the two ranks' states differ after training")
+    want = {"fps": 2 * DIST_STEPS, "sa": 0, "group_fwd": 7 * DIST_STEPS, "group_bwd": 7 * DIST_STEPS}
+    if any(r["launches"] != want for r in ranks):
+        fail(f"[18a] launches a rank {[r['launches'] for r in ranks]}, not {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"one_process_ms": one_ms, "ranks_ms": rank_ms, "step0": step0, "grad_err": grad_err}
+
+
+def dist_test_phase(root, phase11a, model, device, card, tmp):
+    """Phase 18b: the test CLI as two ranks under torchrun on one card
+    (``--launcher pytorch --dist_backend gloo --device cuda:0``) on phase 11a's
+    KITTI tree of the agreement tracklets: the two result files hold 11a's
+    frames, the merged Success/Precision within 1.0 of 11a's, and each rank's
+    lines equal a one-process run (in this process) on that rank's shard."""
+    from ptt_tpu_torch.config import ptt_config
+    from ptt_tpu_torch.data.kitti import KittiTrackingDataset
+    from ptt_tpu_torch.eval.device_loop import eval_one_epoch_device
+
+    tag = "chip_smoke_18"
+    try:
+        t0 = time.perf_counter()
+        out = run_ranks(["-m", "ptt_tpu_torch.tools.test_tracking", "--launcher", "pytorch", "--dist_backend", "gloo",
+                         "--device", "cuda:0", "--ckpt", ASSET, "--max_points", 1024, "--extra_tag", tag,
+                         "--eval_tag", "device", "--set", "DATA_CONFIG.DATA_PATH", root, "DATA_CONFIG.DATA_SPLIT",
+                         "test:all"], "[18b]")
+        wall = time.perf_counter() - t0
+        records = [json.loads(line.split("  summary ", 1)[1]) for line in out.splitlines() if "  summary {" in line]
+        if len(records) != 1:
+            fail(f"[18b] {len(records)} summary lines, not rank 0's one")
+        rec = records[0]
+        data_dir = os.path.dirname(result_file(tag, "device"))
+        files = [os.path.join(data_dir, f"track_result.rank{r}.txt") for r in range(DIST_RANKS)]
+        lines = [line_count(f) for f in files]
+        frames = phase11a["frames"]
+        cfg = ptt_config()
+        cfg["DATA_CONFIG"]["DATA_PATH"] = root
+        ds = KittiTrackingDataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False)
+        items = [ds[i] for i in range(len(ds))]
+        same = []
+        for r in range(DIST_RANKS):
+            one_dir = os.path.join(tmp, f"dist_one{r}")
+            eval_one_epoch_device(cfg, model, [items[r::DIST_RANKS]], max_points=1024, batch_size=8,
+                                  result_dir=one_dir, device=device)
+            with open(files[r]) as a, open(os.path.join(one_dir, "final_result", "data", "track_result.txt")) as b:
+                same.append(a.read() == b.read())
+        ds_, dp_ = rec["success"] - phase11a["success"], rec["precision"] - phase11a["precision"]
+        steps = 32 - 1
+        log(f"[18b] test CLI as {DIST_RANKS} ranks (torchrun, gloo, cuda:0) on 11a's tree: merged Success "
+            f"{rec['success']:.2f} Precision {rec['precision']:.2f} (11a {phase11a['success']:.2f}/"
+            f"{phase11a['precision']:.2f}, delta {ds_:+.2f}/{dp_:+.2f}); result lines a rank {lines} (11a {frames}); "
+            f"each rank's lines equal to one process on its shard {same}; rank 0 launches {rec['launches']}, "
+            f"{rec['frames_per_s']:.1f} frames/s a rank; torchrun wall {wall:.1f} s; card {card}")
+        if sum(lines) != frames or rec.get("world_size") != DIST_RANKS:
+            fail(f"[18b] the rank files hold {lines} lines, not {frames} in all")
+        if abs(ds_) > 1.0 or abs(dp_) > 1.0:
+            fail("[18b] the merged Success/Precision are not within 1.0 of phase 11a's")
+        if not all(same):
+            fail("[18b] a rank's result lines differ from one process's on its shard")
+        if rec["launches"]["fps"] != 2 * steps or rec["launches"]["sa"] != 7 * steps:
+            fail(f"[18b] rank 0 launches {rec['launches']}, not 2 FPS and 7 SA a step over {steps} steps")
+    finally:
+        shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt", tag), ignore_errors=True)
+    return {"success": rec["success"], "precision": rec["precision"], "lines": lines}
 
 
 # ------------------------------------------------------ ptt_waymo, bf16, optimizers, nuScenes (phases 13-16)
@@ -2156,8 +2398,11 @@ def main() -> int:
     # 11 and 12: the CLIs on KITTI-format trees; 13 to 16: ptt_waymo, bf16 and the optimizers, nuScenes
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     try:
-        kitti_test_phase(agreement, phase10, model, device, card, tmp)
+        phase11a = kitti_test_phase(agreement, phase10, model, device, card, tmp)
         kitti_train_phase(model, batch, device, card)
+        # 18. data parallelism: two ranks on the one card against one process
+        phase18 = {"train": dist_train_phase(device, card, tmp),
+                   "test": dist_test_phase(os.path.join(tmp, "agreement"), phase11a, model, device, card, tmp)}
         del model
         torch.cuda.empty_cache()
         waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
@@ -2212,6 +2457,7 @@ def main() -> int:
              "bound_by": r[f"{pre}_by"], **({"library_ms": r["lib_ms"]} if pre == "bwd" else {})}
             for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
+    log("data_parallel " + json.dumps(phase18))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2220,4 +2466,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:  # a rank of phase 18a, started by torchrun
+        sys.exit(dist_train_rank(sys.argv[2]))
     sys.exit(main())

@@ -13,7 +13,10 @@ ball-query and argmax selections once on the TPU (ROADMAP.md "Known traps").
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -21,11 +24,20 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for the
-    CPU. Raises when CUDA is asked for and no GPU is present."""
+    CPU. Raises when CUDA is asked for and no GPU is present.
+
+    In a process group (``utils/dist.py``, one process per GPU) ``"cuda"``
+    means ``cuda:{LOCAL_RANK}``, an explicit ``cuda:N`` is kept, and the device
+    is made the current one, so that kernels are built and graphs captured
+    there."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "ptt_tpu_torch runs on a CUDA GPU and none is available; "
             "pass device='cpu' to run the plain PyTorch path"
         )
+    if device.type == "cuda" and torch.distributed.is_available() and torch.distributed.is_initialized():
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
     return device

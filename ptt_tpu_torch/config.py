@@ -300,20 +300,18 @@ def p2b_synth_config() -> dict:
     return config_by_path("synthetic_models/p2b_synth.yaml")
 
 
-def check_ported(cfg: dict, training: bool, devices: int = 1, sync_bn: bool = False) -> None:
+def check_ported(cfg: dict, training: bool, devices: int = 1) -> None:
     """Raises NotImplementedError, naming the ROADMAP.md item, for what the port
-    does not run: what needs more than one GPU (POINT_SHARDING over ``devices``
-    > 1, ``--sync_bn``), and clouds beyond the kernels' largest forms. The CLIs
-    call it before they build a loader; they run on one device, where
-    POINT_SHARDING splits nothing, as in the JAX package."""
+    does not run: POINT_SHARDING over ``devices`` > 1 (the processes of a
+    data-parallel group), and clouds beyond the kernels' largest forms. The
+    CLIs call it before they build a loader; on one device POINT_SHARDING
+    splits nothing, as in the JAX package."""
     from .ops.fps import MAX_POINTS
     from .ops.group import BACKWARD_MAX_POINTS
 
     todo = []
     if cfg["MODEL"].get("POINT_SHARDING", {}).get("ENABLED", False) and devices > 1:
         todo.append(f"MODEL.POINT_SHARDING over {devices} devices (Queue 1 item 10)")
-    if sync_bn:
-        todo.append("--sync_bn: multi-GPU training (Queue 1 item 9)")
     n = int(cfg["DATA_CONFIG"]["SEARCH_INPUT_SIZE"])
     if cfg["MODEL"]["BACKBONE_3D"]["SA_CONFIG"]["SAMPLE_METHOD"][0] in ("fps", "ffps") and n > MAX_POINTS:
         todo.append(f"FPS over {n} points, the FPS kernel takes at most {MAX_POINTS}")

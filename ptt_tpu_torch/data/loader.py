@@ -5,6 +5,12 @@ batches while the device trains on the current one (item construction is numpy
 work that releases the GIL). The train step uploads each batch to the device.
 ``build_dataloader`` makes a dataset by its DATA_CONFIG.DATASET name and its
 loader, for training or for tests.
+
+Under data parallelism each of ``num_shards`` processes loads its shard of
+every global batch: the indices ``batch_idx[shard_id::num_shards]``, as the JAX
+loader takes them. ``batch_size`` stays the global batch. Items are seeded by
+(seed, index), so a shard's items equal the same items of the one-process
+batch.
 """
 
 from __future__ import annotations
@@ -30,7 +36,15 @@ def identity_collate(items):
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, num_workers: int = 4, collate_fn=default_collate):
+                 seed: int = 0, num_workers: int = 4, collate_fn=default_collate, num_shards: int = 1,
+                 shard_id: int = 0):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
+        if drop_last and batch_size % num_shards:
+            # the JAX mesh refuses a batch its devices do not divide
+            raise ValueError(f"a training batch of {batch_size} does not split over {num_shards} processes")
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.dataset = dataset
         self.collate_fn = collate_fn
         self.batch_size = batch_size
@@ -49,14 +63,17 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
 
     def batch_indices(self):
-        """The dataset indices of each batch of the current epoch, in order."""
+        """The dataset indices of this shard of each batch of the current
+        epoch, in order; a shard left empty by a short last batch is skipped."""
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch])).permutation(n)
         else:
             order = np.arange(n)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        return [order[start:start + self.batch_size] for start in range(0, stop, self.batch_size)]
+        shards = (order[start:start + self.batch_size][self.shard_id::self.num_shards]
+                  for start in range(0, stop, self.batch_size))
+        return [idx for idx in shards if len(idx)]
 
     def __iter__(self):
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
@@ -96,14 +113,16 @@ class DataLoader:
 
 
 def build_dataloader(dataset_cfg: dict, class_names, batch_size: int, root_path=None, workers: int = 4, logger=None,
-                     training: bool = True, seed: int = 0):
+                     training: bool = True, seed: int = 0, num_shards: int = 1, shard_id: int = 0):
     """The dataset DATA_CONFIG.DATASET names and its loader: shuffled, stacked
     train batches without the last partial batch, or sequential batches of
-    whole test tracklets. Returns (dataset, loader)."""
+    whole test tracklets; shard ``shard_id`` of ``num_shards`` of each.
+    Returns (dataset, loader)."""
     from . import ALL_DATASETS
 
     dataset = ALL_DATASETS[dataset_cfg["DATASET"]](dataset_cfg=dataset_cfg, class_names=class_names,
                                                    training=training, root_path=root_path, logger=logger, seed=seed)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=training, drop_last=training, seed=seed,
-                        num_workers=workers, collate_fn=default_collate if training else identity_collate)
+                        num_workers=workers, collate_fn=default_collate if training else identity_collate,
+                        num_shards=num_shards, shard_id=shard_id)
     return dataset, loader

@@ -43,9 +43,9 @@ import torch
 from .. import resolve_device
 from ..core import geometry as geo
 from ..utils import cuda_graph
-from .evaluator import (RESULT_FILE, aggregation_mode, anno_scene_frame, ref_box_mode, result_line,
+from .evaluator import (aggregation_mode, anno_scene_frame, ref_box_mode, result_file_name, result_line,
                         save_candidate_pcd)
-from .metrics import Evaluator
+from .metrics import Evaluator, merged_main_metrics
 
 QUANT_SCALE = 1.0 / 256.0  # int16 fixed-point grid for the upload: 3.9 mm, range +-128 m
 FRAME_BUCKET = 32  # tracklet lengths are padded to a multiple of this
@@ -302,7 +302,7 @@ class DeviceTrackingEvaluator:
     and the batch to ``batch_size`` (last tracklet repeated, not scored). The GT
     REF_BOX modes also upload the (B, T, 4) ground truth, padded frames with the
     last box. With ``output_dir``, every scored frame is a line of
-    ``<output_dir>/final_result/data/track_result.txt``, as the host evaluator
+    ``<output_dir>/final_result/data/<result_file_name()>``, as the host evaluator
     writes it, and with TEST.SAVE_PCD each frame's search cloud is a file of
     ``<output_dir>/pcd/``: the crop and resample of the host evaluator around
     the boxes this tracker used, since the device's own clouds stay there.
@@ -331,7 +331,7 @@ class DeviceTrackingEvaluator:
         if output_dir is not None:
             final_dir = Path(output_dir) / "final_result" / "data"
             final_dir.mkdir(parents=True, exist_ok=True)
-            self._fp = open(final_dir / RESULT_FILE, "w")
+            self._fp = open(final_dir / result_file_name(), "w")
         self._pcd_dir = None
         if output_dir is not None and bool(cfg["TEST"].get("SAVE_PCD", False)):
             self._pcd_dir = Path(output_dir) / "pcd"
@@ -531,7 +531,9 @@ def eval_one_epoch_device(cfg, model, dataloader, epoch_id="?", logger=None, max
     batches, each a list of (pcs, boxes, annos) tracklets), in dispatch batches
     of ``batch_size``, two deep: batch k + 1 is enqueued on the device before
     the host waits for and scores batch k. Returns (success, precision, frames
-    per second)."""
+    per second); in a process group, where each rank tracks its shard of the
+    tracklets on its own device (its own captured graphs), Success and
+    Precision merged over the ranks and this rank's frames per second."""
     emit = logger.info if logger is not None else print
     ev = DeviceTrackingEvaluator(cfg, model, max_points=max_points, batch_size=batch_size, device=device,
                                  output_dir=result_dir)
@@ -558,7 +560,7 @@ def eval_one_epoch_device(cfg, model, dataloader, epoch_id="?", logger=None, max
         ev.finish_batch(in_flight)
     ev.close()
     elapsed = time.perf_counter() - start
-    s = ev.summary()
-    emit(f"[device eval] epoch {epoch_id}: Succ/Prec {s['success']:.1f}/{s['precision']:.1f}  "
-         f"({s['frames']} frames in {elapsed:.1f}s = {n_frames / elapsed:.1f} fps)")
-    return s["success"], s["precision"], n_frames / elapsed
+    succ, prec, frames = merged_main_metrics(ev.evaluator)
+    emit(f"[device eval] epoch {epoch_id}: Succ/Prec {succ:.1f}/{prec:.1f}  "
+         f"({frames} frames; local {n_frames} in {elapsed:.1f}s = {n_frames / elapsed:.1f} fps)")
+    return succ, prec, n_frames / elapsed

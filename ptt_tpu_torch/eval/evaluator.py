@@ -26,10 +26,19 @@ from .. import resolve_device
 from ..core import geometry as geo
 from ..utils import cuda_graph, timer
 from ..utils.common import AverageMeter
-from .metrics import Evaluator
+from .metrics import Evaluator, merged_main_metrics
 
 
-RESULT_FILE = "track_result.txt"  # the per-frame result file of a run
+def result_file_name(rank=None, world=None) -> str:
+    """The per-frame result file of a run: ``track_result.txt``, or
+    ``track_result.rank{i}.txt`` in a process group of more than one rank,
+    where each rank tracks its shard of the test tracklets. Default: this
+    process's rank and world size."""
+    if rank is None or world is None:
+        from ..utils.dist import get_dist_info
+
+        rank, world = get_dist_info()
+    return "track_result.txt" if world == 1 else f"track_result.rank{rank}.txt"
 
 
 def anno_scene_frame(anno, default_scene, default_frame):
@@ -121,7 +130,7 @@ class TrackStep:
 class TrackingEvaluator:
     """The per-tracklet tracking loop. ``cfg`` holds DATA_CONFIG and TEST;
     ``model`` is the tracker, already on ``device``. ``output_dir``, when
-    given, receives ``track_result.txt``; with TEST.SAVE_PCD the search clouds
+    given, receives ``result_file_name()``; with TEST.SAVE_PCD the search clouds
     go to ``pcd_dir`` (default ``<output_dir>/pcd``)."""
 
     def __init__(self, cfg: dict, model, output_dir=None, device="cuda", pcd_dir=None):
@@ -140,7 +149,7 @@ class TrackingEvaluator:
         if output_dir is not None:
             output_dir = Path(output_dir)
             output_dir.mkdir(parents=True, exist_ok=True)
-            self._fp = open(output_dir / RESULT_FILE, "w")
+            self._fp = open(output_dir / result_file_name(), "w")
         self._pcd_dir = None
         if bool(self.test_cfg.get("SAVE_PCD", False)) and (pcd_dir is not None or output_dir is not None):
             self._pcd_dir = Path(pcd_dir) if pcd_dir is not None else Path(output_dir) / "pcd"
@@ -225,9 +234,10 @@ class TrackingEvaluator:
 def eval_one_epoch(cfg, model, dataloader, epoch_id="?", logger=None, result_dir=None, device="cuda"):
     """Track every tracklet of ``dataloader`` (an iterable of batches, each a
     list of (pcs, boxes, annos) tracklets) with the host loop; writes
-    ``<result_dir>/final_result/data/track_result.txt`` (and with TEST.SAVE_PCD
-    ``<result_dir>/pcd/``) when ``result_dir`` is given. Returns (success,
-    precision)."""
+    ``<result_dir>/final_result/data/<result_file_name()>`` (and with
+    TEST.SAVE_PCD ``<result_dir>/pcd/``) when ``result_dir`` is given. Returns
+    (success, precision), merged over the ranks of a process group, each of
+    which tracked its shard."""
     emit = logger.info if logger is not None else print
     emit(f"*************** EPOCH {epoch_id} EVALUATION *****************")
     timer.reset()
@@ -244,7 +254,8 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id="?", logger=None, result_dir
     ev.close()
     elapsed = time.perf_counter() - start
     timer.print_stats(logger)
+    succ, prec, frames = merged_main_metrics(ev.evaluator)
     emit(f"*************** Performance of EPOCH {epoch_id} *****************\n"
-         f"mean Succ/Prec {summary['success']:.1f}/{summary['precision']:.1f}  "
-         f"({summary['frames']} frames, {elapsed:.1f}s, tracked at {summary['fps']:.1f} fps)")
-    return summary["success"], summary["precision"]
+         f"mean Succ/Prec {succ:.1f}/{prec:.1f}  "
+         f"({frames} frames; local {summary['frames']} in {elapsed:.1f}s, tracked at {summary['fps']:.1f} fps)")
+    return succ, prec

@@ -203,3 +203,19 @@ class Evaluator:
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.Success_batch.reset()
         self.Precision_batch.reset()
+
+
+def merged_main_metrics(evaluator):
+    """Global (success, precision, frames) over every process of a group:
+    each process's per-frame overlap and accuracy lists gathered
+    (``merge_metric_lists``) and the AUCs computed over their union, as the
+    JAX package merges them. With no group: the local averages."""
+    from ..utils.dist import get_dist_info, merge_metric_lists
+
+    if get_dist_info()[1] == 1:
+        return evaluator.Success_main.average, evaluator.Precision_main.average, evaluator.Success_main.count
+    s = Success()
+    s.overlaps = list(merge_metric_lists(evaluator.Success_main.overlaps))
+    p = Precision()
+    p.accuracies = list(merge_metric_lists(evaluator.Precision_main.accuracies))
+    return s.average, p.average, s.count

@@ -12,6 +12,13 @@ are written out. Flax computes the batch variance as E[x^2] - E[x]^2;
 own ``batch_norm`` is not used in train mode: on the CPU it puts the tracker's
 features 1e-4 from a float64 run, which the tests could not tell from a fault.)
 
+Under data parallelism (``utils/dist.py``, a process group of more than one
+rank) the statistics are those of the global batch, as in the JAX package's
+sharded step, where XLA reduces over the global array: one all-reduce that
+carries the gradient, of [sum x, sum x^2, n] per layer in float64, then flax's
+``var = max(E[x^2] - E[x]^2, 0)``; every rank makes the same running-statistics
+update. With no group, or one rank, the statistics are ``torch.var_mean``'s.
+
 Linear layers inside BatchNorm stacks get kaiming-normal weights (fan_in, ReLU
 gain) and no bias when BatchNorm follows, as in the JAX package; the bare
 linear layers of the transformer keep ``torch.nn.Linear``'s default init,
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sa import fold_bn
+from ..utils.dist import all_reduce_sum, get_dist_info
 
 BN_EPS = 1e-5
 
@@ -69,14 +77,30 @@ def _bn_linear(c_in: int, c_out: int, bias: bool) -> nn.Linear:
     return lin
 
 
+def _global_moments(flat: torch.Tensor):
+    """(mean, biased variance) in float32 of the rows of ``flat`` on every rank:
+    one differentiable all-reduce of [sum x, sum x^2, n] in float64, and
+    flax's E[x^2] - E[x]^2, clipped at 0."""
+    c = flat.shape[-1]
+    x = flat.double()
+    n = torch.full((1,), float(flat.shape[0]), dtype=torch.float64, device=flat.device)
+    sums = all_reduce_sum(torch.cat([x.sum(0), (x * x).sum(0), n]))
+    mean = sums[:c] / sums[-1]
+    var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    return var.float(), mean.float()
+
+
 def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm over the last axis of a channel-last tensor: flax's train rule
-    (batch statistics, running-stat update in place) when ``bn.training``, the
-    running statistics otherwise."""
+    (batch statistics, over every rank's batch in a process group; running-stat
+    update in place) when ``bn.training``, the running statistics otherwise."""
     flat = x.reshape(-1, x.shape[-1])
     if not bn.training:
         return bn(flat).reshape(x.shape)
-    var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
+    if get_dist_info()[1] > 1:
+        var, mean = _global_moments(flat)
+    else:
+        var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
     with torch.no_grad():
         keep = 1.0 - bn.momentum  # flax momentum: the weight of the old statistics
         bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)

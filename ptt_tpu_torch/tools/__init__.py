@@ -6,7 +6,8 @@
 Configurations are chosen by their ``tools/cfgs/`` path (``config.config_by_path``)
 and run on the GPU unless ``--device cpu`` is given. Each CLI logs, as its last
 line, ``summary`` and a JSON object of its results and the kernel launches it
-made.
+made. With ``--launcher pytorch`` each is one rank of the processes ``torchrun``
+started (``launch``).
 """
 
 from __future__ import annotations
@@ -31,3 +32,37 @@ def describe_device(device) -> str:
 
 def summary_line(record: dict) -> str:
     return "summary " + json.dumps(record)
+
+
+def add_launcher_args(parser) -> None:
+    """The flags of a data-parallel run: ``--launcher``, ``--dist_backend``,
+    ``--init_method``."""
+    parser.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                        help="'pytorch': one of the processes torchrun started, one a GPU")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default="nccl",
+                        help="torch.distributed backend of --launcher pytorch")
+    parser.add_argument("--init_method", type=str, default="env://",
+                        help="torch.distributed init method (torchrun's environment, or file://PATH)")
+
+
+def launch(args, run) -> int:
+    """``run(rank, world)`` in this process alone, or with ``--launcher
+    pytorch`` as one rank of the process group torchrun's environment (or
+    ``--init_method``) describes, which is left when ``run`` ends."""
+    if args.launcher == "none":
+        return run(0, 1)
+    import torch.distributed as dist
+
+    from ..utils.dist import init_distributed
+
+    rank, world, _ = init_distributed(args.dist_backend, args.init_method, args.device)
+    try:
+        return run(rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+def describe_process(device, args, rank: int, world: int) -> str:
+    """The device, and this process's place in its group."""
+    return (f"device {describe_device(device)}; process {rank}/{world}"
+            + (f", backend {args.dist_backend}" if args.launcher == "pytorch" else ""))

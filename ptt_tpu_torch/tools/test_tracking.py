@@ -12,6 +12,15 @@ Two paths: the device tracker (default; tracklets in batches of
 ``--batch_size``, frames subsampled on the host to ``--max_points``), and
 ``--host_loop``, the per-frame host evaluator whose crops are the JAX host
 loop's.
+
+One process per GPU, as the JAX CLI's ``--launcher jax``:
+
+    torchrun --nproc_per_node 8 -m ptt_tpu_torch.tools.test_tracking --launcher pytorch --ckpt FILE
+
+Rank i tracks tracklet i of each batch of world-size tracklets and writes
+``track_result.rank{i}.txt``; Success and Precision are merged over the ranks,
+and rank 0 logs them. ``--dist_backend`` is nccl (a GPU a rank) unless gloo is
+named.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ TEST_SEED = 2  # the seed of the reference's test script
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="evaluate PTT tracker checkpoints on one GPU")
+    parser = argparse.ArgumentParser(description="evaluate PTT tracker checkpoints on one GPU, or one process per GPU")
     parser.add_argument("--cfg_file", type=str, default="tools/cfgs/kitti_models/ptt.yaml",
                         help="config for eval, by its tools/cfgs/ path")
     parser.add_argument("--batch_size", type=int, default=8, help="tracklets per device dispatch (device tracker)")
@@ -45,6 +54,9 @@ def parse_args(argv=None):
                         help="watch the ckpt dir and evaluate every new checkpoint")
     parser.add_argument("--ckpt_dir", type=str, default=None, help="ckpt dir to watch with --eval_all")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    from . import add_launcher_args
+
+    add_launcher_args(parser)
     return parser.parse_args(argv)
 
 
@@ -72,8 +84,13 @@ def repeat_eval_ckpt(args, cfg, model, loader, ckpt_dir, logger, result_dir, pol
     """Watch ``ckpt_dir`` and evaluate each ``checkpoint_epoch_<N>.pth`` with N >=
     ``--start_epoch`` once, into ``result_dir/epoch_<N>``, appending a line to
     ``result_dir/eval_list.txt`` (which also says, after a restart, what was
-    evaluated); give up after ``--max_waiting_mins`` without a new one."""
+    evaluated); give up after ``--max_waiting_mins`` without a new one. In a
+    process group every rank evaluates what rank 0 found, and rank 0 writes
+    the list."""
     from ..train.checkpoint import CheckpointManager
+    from ..utils.dist import get_dist_info
+
+    rank, world = get_dist_info()
 
     ckpt_dir = Path(ckpt_dir)
     record_file = Path(result_dir) / "eval_list.txt"
@@ -84,8 +101,16 @@ def repeat_eval_ckpt(args, cfg, model, loader, ckpt_dir, logger, result_dir, pol
     while True:
         epochs = CheckpointManager.epochs_in(ckpt_dir) if ckpt_dir.is_dir() else []
         todo = [e for e in epochs if e not in evaluated and e >= args.start_epoch]
+        if world > 1:
+            import torch.distributed as dist
+
+            found = [todo, (time.time() - wait_start) / 60 >= args.max_waiting_mins]
+            dist.broadcast_object_list(found, src=0)
+            todo, waited = found
+        else:
+            waited = (time.time() - wait_start) / 60 >= args.max_waiting_mins
         if not todo:
-            if (time.time() - wait_start) / 60 >= args.max_waiting_mins:
+            if waited:
                 logger.info("max waiting time reached; stopping watcher")
                 return
             time.sleep(poll_interval)
@@ -95,37 +120,45 @@ def repeat_eval_ckpt(args, cfg, model, loader, ckpt_dir, logger, result_dir, pol
             succ, prec, _ = eval_fn(args, cfg, model, loader, ckpt_dir / f"checkpoint_epoch_{epoch}.pth", logger,
                                     Path(result_dir) / f"epoch_{epoch}", epoch_tag=epoch)
             evaluated.add(epoch)
-            with open(record_file, "a") as f:
-                f.write(f"{epoch} {succ:.2f} {prec:.2f}\n")
+            if rank == 0:
+                with open(record_file, "a") as f:
+                    f.write(f"{epoch} {succ:.2f} {prec:.2f}\n")
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from ..config import check_ported, cli_config, log_config_to_file, point_sharding_note
+    from ..config import cli_config
+    from . import launch
 
     cfg = cli_config(args.cfg_file, args.set_cfgs)
-    check_ported(cfg, training=False)
+    return launch(args, lambda rank, world: evaluate(args, cfg, rank, world))
 
+
+def evaluate(args, cfg: dict, rank: int, world: int) -> int:
+    """The run of ``main``, as rank ``rank`` of ``world`` processes."""
     from .. import resolve_device
+    from ..config import check_ported, log_config_to_file, point_sharding_note
     from ..data.loader import build_dataloader
     from ..nn import build_network
     from ..utils.common import create_logger, set_manual_seed
-    from . import describe_device, kernel_launches, summary_line
+    from . import describe_process, kernel_launches, summary_line
 
+    check_ported(cfg, training=False, devices=world)
     device = resolve_device(args.device)
     set_manual_seed(TEST_SEED)
     output_dir = OUTPUT_ROOT / cfg["EXP_GROUP_PATH"] / cfg["TAG"] / args.extra_tag
     result_dir = output_dir / "eval" / args.eval_tag
     result_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
-    logger.info(f"device {describe_device(device)}")
+    logger = create_logger(result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt", rank=rank)
+    logger.info(describe_process(device, args, rank, world))
     log_config_to_file(cfg, logger=logger)
     if point_sharding_note(cfg):
         logger.info(point_sharding_note(cfg))
 
     t0 = time.perf_counter()
-    _, loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=1, workers=args.workers,
-                                 logger=logger, training=False)
+    # each rank tracks its shard: the loader's batch is `world` tracklets, one a rank
+    _, loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=world, workers=args.workers,
+                                 logger=logger, training=False, num_shards=world, shard_id=rank)
     load_seconds = time.perf_counter() - t0
     model = build_network(cfg["MODEL"], device=device)
     before = kernel_launches()
@@ -136,7 +169,7 @@ def main(argv=None) -> int:
         succ, prec, fps = eval_single_ckpt(args, cfg, model, loader, args.ckpt, logger, result_dir)
         record = {"success": succ, "precision": prec, "frames_per_s": fps}
     record.update(dataset_seconds=load_seconds,
-                  launches={key: n - before[key] for key, n in kernel_launches().items()})
+                  launches={key: n - before[key] for key, n in kernel_launches().items()}, world_size=world)
     logger.info(summary_line(record))
     return 0
 

@@ -6,6 +6,8 @@ layout (``save_variables_npz``), which its loader and ``convert.py`` read.
 A training checkpoint is one ``torch.save`` file per epoch,
 ``checkpoint_epoch_<N>.pth``, holding {model, optimizer, step, epoch}; it is
 written to a temporary name and renamed, so a reader never sees half a file.
+In a process group rank 0 writes, and every rank waits at a barrier until the
+file is there; every rank restores from the same file.
 
 ``load_params_from_file`` loads a model from any of three files: such a
 checkpoint, a JAX-package ``.npz``, or a ``.pth`` in the reference code's
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..convert import reference_key, state_dict_from_npz, state_dict_from_reference, variables_from_state_dict
+from ..utils.dist import barrier, get_dist_info
 
 _NAME = re.compile(r"^checkpoint_epoch_(\d+)\.pth$")
 
@@ -53,13 +56,18 @@ class CheckpointManager:
         return epochs[-1] if epochs else None
 
     def save(self, model, optimizer, epoch: int, step: int) -> Path:
+        """Write the checkpoint of ``epoch`` (rank 0 of a process group) and
+        drop the oldest beyond ``max_to_keep``; every rank returns once it is
+        written."""
         path = self._path(epoch)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                    "step": int(step), "epoch": int(epoch)}, tmp)
-        os.replace(tmp, path)
-        for old in self.epochs()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
-            self._path(old).unlink()
+        if get_dist_info()[0] == 0:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                        "step": int(step), "epoch": int(epoch)}, tmp)
+            os.replace(tmp, path)
+            for old in self.epochs()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
+                self._path(old).unlink()
+        barrier()
         return path
 
     def restore(self, model, optimizer, epoch: int | None = None, path=None):

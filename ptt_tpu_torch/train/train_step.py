@@ -10,8 +10,18 @@ their gradients flow back into the float32 master parameters, which the
 optimizer and its state keep; the outputs are cast back to float32, the losses
 are computed in float32 on the float32 batch, and the BatchNorm running
 statistics stay float32. Each layer follows flax's type promotion, not
-autocast (``nn/layers.py``). The JAX package's mesh and K-step scan are not
-ported (ROADMAP.md).
+autocast (``nn/layers.py``). The JAX package's K-step scan is not ported
+(ROADMAP.md).
+
+Data parallelism, the JAX package's ``make_sharded_train_step``: in a
+process group each rank steps on its shard of the global batch; BatchNorm and
+the losses take the global batch's statistics and denominators (``nn/``), and
+after the backward one all-reduce of one flat buffer averages the gradients
+and the loss terms over the ranks, so that the clip, ``grad_norm`` and the
+optimizer see the global gradient and the metrics are the global batch's.
+Every rank then makes the same update. (No ``DistributedDataParallel``
+wrapper: the parameter names, and with them the checkpoints' keys, and the
+bf16 ``functional_call`` path stay as they are.)
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..nn.losses import compute_losses
+from ..utils.dist import all_reduce_mean_, get_dist_info
 from .bn_momentum import MODEL_BN_MOMENTUM, set_bn_momentum
 
 
@@ -50,6 +61,17 @@ def forward(model, batch: dict, mixed_precision: bool = False) -> dict:
     return cast_floats(out, torch.float32)
 
 
+def average_over_ranks(params, metrics: dict) -> dict:
+    """The gradients of ``params`` (in place; a missing one is zeros) and the
+    0-dim ``metrics``, each averaged over the ranks by one all-reduce."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    values = torch.stack(list(metrics.values()))
+    all_reduce_mean_([p.grad for p in params] + [values])
+    return dict(zip(metrics, values))
+
+
 def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = False):
     """Returns ``step(model, optimizer, batch, bn_momentum=None) -> metrics``.
 
@@ -58,7 +80,7 @@ def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = Fals
     ``batch`` a loader batch. ``bn_momentum``, the scheduled flax momentum,
     replaces MODEL_BN_MOMENTUM in every BatchNorm for this step. ``metrics``
     are the loss terms, ``loss`` and ``grad_norm`` (before clipping), 0-dim
-    tensors still on the device."""
+    tensors still on the device; in a process group, the global batch's."""
     device = resolve_device(device)
 
     def step(model, optimizer, batch, bn_momentum=None):
@@ -70,6 +92,8 @@ def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = Fals
         optimizer.zero_grad()
         loss.backward()
         metrics = {k: v.detach() for k, v in tb.items()}
+        if get_dist_info()[1] > 1:
+            metrics = average_over_ranks(optimizer.params, metrics)
         metrics["grad_norm"] = optimizer.step()
         return metrics
 

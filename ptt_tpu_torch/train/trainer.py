@@ -6,6 +6,12 @@ optional ``eval_fn`` hook after each epoch that keeps the best-Success model in
 
 Inside an epoch nothing waits for the device: the metrics of each step stay on
 the device until the epoch ends.
+
+In a process group (data parallelism, ``train/train_step.py``) every rank
+starts from rank 0's parameters and buffers, broadcast at construction and
+after ``resume``; only rank 0 writes tensorboard scalars and checkpoints, and
+``eval_fn`` runs on every rank (the test tracklets sharded, the metrics
+merged).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import resolve_device
+from ..utils.dist import broadcast_module, get_dist_info
 from .bn_momentum import bn_momentum_for_epoch
 from .checkpoint import CheckpointManager, save_variables_npz
 from .optim import Optimizer
@@ -33,10 +40,12 @@ class Trainer:
                  ckpt_save_interval: int = 1, tb_writer=None, eval_fn=None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        broadcast_module(self.model)
+        self.rank = get_dist_info()[0]
         self.train_loader = train_loader
         self.logger = logger
         self.total_epochs = int(total_epochs if total_epochs is not None else optim_cfg["NUM_EPOCHS"])
-        self.tb_writer = tb_writer
+        self.tb_writer = tb_writer if self.rank == 0 else None
         self.eval_fn = eval_fn
         self.optimizer = Optimizer(self.model.parameters(), optim_cfg, len(train_loader), self.total_epochs)
         self.logger.info(f"optimizer={self.optimizer.name} with the "
@@ -58,11 +67,14 @@ class Trainer:
 
     def resume(self, path=None):
         """Continue from the training checkpoint ``path``, or else from the
-        newest checkpoint of the run directory, if any."""
+        newest checkpoint of the run directory, if any. Then, in a process
+        group, every rank holds rank 0's parameters and buffers."""
         if path is None and self.ckpt.latest_epoch() is None:
             self.logger.info("no checkpoint found; starting from scratch")
+            broadcast_module(self.model)
             return self
         self.start_epoch, self.accumulated_iter = self.ckpt.restore(self.model, self.optimizer, path=path)
+        broadcast_module(self.model)
         self.logger.info(f"resumed from {path or self.ckpt.ckpt_dir} at epoch {self.start_epoch} "
                          f"(step {self.accumulated_iter})")
         return self
@@ -118,8 +130,9 @@ class Trainer:
                 succ = eval_metrics.get("succ")
                 if succ is not None and succ > self._best_succ:
                     self._best_succ = float(succ)
-                    save_variables_npz(self.output_dir / "ckpt_best.npz", self.model,
-                                       metadata={"epoch": trained, "succ": float(succ),
-                                                 "prec": float(eval_metrics.get("prec", -1.0))})
+                    if self.rank == 0:
+                        save_variables_npz(self.output_dir / "ckpt_best.npz", self.model,
+                                           metadata={"epoch": trained, "succ": float(succ),
+                                                     "prec": float(eval_metrics.get("prec", -1.0))})
                     self.logger.info(f"new best Success {succ:.1f} at epoch {trained}; saved ckpt_best.npz")
         return self.model

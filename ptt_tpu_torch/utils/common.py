@@ -10,10 +10,12 @@ import numpy as np
 import torch
 
 
-def create_logger(log_file=None, log_level=logging.INFO) -> logging.Logger:
-    """A logger that writes to the console and, given ``log_file``, to that file."""
-    logger = logging.getLogger(f"ptt_tpu_torch.{log_file}")
-    logger.setLevel(log_level)
+def create_logger(log_file=None, rank: int = 0, log_level=logging.INFO) -> logging.Logger:
+    """A logger that writes to the console and, given ``log_file``, to that
+    file. Ranks other than 0 of a process group log errors only."""
+    level = log_level if rank == 0 else logging.ERROR
+    logger = logging.getLogger(f"ptt_tpu_torch.rank{rank}.{log_file}")
+    logger.setLevel(level)
     logger.propagate = False
     if logger.handlers:
         return logger
@@ -22,7 +24,7 @@ def create_logger(log_file=None, log_level=logging.INFO) -> logging.Logger:
     if log_file is not None:
         handlers.append(logging.FileHandler(str(log_file)))
     for handler in handlers:
-        handler.setLevel(log_level)
+        handler.setLevel(level)
         handler.setFormatter(formatter)
         logger.addHandler(handler)
     return logger

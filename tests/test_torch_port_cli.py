@@ -260,15 +260,21 @@ def test_train_cli_resume_and_eval_all(narrow, cli_root):
 @pytest.mark.parametrize("case", ["point_sharding_over_2_devices", "sync_bn", "fps_beyond_8192"])
 def test_clis_refuse_unported_features_at_start(cli_root, case):
     """What the port does not run is refused with the ROADMAP item named,
-    before a dataset is read: what needs more than one GPU, and clouds beyond
-    the kernels' largest forms. (Everything else of tools/cfgs/ runs: the
-    tests below.)"""
+    before a dataset is read: POINT_SHARDING over more than one GPU, and clouds
+    beyond the kernels' largest forms; and NCCL ranks on the CPU. ``--sync_bn``
+    is accepted. (Everything else of tools/cfgs/ runs: the tests below.)"""
     if case == "point_sharding_over_2_devices":
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             check_ported(config_by_path("tools/cfgs/synthetic_models/ptt_synth_ps.yaml"), training=False, devices=2)
     elif case == "sync_bn":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        # --sync_bn is accepted (BatchNorm statistics are always the global batch's): the CLI
+        # gets past its checks to the data; NCCL ranks on the CPU are what is refused
+        with pytest.raises(FileNotFoundError, match="/no/such/dir"):
             train_tracking.main(["--device", "cpu", "--sync_bn", "--set", "DATA_CONFIG.DATA_PATH", "/no/such/dir"])
+        assert "--sync_bn: a no-op" in _log(cli_root / "kitti_models" / "ptt" / "default", "log_train_*.txt")
+        with pytest.raises(RuntimeError, match="the nccl backend runs on CUDA devices"):
+            train_tracking.main(["--device", "cpu", "--launcher", "pytorch", "--set", "DATA_CONFIG.DATA_PATH",
+                                 "/no/such/dir"])
     else:
         with pytest.raises(NotImplementedError, match="the FPS kernel takes at most 8192"):
             test_tracking.main(["--device", "cpu", "--set", "DATA_CONFIG.DATA_PATH", "/no/such/dir",
