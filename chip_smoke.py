@@ -37,8 +37,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the same FPS picks, both FPS calls of each step held against the plain
      FPS; the plain path's own 5 steps, reported beside two witnesses (the
      plain path again, and from weights moved by one ulp); launch counts per
-     step, ms per step with and without the loader, a profile of the step, and
-     ``Trainer`` for one epoch, a checkpoint and a resume;
+     step; the loader: the host's cores, one item's ms, a batch by threads
+     (the loader before its processes) alone and beside train steps, by the
+     loader's processes; ms per step on one pre-made batch against the loader
+     through the Trainer's loop, alternated; a profile of the step and one of
+     5 loader-fed steps (each batch's pinned host-to-device copy on a side
+     stream beside the step's kernels, the device's idle share); the
+     Trainer's loop against steps uploading their own batch, from one state
+     (equal under deterministic algorithms; the kernels that make the step
+     not deterministic named); and ``Trainer`` for one epoch, a checkpoint
+     and a resume;
   8. ``ptt_large.yaml`` at its full width (2048 / 1024-point clouds, two 2-layer
      4-head transformers) on the port's own seeded init: its 2 FPS and 7 SA
      calls against their plain versions (SA also on the two hard weight sets),
@@ -59,10 +67,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      first run builds the tracklet database, the second reads it): frames/s,
      the database's size, 2 FPS + 7 SA launches a frame step, the two runs'
      boxes equal, and the first frame step's resampled rows against the CPU's;
-  12. the train CLI at B = 48 on a scene of 4 cars x 60 such sweeps from the
-     trained asset, one epoch, then resumed for a second, each scored by
+  12. the KITTI loader on a scene of 4 cars x 60 such sweeps in this process
+     (one item's ms, a batch by threads and by processes, the Trainer's loop
+     fed by it against one pre-made batch, alternated); the train CLI at B =
+     48 on that scene from the trained asset, two epochs in one process (the
+     second's loop on warm workers), then resumed for a third, each scored by
      TRAIN.WITH_EVAL on a shorter test scene; ms a step with the KITTI loader,
-     2 FPS + 7 + 7 group launches a step; ``--eval_all`` over both
+     2 FPS + 7 + 7 group launches a step; ``--eval_all`` over the three
      checkpoints; a reference-layout ``.pth`` loaded as ``--ckpt`` loads it,
      its forward bit-equal to the asset's;
   13. ``ptt_waymo.yaml`` (8192 / 2048-point clouds, stage 0 to 2048 / 1024
@@ -72,7 +83,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   14. ``ptt_waymo.yaml`` training at B = 48 on synthetic items resampled to
      8192 / 2048 points: the group kernels at its 7 shapes and on a
      heavy-duplication cloud, as phase 6 checks them, then train steps:
-     launches, ms a step, peak memory;
+     launches, ms a step, peak memory, and ms a step with the loader against
+     one pre-made batch, alternated;
   15. mixed precision and the optimizers: one bf16 step on the kernel path and
      one on the plain path from the same state with the same FPS picks, within
      a stated band; bf16 and float32 step times alternated; the train CLI on
@@ -105,19 +117,40 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      11a's tree: the two result files hold 11a's frames, the merged
      Success/Precision within 1.0 of 11a's, each rank's lines equal to one
      process's on its shard.
+  19. the training-side tools, as a user runs them: ``python3 -m
+     ptt_tpu_torch.tools.train_bench`` (device step, pipelined and blocking
+     ms/it over the loader, samples/s, GFLOP a step and mfu for ptt.yaml and
+     ptt_large.yaml at B = 48) and ``python3 -m
+     ptt_tpu_torch.tools.demo_tracking`` (parameter counts, FLOPs per module
+     and per layer, a train step); their output printed; (19b) the
+     ptt.yaml forward's matrix products by (M, K, N) with their device time,
+     each beside the layers of that product.
 The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
-device's launch counts must equal the wrappers' and replays' counts.
+device's launch counts must equal the wrappers' and replays' counts. Phase 14
+runs right after phase 7 (late in a long process the profiler can miss the
+device's activity); ``[time]`` lines give the seconds so far.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
-``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, not a run.
+Every process the run starts has ended when it exits, by any path: this process
+adopts the orphans of its descendants, and before it exits it shuts down the
+loaders' worker processes, stops the fork server and multiprocessing's resource
+tracker (which would otherwise outlive it by a moment), then ends and reaps
+whatever else is still below it, and logs what it stopped (``stop_children``).
+``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, not a run;
+``python3 chip_smoke.py --loader-start`` times the loader's start by start
+method (``loader_start``), not a run either.
 """
 
 from __future__ import annotations
 
+import atexit
 import copy
+import ctypes
+import gc
 import json
 import logging
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -158,6 +191,7 @@ GROUP_FWD_TOL = 1e-5
 GROUP_BWD_TOL = 1e-5
 GROUP_GRAD_TOL = 5e-4
 TRAIN_B = 48
+LOADER_WORKERS = 8  # the loader's processes in phases 7, 12 and 14, as many as the card's host has cores
 SEED = 0  # torch.manual_seed of the configurations without trained weights
 
 
@@ -168,6 +202,118 @@ def log(msg):
 def fail(msg):
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
+CHILD_GRACE_S = 5.0  # seconds between SIGTERM and SIGKILL for a process left below this one
+
+
+def adopt_orphans():
+    """Make this process the subreaper of its descendants: a process whose
+    parent exits before it (a loader worker of a subprocess, say) is
+    reparented here rather than to init, so ``stop_children`` still finds it.
+    ``stop_children`` then runs at exit, whatever the exit."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        log(f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}; orphans go to init")
+    atexit.register(stop_children)
+
+
+def descendants():
+    """(pid, name, state) of every process below this one, from /proc."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        name, fields = stat[stat.index("(") + 1:stat.rindex(")")], stat[stat.rindex(")") + 2:].split()
+        children.setdefault(int(fields[1]), []).append((int(entry), name, fields[0]))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            found.append(child)
+            todo.append(child[0])
+    return found
+
+
+def reap():
+    """Collect the exit status of every child of this process that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def end_processes(skip=()) -> list:
+    """SIGTERM every live process below this one but ``skip``, SIGKILL what
+    is left after CHILD_GRACE_S, reap; returns (pid, name) of those it signalled."""
+    def live():
+        reap()
+        return {pid for pid, _, state in descendants() if state != "Z" and pid not in skip}
+
+    alive = live()
+    targets = [(pid, name) for pid, name, _ in descendants() if pid in alive]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in live() & {pid for pid, _ in targets}:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + CHILD_GRACE_S
+        while live() & {pid for pid, _ in targets} and time.monotonic() < deadline:
+            time.sleep(0.05)
+    reap()
+    return targets
+
+
+_stopped = False
+
+
+def stop_children():
+    """End every process this run started that still runs: the worker
+    processes of every loader not yet closed (shut down by their own
+    iterator, so that PyTorch does not take their end for a crash), the
+    fork server that forked them, anything else below this process, then
+    multiprocessing's resource tracker (it ends once no process holds its
+    pipe). The fork server and the tracker each end on their own only after
+    this process has exited. Logs what it stopped; runs once."""
+    global _stopped
+    if _stopped:
+        return
+    _stopped = True
+    import multiprocessing.forkserver
+    import multiprocessing.resource_tracker
+    import multiprocessing.util
+    from torch.utils.data.dataloader import _MultiProcessingDataLoaderIter
+
+    pools = [obj for obj in gc.get_objects() if type(obj) is _MultiProcessingDataLoaderIter]
+    workers = sum(1 for it in pools for w in it._workers if w.is_alive())
+    for it in pools:
+        it._shutdown_workers()
+    server = multiprocessing.forkserver._forkserver
+    had_server = server._forkserver_pid is not None
+    server._stop()
+    # what multiprocessing does at exit, now: end its other children, run its
+    # finalizers (they unlink the loaders' semaphores and tell the tracker)
+    multiprocessing.util._exit_function()
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    tracker_pid = tracker._pid if tracker._fd is not None else None
+    others = end_processes(skip={tracker_pid})
+    if tracker_pid is not None:  # closing its pipe ends it; end_processes kills it if it does not end in time
+        os.close(tracker._fd)
+        tracker._fd = tracker._pid = None
+    others += [(pid, name) for pid, name in end_processes() if pid != tracker_pid]
+    named = lambda procs: ", ".join(f"{name}[{pid}]" for pid, name in procs) or "none"
+    log(f"[exit] loader workers shut down: {workers}; fork server stopped: {had_server}; resource tracker "
+        f"stopped: {tracker_pid is not None}; other processes ended: {named(others)}; "
+        f"left: {named((pid, name) for pid, name, _ in descendants())}")
 
 
 def gpu_line() -> str:
@@ -212,12 +358,18 @@ def queued_ms(fn, iters: int) -> float:
 def kernel_ms(fn, iters: int, names):
     """Device time of one call by kernel, from torch.profiler: for each of
     ``names`` the summed time of the kernels whose name contains it, per call.
-    A window in which the profiler reports no device time is taken again; the
-    run fails when five in a row are empty."""
+    A window in which the profiler reports no device time is taken again after
+    a pause, and said. Late in a long process the profiler can miss the
+    device activity of every window; after 20 empty windows the split by
+    kernel is None, printed as not measured (the device time of the whole
+    call is ``queued_ms``'s, by CUDA events)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     fn()
-    for _ in range(5):
+    for window in range(20):
+        if window:
+            log(f"  the profiler reported no device time for {names} in window {window}; taken again")
+            time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -231,10 +383,13 @@ def kernel_ms(fn, iters: int, names):
                         out[n] += e.self_device_time_total / iters / 1e3
         if any(out.values()):
             return out
-    fail(f"torch.profiler reported no device time for {names} in five windows")
+    log(f"  the profiler reported no device time for {names} in 20 windows: not measured")
+    return None
 
 
 def by_kernel(parts) -> str:
+    if parts is None:
+        return "not measured (the profiler saw no device time in 20 windows)"
     return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
 
 
@@ -1030,14 +1185,15 @@ def relerr(got, ref) -> float:
 
 def train_batches(data_cfg, n, seed=0):
     """The first ``n`` batches of TRAIN_B synthetic train items of an epoch,
-    built by the port's loader (8 threads)."""
+    built by the port's loader (LOADER_WORKERS processes, which stay up until
+    the caller closes the loader it gets back)."""
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
 
     loader = DataLoader(SyntheticTrackingDataset(data_cfg), TRAIN_B, shuffle=True, drop_last=True,
-                        seed=seed, num_workers=8)
+                        seed=seed, num_workers=LOADER_WORKERS)
     out = []
-    for batch in loader:
+    for batch in loader:  # leaves the epoch early: the workers stay up for the next one
         out.append(batch)
         if len(out) == n:
             break
@@ -1241,6 +1397,234 @@ def median_step_ms(step, model, opt, batches):
     return float(np.median(times))
 
 
+# ------------------------------------------------------------ the loader (phases 7, 12, 14)
+
+
+def item_ms(dataset, n: int = TRAIN_B) -> float:
+    """Median ms to build one train item in this thread, over the first ``n``
+    indices of epoch 0's order."""
+    order = np.random.default_rng(np.random.SeedSequence([0, 0])).permutation(len(dataset))[:n]
+    times = []
+    for i in order:
+        t0 = time.perf_counter()
+        dataset[int(i)]
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def thread_batches_ms(loader, n: int, beside=None):
+    """Median ms to build each of ``n`` batches of ``loader``'s epoch as the
+    loader built them before it had processes: the items mapped over a pool
+    of LOADER_WORKERS threads, then collated. With ``beside``, the main thread
+    calls it in a loop meanwhile (a train step, launched and waited for, as
+    the Trainer's step waited on its pageable upload); then also returns the
+    ms each of those calls took, their mean."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ptt_tpu_torch.data.loader import default_collate
+
+    times = []
+
+    def build():
+        with ThreadPoolExecutor(LOADER_WORKERS) as pool:
+            for idx in loader.batch_indices()[:n]:
+                t0 = time.perf_counter()
+                default_collate(list(pool.map(loader.dataset.__getitem__, idx)))
+                times.append((time.perf_counter() - t0) * 1e3)
+
+    if beside is None:
+        build()
+        return float(np.median(times))
+    building = threading.Thread(target=build)
+    building.start()
+    calls = []
+    while building.is_alive():
+        t0 = time.perf_counter()
+        beside()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    building.join()
+    return float(np.median(times)), float(np.mean(calls))
+
+
+def loader_batch_ms(loader, n: int, warm: int = 2 * LOADER_WORKERS) -> float:
+    """ms a batch of ``loader`` (its worker processes) when nothing else runs:
+    a new epoch, ``warm`` batches taken first (as many as its workers build
+    ahead), then ``n`` more timed."""
+    it = iter(loader)
+    for _ in range(warm):
+        next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def loop_ms(step, model, opt, batches, uploader) -> float:
+    """ms a step of the Trainer's loop (``pipelined_steps``: nothing waits on
+    the device inside) over ``batches``, from the host's first take to the
+    device's end."""
+    from ptt_tpu_torch.train.trainer import pipelined_steps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(pipelined_steps(step, model, opt, batches, uploader))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def premade_vs_loader(tag, step, model, opt, batch, loader, n, card, warm: int = 2 * LOADER_WORKERS):
+    """ms a step of the Trainer's loop on one pre-made batch and fed by
+    ``loader``, alternated (pre-made, loader, pre-made, loader); each loader
+    run starts an epoch and first takes ``warm`` steps (as many batches as its
+    workers build ahead). Returns (pre-made ms, loader ms), two of each."""
+    import itertools
+
+    from ptt_tpu_torch.train.train_step import BatchUploader
+
+    uploader = BatchUploader(next(model.parameters()).device)
+    loop_ms(step, model, opt, [batch] * 2, uploader)  # warm-up
+    premade, fed = [], []
+    for epoch in (1, 2):
+        premade.append(loop_ms(step, model, opt, [batch] * n, uploader))
+        loader.set_epoch(epoch)
+        it = iter(loader)
+        loop_ms(step, model, opt, itertools.islice(it, warm), uploader)
+        fed.append(loop_ms(step, model, opt, itertools.islice(it, n), uploader))
+    log(f"{tag} the Trainer's loop (pinned upload on a side stream), {n} steps a run, alternated: one pre-made "
+        f"batch {premade[0]:.1f}, {premade[1]:.1f} ms a step; the loader ({LOADER_WORKERS} processes) "
+        f"{fed[0]:.1f}, {fed[1]:.1f} ms a step (loader over pre-made {max(fed) / min(premade):.3f}x); card {card}")
+    return premade, fed
+
+
+def profile_fed_steps(tag, step, model, opt, batches):
+    """``batches`` through the Trainer's loop under torch.profiler, the trace
+    read back: each host-to-device copy, the stream it ran on and whether a
+    kernel of the compute stream ran meanwhile; the device's busy and idle
+    shares. Returns the numbers; fails if no copy ran beside a kernel on
+    another stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptt_tpu_torch.train.train_step import BatchUploader
+    from ptt_tpu_torch.train.trainer import pipelined_steps
+
+    uploader = BatchUploader(next(model.parameters()).device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = len(pipelined_steps(step, model, opt, batches, uploader))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        with open(os.path.join(tmp, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    if not kernels:
+        fail(f"{tag} the profiler's trace of the loader-fed steps holds no kernel")
+    streams = {}
+    for e in kernels:
+        streams[e.get("args", {}).get("stream")] = streams.get(e.get("args", {}).get("stream"), 0) + e["dur"]
+    compute = max(streams, key=streams.get)
+    busy = [(e["ts"], e["ts"] + e["dur"]) for e in kernels if e.get("args", {}).get("stream") == compute]
+    copies = [e for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    side = [e for e in copies if e.get("args", {}).get("stream") != compute]
+    overlapped = [e for e in side if any(a < e["ts"] + e["dur"] and b > e["ts"] for a, b in busy)]
+    union, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    names = sorted({e["name"] for e in copies})
+    out = {"steps": n, "wall_ms": wall, "device_busy_ms": union / 1e3, "idle_share": 1 - union / 1e3 / wall,
+           "h2d_copies": len(copies), "side_stream_copies": len(side), "copies_beside_kernels": len(overlapped),
+           "side_copy_ms": sum(e["dur"] for e in side) / 1e3, "copy_names": names,
+           "compute_stream": compute, "side_streams": sorted({e.get("args", {}).get("stream") for e in side})}
+    log(f"{tag} profile of {n} loader-fed steps of the Trainer's loop: wall {wall / n:.1f} ms a step, device busy "
+        f"{union / 1e3 / n:.1f} ms a step ({100 * out['idle_share']:.1f}% idle); {len(copies)} host-to-device copies "
+        f"{names}, {len(side)} on side streams {out['side_streams']} (compute stream {compute}), "
+        f"{len(overlapped)} of them while a compute-stream kernel ran, {out['side_copy_ms']:.3f} ms of copies")
+    if not overlapped:
+        fail(f"{tag} no host-to-device copy ran on a side stream beside the step's kernels")
+    if any("Pinned" not in name for name in names):
+        fail(f"{tag} a batch was uploaded from pageable memory: {names}")
+    return out
+
+
+def runs_from(state, fresh, batches, run, n=1):
+    """``n`` runs of 5 steps each from one state: ``run(model, opt)`` -> the
+    steps' metrics; returns [(metrics, state_dict after them)]."""
+    model, opt = state
+    out = []
+    for _ in range(n):
+        m, o = fresh(True)
+        m.load_state_dict(model.state_dict())
+        o.load_state_dict(opt.state_dict())
+        metrics = run(m, o)
+        out.append((metrics, m.state_dict()))
+    return out
+
+
+def same_steps(a, b) -> bool:
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a[0], b[0]) for k in x) and \
+        all(torch.equal(x, y) for x, y in zip(a[1].values(), b[1].values()))
+
+
+def upload_witness(step, model, opt, fresh, batches, device):
+    """Phase 7's witness of the pipelined upload: the Trainer's loop
+    (``pipelined_steps``) against the steps uploading their own batch, from
+    one state on the same 5 batches. The step itself is not deterministic
+    (see the kernels it changes below), so the two are held equal
+    (torch.equal, every metric and every weight after the 5 steps) under
+    ``torch.use_deterministic_algorithms``; in the default mode step 0 must be
+    equal and the later steps are reported beside the synchronous run twice."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from ptt_tpu_torch.train.train_step import BatchUploader
+    from ptt_tpu_torch.train.trainer import pipelined_steps
+
+    def piped(m, o):
+        return pipelined_steps(step, m, o, batches, BatchUploader(device))
+
+    def synced(m, o):
+        return [step(m, o, b) for b in batches]
+
+    def kernels(m, o):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(m, o, batches[0])
+            torch.cuda.synchronize()
+        return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+    state = (model, opt)
+    default_kernels = runs_from(state, fresh, batches, kernels)[0][0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det_kernels = runs_from(state, fresh, batches, kernels)[0][0]
+        det = runs_from(state, fresh, batches, piped) + runs_from(state, fresh, batches, synced)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    free = runs_from(state, fresh, batches, piped) + runs_from(state, fresh, batches, synced, n=2)
+    det_equal = same_steps(det[0], det[1])
+    step0_equal = all(torch.equal(v, free[1][0][0][k]) for k, v in free[0][0][0].items())
+
+    def rel(a, b):
+        return [f"{abs(float(x['loss']) - float(y['loss'])) / abs(float(y['loss'])):.1e}" for x, y in zip(a[0], b[0])]
+
+    log(f"[7] the Trainer's loop (pipelined upload) against the steps uploading their own batch, 5 steps from one "
+        f"state, under torch.use_deterministic_algorithms: losses {[round(float(x['loss']), 6) for x in det[0][0]]}, "
+        f"every metric and weight equal (torch.equal) {det_equal}")
+    log(f"[7] the kernels a step runs only in the default mode (not deterministic): "
+        f"{sorted(k[:80] for k in default_kernels - det_kernels)}; only under deterministic algorithms: "
+        f"{sorted(k[:80] for k in det_kernels - default_kernels)}")
+    log(f"[7] the same in the default mode: step 0 equal {step0_equal}; "
+        f"loss rel diff per step pipelined vs synchronous {rel(free[0], free[1])}, synchronous twice "
+        f"{rel(free[2], free[1])}")
+    if not det_equal:
+        fail("[7] under deterministic algorithms the pipelined upload changed the steps")
+    if not step0_equal:
+        fail("[7] the pipelined upload changed step 0")
+
+
 def profile_train(step, model, opt, batch, n_steps=3):
     """A few train steps under torch.profiler: wall time, device busy and idle
     shares, and the kernels by device time."""
@@ -1423,21 +1807,39 @@ def train_phase(cfg, device, card):
     if any(c != (2, 7, 7) for c in per_step) or launches["sa"] != 0:
         fail(f"training: launches per step {per_step} (sa {launches['sa']}), expected (2, 7, 7) and no SA")
 
-    # time per step: one pre-made batch, then the loader
+    # the loader: the host's cores, one item, a batch by threads (the loader before its processes), alone and
+    # beside train steps, and by the loader's processes
     median_step_ms(step, model, opt, batches[:2])  # warm-up
+    one_item = item_ms(loader.dataset)
+    by_threads = thread_batches_ms(loader, 4)
+    beside_threads, beside_step = thread_batches_ms(
+        loader, 4, lambda: median_step_ms(step, model, opt, batches[:1]))
+    by_processes = loader_batch_ms(loader, 16)
+    log(f"[7] the loader on this host: os.cpu_count() {os.cpu_count()}; one train item {one_item:.2f} ms in one "
+        f"thread (median of {TRAIN_B}); a batch of {TRAIN_B} by {LOADER_WORKERS} threads {by_threads:.1f} ms alone, "
+        f"{beside_threads:.1f} ms beside train steps, which took {beside_step:.1f} ms a step meanwhile; by the "
+        f"loader's {LOADER_WORKERS} processes {by_processes:.1f} ms a batch alone")
+
+    # time per step: one pre-made batch, each step waited for (as before); then the Trainer's loop on one
+    # pre-made batch against the loader, alternated
     premade_ms = median_step_ms(step, model, opt, [batches[0]] * 20)
-    loader.set_epoch(1)
-    it = iter(loader)
-    median_step_ms(step, model, opt, [next(it) for _ in range(2)])
-    loader_ms = median_step_ms(step, model, opt, (next(it) for _ in range(20)))
-    del it
+    premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 20, card)
     plain_ms = median_step_ms(step, plain_model, plain_opt, [batches[0]] * 3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[7] train step at B = {TRAIN_B}, median of 20 after warm-up: {premade_ms:.1f} ms on one pre-made batch, "
-        f"{loader_ms:.1f} ms with the loader (8 threads); plain path {plain_ms:.1f} ms; peak device memory "
-        f"{peak:.1f} GiB; card {card}")
+    log(f"[7] train step at B = {TRAIN_B}, median of 20 after warm-up, each waited for: {premade_ms:.1f} ms on one "
+        f"pre-made batch; plain path {plain_ms:.1f} ms; peak device memory {peak:.1f} GiB; card {card}")
     profile_train(step, model, opt, batches[0])
     del plain_model, plain_opt
+    loader.set_epoch(3)
+    it = iter(loader)
+    for _ in range(2 * LOADER_WORKERS):
+        next(it)
+    profile_fed_steps("[7]", step, model, opt, [next(it) for _ in range(5)])
+    loader.close()
+
+    # the Trainer's loop (pinned upload of batch k+1 on a side stream while step k runs) against the same 5
+    # steps each uploaded inside the step (pageable, synchronous), from one state on the same batches
+    upload_witness(step, model, opt, fresh, batches, device)
 
     # Trainer: one epoch on a small set, checkpoint, resume, one more step
     out_dir = os.path.join(REPO, "build", "chip_smoke_train")
@@ -1447,7 +1849,8 @@ def train_phase(cfg, device, card):
 
     def trainer(total_epochs):
         net = copy.deepcopy(model)
-        small_loader = DataLoader(SyntheticTrackingDataset(small), TRAIN_B, shuffle=True, drop_last=True, num_workers=8)
+        small_loader = DataLoader(SyntheticTrackingDataset(small), TRAIN_B, shuffle=True, drop_last=True,
+                                  num_workers=LOADER_WORKERS)
         return Trainer(net, model_cfg, optim_cfg, small_loader, out_dir, logger, total_epochs=total_epochs,
                        device=device)
 
@@ -1459,6 +1862,8 @@ def train_phase(cfg, device, card):
                                                  first.model.state_dict().values()))
     metrics = resumed.train_step(resumed.model, resumed.optimizer, batches[1])
     loss = float(metrics["loss"])
+    first.train_loader.close()
+    resumed.train_loader.close()
     log(f"[7] Trainer: 1 epoch of {n_iters} steps, checkpoint epochs {first.ckpt.epochs()}; resumed at epoch "
         f"{resumed.start_epoch} step {resumed.accumulated_iter}, weights equal {same}; one more step loss "
         f"{loss:.4f}, optimizer count {resumed.optimizer.count}")
@@ -1780,12 +2185,52 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
     return phase11a
 
 
+def kitti_loader_phase(root, device, card):
+    """Phase 12's loader in this process, on the train split of the tree at
+    ``root``: one item, a batch by threads alone and beside train steps, by
+    the loader's processes alone, and the Trainer's loop fed by it against one
+    pre-made batch, alternated. The epoch holds 20 batches, so each loader run
+    first takes 8 of them."""
+    from ptt_tpu_torch.config import ptt_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.data.loader import build_dataloader
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import make_train_step
+
+    cfg = ptt_config()
+    t0 = time.perf_counter()
+    dataset, loader = build_dataloader(dict(cfg["DATA_CONFIG"], DATA_PATH=root), cfg["CLASS_NAMES"], TRAIN_B,
+                                       workers=LOADER_WORKERS, training=True)
+    built = time.perf_counter() - t0
+    model = build_network(cfg["MODEL"], device=device, train=True)
+    model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
+    step = make_train_step(cfg["MODEL"], device=device)
+    batch = next(iter(loader))
+    median_step_ms(step, model, opt, [batch] * 2)  # warm-up
+    one_item = item_ms(dataset)
+    by_threads = thread_batches_ms(loader, 4)
+    beside_threads, beside_step = thread_batches_ms(loader, 4, lambda: median_step_ms(step, model, opt, [batch]))
+    by_processes = loader_batch_ms(loader, 12, warm=8)
+    log(f"[12] the KITTI loader in this process ({len(dataset)} train items, {len(loader)} batches an epoch, built in "
+        f"{built:.1f} s): one train item {one_item:.2f} ms in one thread (median of {TRAIN_B}); a batch by "
+        f"{LOADER_WORKERS} threads {by_threads:.1f} ms alone, {beside_threads:.1f} ms beside train steps, which took "
+        f"{beside_step:.1f} ms a step meanwhile; by the loader's {LOADER_WORKERS} processes {by_processes:.1f} ms a "
+        f"batch alone")
+    premade_vs_loader("[12]", step, model, opt, batch, loader, 12, card, warm=8)
+    loader.close()
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def kitti_train_phase(model, batch, device, card):
-    """Phase 12: the train CLI at B = 48 on scene 0000 (4 cars x 60 frames of
-    120,000 points) from the trained asset, one epoch and then a resumed
-    second, TRAIN.WITH_EVAL on a shorter scene 0019; ``--eval_all`` over the
-    two checkpoints; and a reference-layout .pth loaded with ``--ckpt``'s
-    loader, against the asset loaded from the .npz."""
+    """Phase 12: the KITTI loader in this process (``kitti_loader_phase``);
+    the train CLI at B = 48 on scene 0000 (4 cars x 60 frames of 120,000
+    points) from the trained asset, two epochs and then a resumed third,
+    TRAIN.WITH_EVAL on a shorter scene 0019; ``--eval_all`` over the three
+    checkpoints; and a reference-layout .pth loaded with ``--ckpt``'s loader,
+    against the asset loaded from the .npz."""
     import tempfile
 
     from ptt_tpu_torch.config import ptt_config
@@ -1800,27 +2245,33 @@ def kitti_train_phase(model, batch, device, card):
         rng = np.random.default_rng(12)
         write_kitti_scene(root, "0000", *sweep_scene(rng, 60, [60, 60, 60, 60]))
         write_kitti_scene(root, "0019", *sweep_scene(rng, 40, [30, 40]))
+        kitti_loader_phase(root, device, card)
         sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "TRAIN.WITH_EVAL.ENABLE", "True",
                 "TRAIN.WITH_EVAL.START_EPOCH", "0"]
         runs = []
-        for epochs in (1, 2):
-            rec, wall, _ = run_cli("train_tracking", ["--pretrained_model", ASSET, "--epochs", epochs, "--workers", 8,
-                                                      "--extra_tag", "chip_smoke_12", *sets])
+        for first, epochs in ((0, 2), (2, 3)):  # two epochs in one process, then one more resumed
+            rec, wall, text = run_cli("train_tracking", ["--pretrained_model", ASSET, "--epochs", epochs,
+                                                         "--workers", LOADER_WORKERS,
+                                                         "--extra_tag", "chip_smoke_12", *sets])
             runs.append(rec)
             n = rec["steps"][1] - rec["steps"][0]
-            ev = rec["eval"].get(str(epochs), {})
+            ev = {e: rec["eval"].get(str(e), {}) for e in range(first + 1, epochs + 1)}
+            # the Trainer's line of each epoch: its loop's seconds and ms a step, before its checkpoint and eval
+            per_epoch = re.findall(r"epoch (\d+)/\d+ .*?([\d.]+)s \((\d+) ms/it\)", text)
             log(f"[12] train CLI --epochs {epochs}: epochs {rec['epochs']}, steps {rec['steps']}, checkpoints "
                 f"{rec['checkpoints']}; {1e3 * rec['train_seconds'] / max(n, 1):.1f} ms a step with the KITTI loader "
-                f"(8 threads, checkpoint included); launches {rec['launches']} "
-                f"({ {k: v / max(n, 1) for k, v in rec['launches'].items()} } a step); WITH_EVAL Success "
-                f"{ev.get('success', float('nan')):.2f} Precision {ev.get('precision', float('nan')):.2f} "
-                f"at {ev.get('frames_per_s', float('nan')):.1f} frames/s; CLI wall {wall:.1f} s; card {card}")
-            if rec["epochs"] != [epochs - 1, epochs] or rec["checkpoints"] != list(range(1, epochs + 1)):
+                f"({LOADER_WORKERS} processes, checkpoints included); each epoch's loop (epoch, s, ms a step): "
+                f"{per_epoch}; launches {rec['launches']} ({ {k: v / max(n, 1) for k, v in rec['launches'].items()} } "
+                f"a step); WITH_EVAL (Success, Precision, frames/s) "
+                f"{ {e: (round(v.get('success', float('nan')), 2), round(v.get('precision', float('nan')), 2), round(v.get('frames_per_s', float('nan')), 1)) for e, v in ev.items()} }; "
+                f"CLI wall {wall:.1f} s; card {card}")
+            if rec["epochs"] != [first, epochs] or rec["checkpoints"] != list(range(1, epochs + 1)):
                 fail(f"[12] --epochs {epochs}: epochs {rec['epochs']}, checkpoints {rec['checkpoints']}")
-            if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n} or n != 20:
-                fail(f"[12] {n} steps with launches {rec['launches']}, not 20 steps of 2 FPS + 7 + 7 group")
-            if str(epochs) not in rec["eval"]:
-                fail(f"[12] TRAIN.WITH_EVAL did not score epoch {epochs}")
+            if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n} or \
+                    n != 20 * (epochs - first):
+                fail(f"[12] {n} steps with launches {rec['launches']}, not 20 steps an epoch of 2 FPS + 7 + 7 group")
+            if any(not v for v in ev.values()):
+                fail(f"[12] TRAIN.WITH_EVAL did not score every epoch of {rec['epochs']}")
         if runs[1]["steps"][0] != runs[0]["steps"][1]:
             fail(f"[12] the resumed run starts at step {runs[1]['steps'][0]}, not {runs[0]['steps'][1]}")
         rec, wall, _ = run_cli("test_tracking", ["--eval_all", "--ckpt_dir", os.path.join(run_dir, "ckpt"),
@@ -1830,8 +2281,8 @@ def kitti_train_phase(model, batch, device, card):
             evals = fh.read().splitlines()
         log(f"[12] test CLI --eval_all: eval_list.txt {evals}; launches {rec['launches']}; CLI wall {wall:.1f} s; "
             f"card {card}")
-        if [line.split()[0] for line in evals] != ["1", "2"]:
-            fail("[12] --eval_all did not evaluate checkpoints 1 and 2 once each")
+        if [line.split()[0] for line in evals] != ["1", "2", "3"]:
+            fail("[12] --eval_all did not evaluate checkpoints 1, 2 and 3 once each")
 
         ref_path = os.path.join(tmp, "reference.pth")
         torch.save({"model_state": reference_state_dict(state_dict_from_npz(ASSET)), "epoch": 0}, ref_path)
@@ -1945,6 +2396,7 @@ def dist_train_phase(device, card, tmp):
 
     cfg = ptt_synth_config()
     loader, batches = train_batches(cfg["DATA_CONFIG"], DIST_STEPS)
+    loader.close()
     job_dir = os.path.join(tmp, "dist_train")
     os.makedirs(job_dir)
     torch.save({"batches": batches, "iters_per_epoch": len(loader)}, os.path.join(job_dir, "job.pt"))
@@ -2137,6 +2589,10 @@ def waymo_train_phase(device, card):
     launches = {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches, "group_bwd": group.bwd_launches}
     ms = median_step_ms(step, model, opt, [batches[0]] * 5)
     peak = torch.cuda.max_memory_allocated()
+    log(f"[14] the loader at 8192 / 2048 points: one train item {item_ms(loader.dataset):.2f} ms in one thread "
+        f"(median of {TRAIN_B}), {loader_batch_ms(loader, 8):.1f} ms a batch by its {LOADER_WORKERS} processes alone")
+    premade_vs_loader("[14]", step, model, opt, batches[0], loader, 10, card)
+    loader.close()
     log(f"[14] ptt_waymo train steps at B = {TRAIN_B}: losses {[f'{x:.4f}' for x in losses]}; launches {launches} "
         f"over 3 steps; {ms:.1f} ms a step on one pre-made batch (median of 5); peak device memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB); card {card}")
@@ -2146,6 +2602,7 @@ def waymo_train_phase(device, card):
         fail(f"[14] ptt_waymo training launches {launches}, not 2 FPS and 7 + 7 group a step")
     del model, opt
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the later phases' peaks are their own
     return rows
 
 
@@ -2192,6 +2649,7 @@ def bf16_phase(device, card):
 
     cfg = ptt_synth_config()
     loader, batches = train_batches(cfg["DATA_CONFIG"], 1, seed=15)
+    loader.close()
     weights = state_dict_from_npz(ASSET)
 
     def fresh(use_kernels):
@@ -2284,10 +2742,91 @@ def nuscenes_phase(agreement, phase10, card):
         shutil.rmtree(os.path.join(REPO, "output", "nuscenes_models"), ignore_errors=True)
 
 
+def gemm_layers(cfg, batch, device, card, top: int = 6):
+    """Phase 19b: which layers make the tracker forward's matrix products. One
+    eager forward of the frame step's batch (B = 8) on the kernel path under
+    torch.profiler with input shapes: the matrix-product calls grouped by (M,
+    K, N) with their device ms, each beside the linear layers of
+    ``per_layer_flops`` whose output positions, input and output widths are
+    that product (the SA stages' layers run inside the SA kernel), and the
+    device's kernels by name."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.utils.profiling import per_layer_flops
+
+    model = build_network(cfg["MODEL"], device=device)
+    model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    by_mkn = {}
+    for name, row in per_layer_flops(model, batch):
+        if row["kind"] == "Linear" and row["calls"] and not name.startswith("backbone_3d.sa_stages"):
+            lin = model.get_submodule(name)
+            mkn = (int(np.prod(row["out_shape"][:-1])), lin.in_features, lin.out_features)
+            by_mkn.setdefault(mkn, []).append(name)
+    with torch.no_grad():
+        model(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            model(batch)
+            torch.cuda.synchronize()
+    products = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = [tuple(x) for x in (e.input_shapes or []) if x]
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        if e.key == "aten::mm" and len(shapes) >= 2:
+            mkn = (shapes[0][0], shapes[0][1], shapes[1][1])
+        elif e.key == "aten::addmm" and len(shapes) >= 3:
+            mkn = (shapes[1][0], shapes[1][1], shapes[2][1])
+        elif e.key == "aten::bmm" and len(shapes) >= 2:
+            mkn = (shapes[0][0] * shapes[0][1], shapes[0][2], shapes[1][2])
+        else:
+            continue
+        ms_, n_ = products.get((e.key, mkn), (0.0, 0))
+        products[(e.key, mkn)] = (ms_ + ms, n_ + e.count)
+    total = sum(ms for ms, _ in products.values())
+    if total == 0:
+        log("[19b] the profiler saw no device time: the matrix products' device ms not measured")
+    log(f"[19b] ptt.yaml forward on the frame step's batch (B = {batch['search_points'].shape[0]}), kernel path, "
+        f"eager: the matrix products, {total:.3f} ms of device time, the largest first (op, M x K x N, device ms, "
+        f"calls, the linear layers of that product); card {card}")
+    for (op, mkn), (ms, n) in sorted(products.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {op} {mkn[0]} x {mkn[1]} x {mkn[2]}: {ms:.3f} ms, {n} calls; layers {by_mkn.get(mkn, 'none (not a layer)')}")
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  kernel {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:100]}")
+    del model
+    torch.cuda.empty_cache()
+
+
+TOOL_RUNS = (("train_bench", ["--iters", 16, "--tracklets", 8]), ("demo_tracking", []))
+
+
+def tools_phase(card):
+    """Phase 19: the training-side tools run as a user runs them, ``python3 -m
+    ptt_tpu_torch.tools.train_bench`` (ptt.yaml and ptt_large.yaml at B = 48,
+    16 chained steps for the device step, 8 x 24 synthetic tracklets: 16
+    steps an epoch) and ``python3 -m
+    ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8): their output
+    printed, a non-zero exit fails the run."""
+    for module, args in TOOL_RUNS:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        log(f"[19] python3 -m ptt_tpu_torch.tools.{module} {' '.join(map(str, args))}: exit {out.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s; card {card}")
+        for line in out.stdout.splitlines():
+            log(f"  {line}")
+        if out.returncode != 0:
+            log(out.stderr[-4000:])
+            fail(f"[19] {module} exited with {out.returncode}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a GPU")
         return 1
+    adopt_orphans()
     sys.path.insert(0, REPO)
     from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
@@ -2380,9 +2919,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     graph_rows = [graph_vs_eager("[17]", "ptt.yaml", cfg, model, bench, device, card, 2)]
 
-    # 6 and 7: the training path
+    log(f"[time] phases 1-5 and 17 of ptt.yaml: {time.perf_counter() - t_start:.1f} s")
+    # 6 and 7: the training path; 14: ptt_waymo training
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
+    waymo_group_rows = waymo_train_phase(device, card)
 
+    log(f"[time] phases 6, 7 and 14: {time.perf_counter() - t_start:.1f} s")
     # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
     check_sa_limit(device)
     large_rows, large_launches = config_phase("[8]", "ptt_large.yaml", ptt_large_config(), device, card, clock, 2,
@@ -2395,7 +2937,8 @@ def main() -> int:
     # 17. the captured frame step against the eager loop (the benchmark batches ran with phases 4, 8, 9, 13)
     phase17 = graph_phase(cfg, model, agreement, device)
 
-    # 11 and 12: the CLIs on KITTI-format trees; 13 to 16: ptt_waymo, bf16 and the optimizers, nuScenes
+    # 11 and 12: the CLIs on KITTI-format trees; 13, 15, 16: ptt_waymo's tracker, bf16 and the optimizers, nuScenes
+    log(f"[time] phases 8, 9, 10 and 17: {time.perf_counter() - t_start:.1f} s")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     try:
         phase11a = kitti_test_phase(agreement, phase10, model, device, card, tmp)
@@ -2410,9 +2953,14 @@ def main() -> int:
         waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    waymo_group_rows = waymo_train_phase(device, card)
+    log(f"[time] phases 11, 12, 18, 13: {time.perf_counter() - t_start:.1f} s")
     bf16_phase(device, card)
     nuscenes_phase(agreement, phase10, card)
+    log(f"[time] phases 15 and 16: {time.perf_counter() - t_start:.1f} s")
+    # 19. train_bench and demo_tracking
+    torch.cuda.empty_cache()
+    tools_phase(card)
+    gemm_layers(cfg, batch, device, card)
 
     record = {"kernels": []}
     for name, src, replaces in (("fps", "ptt_tpu_torch/csrc/fps.cu", "ptt_tpu/ops/pallas_fps.py:37"),
@@ -2458,6 +3006,7 @@ def main() -> int:
             for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log("data_parallel " + json.dumps(phase18))
+    stop_children()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2465,7 +3014,42 @@ def main() -> int:
     return 0
 
 
+def loader_start() -> int:
+    """``python3 chip_smoke.py --loader-start``, not a run: seconds from making
+    a ptt_synth.yaml train loader of LOADER_WORKERS workers to its first
+    batch, and for 15 more, by the start method: ``spawn`` (each worker a new
+    interpreter), then the loader's ``forkserver`` (its first pool in this
+    process, then a later one), then ``spawn`` again. On the GPU's host."""
+    import multiprocessing
+
+    from ptt_tpu_torch.config import ptt_synth_config
+    from ptt_tpu_torch.data import loader as loader_mod
+    from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: --loader-start measures the GPU's host")
+        return 1
+    adopt_orphans()
+    log(f"card {gpu_line()}; os.cpu_count() {os.cpu_count()}")
+    dataset = SyntheticTrackingDataset(ptt_synth_config()["DATA_CONFIG"])
+    for method in ("spawn", "forkserver", "forkserver", "spawn"):
+        t0 = time.perf_counter()
+        loader = loader_mod.DataLoader(dataset, TRAIN_B, shuffle=True, drop_last=True, num_workers=LOADER_WORKERS)
+        if method == "spawn":
+            loader._context = multiprocessing.get_context("spawn")
+        it = iter(loader)
+        next(it)
+        first = time.perf_counter() - t0
+        for _ in range(15):
+            next(it)
+        log(f"{method}: first batch {first:.2f} s, 15 more {time.perf_counter() - t0 - first:.2f} s")
+        loader.close()
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:  # a rank of phase 18a, started by torchrun
         sys.exit(dist_train_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--loader-start"]:
+        sys.exit(loader_start())
     sys.exit(main())

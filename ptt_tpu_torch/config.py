@@ -321,6 +321,17 @@ def check_ported(cfg: dict, training: bool, devices: int = 1) -> None:
         raise NotImplementedError("not ported (ROADMAP.md): " + "; ".join(todo))
 
 
+def steps_per_dispatch(optim_cfg: dict) -> int:
+    """OPTIMIZATION.STEPS_PER_DISPATCH, K: an integer >= 1, else ValueError.
+    The JAX trainer scans K steps in one dispatch; the port runs them as K
+    single steps of the same math until ROADMAP.md Queue 1 item 4b (``train/
+    trainer.py`` logs it)."""
+    k = optim_cfg.get("STEPS_PER_DISPATCH", 1)
+    if isinstance(k, bool) or not isinstance(k, (int, float)) or k != int(k) or k < 1:
+        raise ValueError(f"OPTIMIZATION.STEPS_PER_DISPATCH must be an integer >= 1, not {k!r}")
+    return int(k)
+
+
 def point_sharding_note(cfg: dict):
     """The log line of a configuration with POINT_SHARDING run on one device,
     or None."""

@@ -23,6 +23,11 @@ from .encoder import PointFeatureEncoder
 from .processor import DataProcessor
 
 
+def _quiet(*args) -> None:
+    """The log of a dataset built without a logger (a module-level function,
+    so that the dataset pickles into the loader's worker processes)."""
+
+
 class TrackingDataset:
     """Base class. Subclasses fill ``self.tracklets``, a list of tracklets, each
     a list of frame dicts {'pc': (N, 3) float array, 'box': geo.Box, 'anno':
@@ -34,7 +39,7 @@ class TrackingDataset:
         self.class_names = class_names
         self.training = training
         self.root_path = root_path
-        self.logger = logger.info if logger is not None else (lambda *a: None)
+        self.logger = logger.info if logger is not None else _quiet
         self.seed = seed
         self.num_candidates_perframe = int(dataset_cfg.get("NUM_CANDIDATES_PERFRAME", 4))
         self.sample_interval = int(dataset_cfg.get("SAMPLED_INTERVAL", 1))

@@ -117,6 +117,7 @@ class KittiTrackingDataset(TrackingDataset):
             self._load_or_build_database()
         else:
             self.tracklets = [[self._frame_from_anno(a) for a in trk] for trk in self.per_sequence_anno]
+        self._lidar_cache.clear()  # the frames hold what they need; the loader's workers get no whole sweeps
         self._finalize()
 
     def _get_tracklet_annos(self, scene_ids) -> list:

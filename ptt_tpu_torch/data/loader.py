@@ -1,10 +1,46 @@
 """Batch loader (the JAX package's ``data/loader.py``): epoch-seeded shuffling,
 ``drop_last``, collation into (B, ...) numpy arrays (or, for test items, lists
-of whole tracklets), and a thread pool that builds the items of the next
-batches while the device trains on the current one (item construction is numpy
-work that releases the GIL). The train step uploads each batch to the device.
-``build_dataloader`` makes a dataset by its DATA_CONFIG.DATASET name and its
-loader, for training or for tests.
+of whole tracklets), built by worker processes while the device trains on the
+current batch. The trainer uploads each batch to the device
+(``train/train_step.py`` ``BatchUploader``). ``build_dataloader`` makes a
+dataset by its DATA_CONFIG.DATASET name and its loader, for training or for
+tests.
+
+Workers are processes of PyTorch's own ``torch.utils.data.DataLoader``, as the
+reference PTT trained: item construction is numpy and Python work on small
+arrays, which a thread pool runs one thread at a time under the interpreter
+lock. Its batch sampler yields ``batch_indices()`` of the current epoch, so a
+worker builds one whole batch and collates it; items are seeded by (seed,
+index), so which worker builds a batch does not change it, and the batches
+equal those built in the main process (``num_workers`` 0) bit for bit.
+
+- Workers start by ``forkserver``, never by ``fork`` from this process: a
+  fork copies whatever locks the parent's other threads hold (the gloo
+  backend's threads, CUDA's, the profiler's), and a child that touches one of
+  them hangs. The fork server is a fresh interpreter, started once per process
+  when the first loader with workers is made, that imports this package (and
+  with it PyTorch, while the caller goes on) and nothing else, and forks each
+  worker; it exits with the process. (``spawn`` is as safe but starts the
+  workers one after another, each a new interpreter: the parent's write of
+  the pickled dataset waits until the child has imported PyTorch. On the
+  H100's host 8 workers took about 50 s to a first batch by ``spawn``, under
+  3 s by the fork server: ``chip_smoke.py --loader-start``, PERF.md.) Each
+  worker gets a pickled copy of the dataset (the KITTI dataset pickles its
+  tracklets: train crops, or whole clouds for tests), so a dataset must be
+  picklable, its class at module level of an importable module, no lambda;
+  and each worker imports the main module, so a script that makes a loader
+  guards its entry point with ``if __name__ == "__main__"``.
+- The workers persist across epochs (``set_epoch`` reorders the next pass) and
+  stop with ``close()``, or when the loader is collected. Breaking out of an
+  epoch stops nothing: the next ``iter()`` drops what the workers built ahead.
+- A loader never starts more workers than an epoch has batches; each worker
+  runs PyTorch on one thread. A test item is a whole tracklet the dataset
+  already holds, which a worker only copies (twice: the dataset to it, the
+  tracklet back), so the CLIs load test items in the calling process unless
+  ``--workers`` asks otherwise. Under ``torchrun`` every rank starts its own
+  workers, and on one host the ranks' workers share its cores.
+- An item that raises, raises in the consumer; a worker that dies raises
+  ``RuntimeError`` there. Nothing falls back to threads.
 
 Under data parallelism each of ``num_shards`` processes loads its shard of
 every global batch: the indices ``batch_idx[shard_id::num_shards]``, as the JAX
@@ -15,13 +51,13 @@ batch.
 
 from __future__ import annotations
 
-import queue
-import threading
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+import multiprocessing.forkserver
+import weakref
 
 import numpy as np
-
-_PREFETCH = 2  # batches built ahead of the consumer
+import torch
+import torch.utils.data
 
 
 def default_collate(items):
@@ -32,6 +68,34 @@ def default_collate(items):
 def identity_collate(items):
     """Test items: a batch is the list of its whole tracklets."""
     return items
+
+
+def _init_worker(worker_id: int) -> None:
+    torch.set_num_threads(1)
+
+
+def _fork_server():
+    """The ``forkserver`` context, its server preloading this package and
+    started now (it imports PyTorch while the caller goes on)."""
+    context = multiprocessing.get_context("forkserver")
+    context.set_forkserver_preload([__name__])
+    multiprocessing.forkserver.ensure_running()
+    return context
+
+
+class _EpochBatches(torch.utils.data.Sampler):
+    """The batch sampler: ``loader.batch_indices()`` of the epoch current when
+    an iteration starts. It holds the loader weakly, so that a loader dropped
+    without ``close`` is collected at once and its workers stop."""
+
+    def __init__(self, loader):
+        self.loader = weakref.ref(loader)
+
+    def __iter__(self):
+        return iter(self.loader().batch_indices())
+
+    def __len__(self):
+        return len(self.loader().batch_indices())
 
 
 class DataLoader:
@@ -51,8 +115,10 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.num_workers = max(1, num_workers)
+        self.num_workers = max(0, num_workers)
         self.epoch = 0
+        self._loader = None
+        self._context = _fork_server() if min(self.num_workers, len(self)) else None
 
     def set_epoch(self, epoch: int):
         """The shuffle order of each epoch is seeded by (seed, epoch)."""
@@ -76,40 +142,20 @@ class DataLoader:
         return [idx for idx in shards if len(idx)]
 
     def __iter__(self):
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
-        out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
-        done = object()
-        stop = threading.Event()
+        if self._loader is None:
+            workers = min(self.num_workers, len(self))
+            self._loader = torch.utils.data.DataLoader(
+                self.dataset, batch_sampler=_EpochBatches(self), collate_fn=self.collate_fn, num_workers=workers,
+                persistent_workers=workers > 0, worker_init_fn=_init_worker if workers else None,
+                multiprocessing_context=self._context if workers else None)
+        return iter(self._loader)
 
-        def produce():
-            try:
-                for batch_idx in self.batch_indices():
-                    if stop.is_set():
-                        return
-                    out_q.put(self.collate_fn(list(pool.map(self.dataset.__getitem__, batch_idx))))
-            except BaseException as e:  # surface worker errors to the consumer
-                out_q.put(e)
-            finally:
-                out_q.put(done)
-
-        producer = threading.Thread(target=produce, daemon=True)
-        producer.start()
-        try:
-            while True:
-                item = out_q.get()
-                if item is done:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            while producer.is_alive():  # unblock a producer waiting on a full queue
-                try:
-                    out_q.get(timeout=0.1)
-                except queue.Empty:
-                    pass
-            pool.shutdown(wait=True, cancel_futures=True)
+    def close(self):
+        """Stop the worker processes; a later iteration starts new ones."""
+        loader, self._loader = self._loader, None
+        iterator = getattr(loader, "_iterator", None)
+        if iterator is not None and hasattr(iterator, "_shutdown_workers"):
+            iterator._shutdown_workers()
 
 
 def build_dataloader(dataset_cfg: dict, class_names, batch_size: int, root_path=None, workers: int = 4, logger=None,
@@ -120,6 +166,8 @@ def build_dataloader(dataset_cfg: dict, class_names, batch_size: int, root_path=
     Returns (dataset, loader)."""
     from . import ALL_DATASETS
 
+    if workers:
+        _fork_server()  # it imports PyTorch while the dataset is built
     dataset = ALL_DATASETS[dataset_cfg["DATASET"]](dataset_cfg=dataset_cfg, class_names=class_names,
                                                    training=training, root_path=root_path, logger=logger, seed=seed)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=training, drop_last=training, seed=seed,

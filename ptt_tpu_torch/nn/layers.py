@@ -4,11 +4,12 @@
 BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, which is
 not ``torch.nn.BatchNorm1d``'s training rule: the running variance is updated
 with the biased batch variance, where torch would use the unbiased one (the gap
-is n / (n - 1)). The modules keep ``nn.BatchNorm1d`` as the holder of the
-weights and running statistics (its ``momentum`` is the torch-convention weight
-of the new batch, 1 - flax's); in train mode the normalization and the update
-are written out. Flax computes the batch variance as E[x^2] - E[x]^2;
-``torch.var_mean`` gives the same statistic, rounded more accurately. (PyTorch's
+is n / (n - 1)). ``BatchNorm`` keeps ``nn.BatchNorm1d``'s weights and running
+statistics (its ``momentum`` is the torch-convention weight of the new batch,
+1 - flax's) and writes out the normalization and the update in train mode; a
+module call either way, so forward hooks see every BatchNorm
+(``utils/profiling.py``). Flax computes the batch variance as E[x^2] -
+E[x]^2; ``torch.var_mean`` gives the same statistic, rounded more accurately. (PyTorch's
 own ``batch_norm`` is not used in train mode: on the CPU it puts the tracker's
 features 1e-4 from a float64 run, which the tests could not tell from a fault.)
 
@@ -90,23 +91,25 @@ def _global_moments(flat: torch.Tensor):
     return var.float(), mean.float()
 
 
-def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis of a channel-last tensor: flax's train rule
     (batch statistics, over every rank's batch in a process group; running-stat
-    update in place) when ``bn.training``, the running statistics otherwise."""
-    flat = x.reshape(-1, x.shape[-1])
-    if not bn.training:
-        return bn(flat).reshape(x.shape)
-    if get_dist_info()[1] > 1:
-        var, mean = _global_moments(flat)
-    else:
-        var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
-    with torch.no_grad():
-        keep = 1.0 - bn.momentum  # flax momentum: the weight of the old statistics
-        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
-        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
-    y = torch.addcmul(bn.bias, x - mean, torch.rsqrt(var + bn.eps) * bn.weight)
-    return y.to(torch.promote_types(x.dtype, bn.weight.dtype))
+    update in place) when ``training``, the running statistics otherwise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            return super().forward(flat).reshape(x.shape)
+        if get_dist_info()[1] > 1:
+            var, mean = _global_moments(flat)
+        else:
+            var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax momentum: the weight of the old statistics
+            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+        y = torch.addcmul(self.bias, x - mean, torch.rsqrt(var + self.eps) * self.weight)
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
 def mlp2(c_in: int, hidden: int, c_out: int) -> nn.Sequential:
@@ -123,7 +126,7 @@ class SharedMLP(nn.Module):
         self.bn = bn
         pairs = list(zip(channels[:-1], channels[1:]))
         self.linears = nn.ModuleList(_bn_linear(a, b, bias=not bn) for a, b in pairs)
-        self.bns = nn.ModuleList(nn.BatchNorm1d(b, eps=BN_EPS) for _, b in pairs) if bn else None
+        self.bns = nn.ModuleList(BatchNorm(b, eps=BN_EPS) for _, b in pairs) if bn else None
 
     def forward(self, x, first_linear_apply=None):
         """``first_linear_apply``: replaces layer 0's linear by a function of its
@@ -137,7 +140,7 @@ class SharedMLP(nn.Module):
             else:
                 x = lin(x)
             if self.bn:
-                x = _batch_norm(self.bns[i], x)
+                x = self.bns[i](x)
             x = torch.relu(x)
         return x
 
@@ -169,7 +172,7 @@ class ConvStack(nn.Module):
         self.linears = nn.ModuleList(
             _bn_linear(a, b, bias=not (bn and i < last)) for i, (a, b) in enumerate(pairs)
         )
-        self.bns = nn.ModuleList(nn.BatchNorm1d(b, eps=BN_EPS) for _, b in pairs[:-1]) if bn else None
+        self.bns = nn.ModuleList(BatchNorm(b, eps=BN_EPS) for _, b in pairs[:-1]) if bn else None
 
     def forward(self, x):
         last = len(self.linears) - 1
@@ -177,6 +180,6 @@ class ConvStack(nn.Module):
             x = lin(x)
             if i < last:
                 if self.bn:
-                    x = _batch_norm(self.bns[i], x)
+                    x = self.bns[i](x)
                 x = torch.relu(x)
         return x

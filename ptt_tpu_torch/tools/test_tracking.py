@@ -39,7 +39,9 @@ def parse_args(argv=None):
     parser.add_argument("--cfg_file", type=str, default="tools/cfgs/kitti_models/ptt.yaml",
                         help="config for eval, by its tools/cfgs/ path")
     parser.add_argument("--batch_size", type=int, default=8, help="tracklets per device dispatch (device tracker)")
-    parser.add_argument("--workers", type=int, default=2)
+    parser.add_argument("--workers", type=int, default=0,
+                        help="the loader's worker processes; 0 (the default): in this process, since a test "
+                             "item is a whole tracklet already in memory, which a worker would only copy")
     parser.add_argument("--extra_tag", type=str, default="default")
     parser.add_argument("--ckpt", type=str, default=None, help="checkpoint file or run directory to evaluate")
     parser.add_argument("--host_loop", action="store_true", default=False,
@@ -162,12 +164,15 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
     load_seconds = time.perf_counter() - t0
     model = build_network(cfg["MODEL"], device=device)
     before = kernel_launches()
-    if args.eval_all:
-        repeat_eval_ckpt(args, cfg, model, loader, args.ckpt_dir or output_dir / "ckpt", logger, result_dir)
-        record = {}
-    else:
-        succ, prec, fps = eval_single_ckpt(args, cfg, model, loader, args.ckpt, logger, result_dir)
-        record = {"success": succ, "precision": prec, "frames_per_s": fps}
+    try:
+        if args.eval_all:
+            repeat_eval_ckpt(args, cfg, model, loader, args.ckpt_dir or output_dir / "ckpt", logger, result_dir)
+            record = {}
+        else:
+            succ, prec, fps = eval_single_ckpt(args, cfg, model, loader, args.ckpt, logger, result_dir)
+            record = {"success": succ, "precision": prec, "frames_per_s": fps}
+    finally:
+        loader.close()
     record.update(dataset_seconds=load_seconds,
                   launches={key: n - before[key] for key, n in kernel_launches().items()}, world_size=world)
     logger.info(summary_line(record))

@@ -40,7 +40,8 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=None,
                         help="global batch size, split over the ranks (default BATCH_SIZE_PER_GPU)")
     parser.add_argument("--epochs", type=int, default=None, help="number of epochs to train for")
-    parser.add_argument("--workers", type=int, default=4, help="dataloader worker threads")
+    parser.add_argument("--workers", type=int, default=4,
+                        help="the loader's worker processes (0: items built in this process)")
     parser.add_argument("--extra_tag", type=str, default="default", help="extra tag for this experiment")
     parser.add_argument("--ckpt", type=str, default=None, help="training checkpoint to resume from")
     parser.add_argument("--pretrained_model", type=str, default=None,
@@ -118,10 +119,11 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     eval_fn, evals = None, {"seconds": 0.0, "launches": dict.fromkeys(kernel_launches(), 0), "results": {}}
     with_eval = cfg.get("TRAIN", {}).get("WITH_EVAL", {})
     if with_eval.get("ENABLE", False):
-        # the test tracklets sharded as the test CLI shards them: one a rank of each batch of `world`
-        _, test_loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=world,
-                                          workers=args.workers, logger=logger, training=False, seed=args.seed,
-                                          num_shards=world, shard_id=rank)
+        # the test tracklets sharded as the test CLI shards them: one a rank of each batch of `world`; in this
+        # process, as the test CLI loads them by default (a test item is a whole tracklet already in memory)
+        _, test_loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=world, workers=0,
+                                          logger=logger, training=False, seed=args.seed, num_shards=world,
+                                          shard_id=rank)
         start_epoch, interval = int(with_eval.get("START_EPOCH", 0)), int(with_eval.get("INTERVAL", 1))
 
         def eval_fn(model, epoch):
@@ -147,7 +149,10 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
 
     logger.info("**********************Start training**********************")
     t0, before = time.perf_counter(), kernel_launches()
-    trainer.train()
+    try:
+        trainer.train()
+    finally:
+        train_loader.close()
     seconds = time.perf_counter() - t0
     logger.info("**********************Training done**********************")
     if tb_writer is not None:

@@ -11,7 +11,8 @@ optimizer and its state keep; the outputs are cast back to float32, the losses
 are computed in float32 on the float32 batch, and the BatchNorm running
 statistics stay float32. Each layer follows flax's type promotion, not
 autocast (``nn/layers.py``). The JAX package's K-step scan is not ported
-(ROADMAP.md).
+(ROADMAP.md Queue 1 item 4b): OPTIMIZATION.STEPS_PER_DISPATCH = K runs as K
+of these steps (``train/trainer.py``).
 
 Data parallelism, the JAX package's ``make_sharded_train_step``: in a
 process group each rank steps on its shard of the global batch; BatchNorm and
@@ -37,12 +38,56 @@ from .bn_momentum import MODEL_BN_MOMENTUM, set_bn_momentum
 
 def to_device(batch: dict, device) -> dict:
     """A loader batch (dict of numpy arrays or tensors) as float32/int tensors on
-    ``device``."""
+    ``device``; a tensor already there is passed as it is."""
     out = {}
     for key, value in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
         out[key] = t.to(device, non_blocking=True)
     return out
+
+
+def pin_batch(batch: dict) -> dict:
+    """A loader batch as CPU tensors in page-locked memory, one staging copy, so
+    that a copy to the GPU from there runs asynchronously (from pageable memory
+    the host waits for the stream first). Only where CUDA is present."""
+    return {key: torch.from_numpy(np.ascontiguousarray(value)).pin_memory() for key, value in batch.items()}
+
+
+class BatchUploader:
+    """Uploads loader batches to ``device`` ahead of the step that takes them:
+    the JAX trainer's upload of batch k+1 while step k runs.
+
+    On CUDA, ``put`` makes one pinned staging copy of the batch (``pin_batch``)
+    and enqueues its host-to-device copy on a side stream, then records an event
+    there; ``take`` makes the compute stream wait for that event and marks each
+    tensor as used on the compute stream (``record_stream``), so that the
+    caching allocator does not give its memory to the side stream's next
+    upload before the step that reads it has run. Neither waits on the device.
+    On the CPU ``put`` is ``to_device`` and ``take`` returns its batch."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def put(self, batch):
+        if batch is None:
+            return None
+        if self.stream is None:
+            return to_device(batch, self.device)
+        host = pin_batch(batch)
+        with torch.cuda.stream(self.stream):
+            uploaded = {key: value.to(self.device, non_blocking=True) for key, value in host.items()}
+        return uploaded, self.stream.record_event()
+
+    def take(self, pending) -> dict:
+        if self.stream is None:
+            return pending
+        uploaded, event = pending
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(event)
+        for value in uploaded.values():
+            value.record_stream(compute)
+        return uploaded
 
 
 def cast_floats(tree: dict, dtype) -> dict:
@@ -77,7 +122,8 @@ def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = Fals
 
     ``model`` is the tracker on ``device`` (CUDA unless the caller asks for the
     CPU), ``optimizer`` a ``train.optim.Optimizer`` over its parameters,
-    ``batch`` a loader batch. ``bn_momentum``, the scheduled flax momentum,
+    ``batch`` a loader batch, on the host or already on the device
+    (``BatchUploader``). ``bn_momentum``, the scheduled flax momentum,
     replaces MODEL_BN_MOMENTUM in every BatchNorm for this step. ``metrics``
     are the loss terms, ``loss`` and ``grad_norm`` (before clipping), 0-dim
     tensors still on the device; in a process group, the global batch's."""

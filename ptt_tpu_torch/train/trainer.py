@@ -4,8 +4,14 @@ loader batch, a finite-loss check per epoch, checkpoints every
 optional ``eval_fn`` hook after each epoch that keeps the best-Success model in
 ``ckpt_best.npz``. Scalars go to ``tb_writer`` only if one is passed.
 
-Inside an epoch nothing waits for the device: the metrics of each step stay on
-the device until the epoch ends.
+Inside an epoch nothing waits for the device (``pipelined_steps``, the JAX
+trainer's hot loop): step k is launched, then batch k+1 is taken from the
+loader and its upload enqueued (``BatchUploader``: from pinned memory on a side
+stream, which step k+1 waits for), so that the loader's workers and the upload
+run while step k runs on the device; the metrics of each step stay on the
+device until the epoch ends. OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 runs as K
+single steps of the same math, and says so once (the K-step CUDA graph is
+ROADMAP.md Queue 1 item 4b).
 
 In a process group (data parallelism, ``train/train_step.py``) every rank
 starts from rank 0's parameters and buffers, broadcast at construction and
@@ -22,11 +28,25 @@ from pathlib import Path
 import numpy as np
 
 from .. import resolve_device
+from ..config import steps_per_dispatch
 from ..utils.dist import broadcast_module, get_dist_info
 from .bn_momentum import bn_momentum_for_epoch
 from .checkpoint import CheckpointManager, save_variables_npz
 from .optim import Optimizer
-from .train_step import make_train_step
+from .train_step import BatchUploader, make_train_step
+
+
+def pipelined_steps(step, model, optimizer, batches, uploader: BatchUploader, bn_momentum=None) -> list:
+    """One pass of ``step`` over ``batches``: step k is launched, then batch
+    k+1 is fetched and its upload enqueued while step k runs. Nothing waits on
+    the device. Returns each step's metrics, still on the device."""
+    batches = iter(batches)
+    history = []
+    pending = uploader.put(next(batches, None))
+    while pending is not None:
+        history.append(step(model, optimizer, uploader.take(pending), bn_momentum))
+        pending = uploader.put(next(batches, None))
+    return history
 
 
 class Trainer:
@@ -57,6 +77,12 @@ class Trainer:
                          % ("bf16" if mixed_precision else "f32",
                             "default" if "MIXED_PRECISION" not in optim_cfg else "from config", not mixed_precision))
         self.train_step = make_train_step(model_cfg, device=self.device, mixed_precision=mixed_precision)
+        self.uploader = BatchUploader(self.device)
+        k = steps_per_dispatch(optim_cfg)
+        if k > 1:
+            # the JAX trainer logs steps_per_dispatch=K and scans K steps a dispatch
+            self.logger.info(f"steps_per_dispatch={k}: runs as {k} single steps of the same math "
+                             "(the K-step CUDA graph is ROADMAP.md Queue 1 item 4b)")
         self.bn_sched_cfg = optim_cfg.get("BN_SCHEDULER")
         self.output_dir = Path(output_dir)
         self.ckpt = CheckpointManager(self.output_dir / "ckpt", max_to_keep=max_ckpt_save_num)
@@ -95,10 +121,9 @@ class Trainer:
             self.train_loader.set_epoch(epoch)
             bn_m = self._bn_momentum(epoch)
             t0 = time.perf_counter()
-            history = []
-            for batch in self.train_loader:
-                history.append(self.train_step(self.model, self.optimizer, batch, bn_m))
-                self.accumulated_iter += 1
+            history = pipelined_steps(self.train_step, self.model, self.optimizer, self.train_loader, self.uploader,
+                                      bn_m)
+            self.accumulated_iter += len(history)
             if not history:
                 raise RuntimeError("the train loader gave no batch")
             if self.tb_writer is not None:

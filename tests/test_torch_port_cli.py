@@ -27,7 +27,7 @@ from ptt_tpu.nn import build_network as jbuild
 from ptt_tpu.train.checkpoint import save_variables_npz as jsave_npz
 from ptt_tpu.utils.torch_converter import save_torch_checkpoint
 from ptt_tpu_torch.config import (cfg_from_list, check_ported, cli_config, config_by_path, point_sharding_note,
-                                  ptt_config)
+                                  ptt_config, steps_per_dispatch)
 from ptt_tpu_torch.convert import reference_state_dict, state_dict_from_npz
 from ptt_tpu_torch.data.kitti import KittiTrackingDataset
 from ptt_tpu_torch.data.synthetic import make_tracklets
@@ -291,6 +291,34 @@ def _log(run_dir, pattern):
 
 def _summary(text):
     return [json.loads(line.split("  summary ", 1)[1]) for line in text.splitlines() if "  summary {" in line][-1]
+
+
+@pytest.mark.parametrize("k", [4, 0, 2.5])
+def test_steps_per_dispatch_runs_as_single_steps_or_is_refused(narrow, cli_root, k):
+    """OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 (the JAX trainer's K-step scan)
+    runs as K single steps, and the train CLI logs one line that says so and
+    names ROADMAP.md Queue 1 item 4b; K < 1 and a K that is not an integer are
+    refused before training."""
+    if k == 2.5:  # --set keeps a key's type, so a float K comes from a config file
+        with pytest.raises(ValueError, match="STEPS_PER_DISPATCH must be an integer >= 1, not 2.5"):
+            steps_per_dispatch({"STEPS_PER_DISPATCH": k})
+        return
+    sets = narrow["sets"] + ["DATA_CONFIG.DATA_SPLIT", "train:all", "OPTIMIZATION.STEPS_PER_DISPATCH", str(k)]
+    flags = ["--device", "cpu", "--batch_size", "4", "--workers", "0", "--epochs", "1", "--set", *sets]
+    run = cli_root / "kitti_models" / "ptt" / "default"
+    if k == 0:
+        with pytest.raises(ValueError, match="STEPS_PER_DISPATCH must be an integer >= 1, not 0"):
+            train_tracking.main(flags)
+        assert not (run / "ckpt").exists() or not list((run / "ckpt").iterdir())
+        return
+    assert train_tracking.main(flags) == 0
+    text = _log(run, "log_train_*.txt")
+    lines = [line for line in text.splitlines() if "steps_per_dispatch=" in line]
+    assert len(lines) == 1 and lines[0].endswith(
+        "steps_per_dispatch=4: runs as 4 single steps of the same math (the K-step CUDA graph is ROADMAP.md "
+        "Queue 1 item 4b)")
+    summary = _summary(text)
+    assert summary["steps"] == [0, 6] and summary["checkpoints"] == [1]  # 6 frames x 4 candidates / 4
 
 
 def test_ptt_synth_ps_evaluates_on_one_device(narrow, cli_root):

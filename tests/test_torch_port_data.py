@@ -23,7 +23,9 @@ from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
 from ptt_tpu_torch.nn import build_network
 from ptt_tpu_torch.train.checkpoint import CheckpointManager, save_variables_npz
 from ptt_tpu_torch.train.optim import Optimizer
+from ptt_tpu_torch.train.train_step import make_train_step
 from ptt_tpu_torch.train.trainer import Trainer
+from tests._torch_port_loader_items import Range
 from tests.test_torch_port_train import narrow_model_cfg, small_data_cfg
 
 torch.set_num_threads(1)
@@ -107,19 +109,11 @@ def test_synthetic_train_items_equal_jax():
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, True), (False, False)])
 def test_loader_order_equals_jax(shuffle, drop_last):
-    """Same seed and epoch -> the same items in the same batches."""
-    ds = list(range(23))
-
-    class Items:
-        def __len__(self):
-            return len(ds)
-
-        def __getitem__(self, i):
-            return {"i": np.asarray(ds[i])}
-
+    """Same seed and epoch -> the same items in the same batches. (The items
+    live in a module the loader's worker processes can import.)"""
     for epoch in (0, 1, 5):
-        a = DataLoader(Items(), 4, shuffle=shuffle, drop_last=drop_last, seed=11, num_workers=2)
-        b = JDataLoader(Items(), 4, shuffle=shuffle, drop_last=drop_last, seed=11, num_workers=2)
+        a = DataLoader(Range(23), 4, shuffle=shuffle, drop_last=drop_last, seed=11, num_workers=2)
+        b = JDataLoader(Range(23), 4, shuffle=shuffle, drop_last=drop_last, seed=11, num_workers=2)
         a.set_epoch(epoch)
         b.set_epoch(epoch)
         got, ref = [x["i"].tolist() for x in a], [x["i"].tolist() for x in b]
@@ -226,6 +220,50 @@ def test_trainer_two_epochs_then_resume(tmp_path):
     assert resumed.accumulated_iter == 12 and seen == [(3, False)]
     assert resumed.ckpt.latest_epoch() == 3
     assert all(torch.isfinite(p).all() for p in resumed.model.parameters())
+
+
+class _Scalars:
+    """A tensorboard writer that keeps what it is given."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, step):
+        self.rows.append((tag, float(value), step))
+
+
+def test_trainer_pipelined_epochs_equal_the_step_by_step_loop(tmp_path):
+    """The Trainer's loop (``pipelined_steps``: batch k+1 taken and put while
+    step k runs) over two epochs, BatchNorm momentum scheduled, gives the
+    losses and the weights of the loop it replaced, one ``step`` a loader
+    batch, bit for bit."""
+    data_cfg = dict(small_data_cfg(), NUM_TRACKLETS=2, FRAMES_PER_TRACKLET=2)  # 16 items, 4 steps an epoch
+    optim_cfg = dict(ptt_synth_config()["OPTIMIZATION"], NUM_EPOCHS=2,
+                     BN_SCHEDULER={"BN_INIT": 0.5, "BN_DECAY": 0.5, "DECAY_STEP": 1, "BN_CLIP": 0.01})
+    model_cfg = narrow_model_cfg()
+
+    def make():
+        torch.manual_seed(0)
+        return (build_network(model_cfg, device="cpu"),
+                DataLoader(SyntheticTrackingDataset(data_cfg), 4, shuffle=True, drop_last=True, num_workers=0))
+
+    model, loader = make()
+    scalars = _Scalars()
+    trainer = Trainer(model, model_cfg, optim_cfg, loader, tmp_path, LOG, device="cpu", tb_writer=scalars)
+    trainer.train()
+    losses = [value for tag, value, _ in scalars.rows if tag == "train/loss"]
+
+    ref_model, ref_loader = make()
+    opt = Optimizer(ref_model.parameters(), optim_cfg, len(ref_loader), 2)
+    step = make_train_step(model_cfg, device="cpu")
+    ref = []
+    for epoch in range(2):
+        ref_loader.set_epoch(epoch)
+        for batch in ref_loader:
+            ref.append(float(step(ref_model, opt, batch, trainer._bn_momentum(epoch))["loss"]))
+    assert trainer._bn_momentum(0) != trainer._bn_momentum(1) and len(losses) == 8 and losses == ref
+    for key, value in ref_model.state_dict().items():
+        assert torch.equal(value, trainer.model.state_dict()[key]), key
 
 
 def test_trainer_defaults_to_cuda():
