@@ -125,6 +125,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      and per layer, a train step); their output printed; (19b) the
      ptt.yaml forward's matrix products by (M, K, N) with their device time,
      each beside the layers of that product.
+  20. (run after 13b) POINT_SHARDING, two gloo ranks on the one card as one
+     point group (the ranks of a node), each started by torchrun: (a) at
+     ptt_waymo's stage-0 shapes (B = 8; 8192 points, 2048 centers; 2048 and
+     1024) ``ball_query``, ``knn``, ``three_nn`` and ``square_distance`` split
+     over the ranks torch.equal to unsplit, and the SA kernel on each rank's
+     half of the centers, gathered, torch.equal to the unsplit kernel and
+     within SA_RTOL of ``fused_sa_plain`` (``chip_smoke.py --point-rank DIR``
+     is each rank); (b) the test CLI with ptt_waymo.yaml as the two ranks on
+     13b's scene: 13b's result file line for line, its Success/Precision, the
+     SA calls that split (4 of 7 a step), bytes gathered, ms a frame step and
+     frames/s a rank beside 13b's; (c) the train CLI with ptt_synth_ps.yaml as
+     two ranks, 2 data-parallel steps, finite, the training note logged.
 The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
 device's launch counts must equal the wrappers' and replays' counts. Phase 14
 runs right after phase 7 (late in a long process the profiler can miss the
@@ -136,7 +148,8 @@ adopts the orphans of its descendants, and before it exits it shuts down the
 loaders' worker processes, stops the fork server and multiprocessing's resource
 tracker (which would otherwise outlive it by a moment), then ends and reaps
 whatever else is still below it, and logs what it stopped (``stop_children``).
-``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, not a run;
+``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, and
+``--point-rank DIR`` phase 20a's, not a run;
 ``python3 chip_smoke.py --loader-start`` times the loader's start by start
 method (``loader_start``), not a run either.
 """
@@ -2529,7 +2542,8 @@ def dist_test_phase(root, phase11a, model, device, card, tmp):
 
 def waymo_cli_phase(root, card):
     """Phase 13b: the test CLI with ptt_waymo.yaml on phase 11b's scene 0019
-    (150 sweeps of 120,000 points, max_points 16384, seeded init)."""
+    (150 sweeps of 120,000 points, max_points 16384, seeded init). Returns its
+    result lines, frames/s and Success/Precision (phase 20b's reference)."""
     steps = 160 - 1
     rec, wall, text = run_cli("test_tracking", ["--cfg_file", "tools/cfgs/kitti_models/ptt_waymo.yaml", "--batch_size", 8,
                                                 "--extra_tag", "chip_smoke_13b", "--set", "DATA_CONFIG.DATA_PATH", root],
@@ -2543,7 +2557,13 @@ def waymo_cli_phase(root, card):
         fail(f"[13b] launches {rec['launches']}, not 2 FPS and 7 SA per step over {steps} steps")
     if not ("the point axis" in text and "is not split" in text):
         fail("[13b] the test CLI did not log that POINT_SHARDING splits nothing on one device")
+    data = os.path.join(REPO, "output", "kitti_models", "ptt_waymo", "chip_smoke_13b", "eval", "default",
+                        "final_result", "data")
+    with open(os.path.join(data, "track_result.txt")) as fh:
+        lines = fh.read().splitlines()
     shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt_waymo"), ignore_errors=True)
+    return {"lines": lines, "frames_per_s": rec["frames_per_s"], "success": rec["success"],
+            "precision": rec["precision"]}
 
 
 def waymo_train_phase(device, card):
@@ -2799,13 +2819,200 @@ def gemm_layers(cfg, batch, device, card, top: int = 6):
     torch.cuda.empty_cache()
 
 
-TOOL_RUNS = (("train_bench", ["--iters", 16, "--tracklets", 8]), ("demo_tracking", []))
+# ------------------------------------------------------------ point sharding (phase 20)
+
+POINT_RANKS = 2  # one point group of two gloo ranks sharing the card (NCCL refuses two ranks on one device)
+POINT_B = 8  # ptt_waymo's tracker batch
+# (points, centers) of ptt_waymo's stage 0: the search branch, then the template branch
+POINT_SHAPES = ((8192, 2048), (2048, 1024))
+POINT_TIMED = 20
+
+
+def point_rank(job_dir) -> int:
+    """Phase 20a, one rank under torchrun (``chip_smoke.py --point-rank
+    DIR``): both ranks one point group on cuda:0. At ptt_waymo's stage-0
+    shapes (B = 8; 8192 points and 2048 centers, 2048 and 1024), clouds and the
+    seeded model's stage-0 weights the same on both ranks: ``ball_query``,
+    ``knn``, ``three_nn`` and ``square_distance`` under the group against the
+    same ops outside it (torch.equal); the SA kernel on this rank's half of
+    the centers, gathered, against the unsplit kernel (torch.equal) and
+    ``fused_sa_plain`` (SA_RTOL); rank 0's ms of the kernel on all and on half
+    the centers while rank 1 waits, and each rank's ms of the gather. Saves
+    DIR/rank<r>.pt."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from ptt_tpu_torch.config import config_by_path
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.ops import mesh_ctx, point_ops, sa
+    from ptt_tpu_torch.utils.dist import init_distributed, point_groups
+
+    rank, _, device = init_distributed("gloo", "env://", "cuda:0")
+    try:
+        handle, ranks = point_groups()
+        group = mesh_ctx.PointGroup(handle, tuple(ranks), ranks.index(rank))
+        torch.manual_seed(SEED)
+        model = build_network(config_by_path("kitti_models/ptt_waymo.yaml")["MODEL"], device=device)
+        stage = model.backbone_3d.sa_stages[0]
+        with torch.no_grad():
+            weights, biases = stage.mlp.folded()
+        gen = torch.Generator().manual_seed(20)
+        out = {"rows": []}
+        for n, m in POINT_SHAPES:
+            xyz = (torch.randn(POINT_B, n, 3, generator=gen) * torch.tensor([2.0, 1.0, 0.5])).to(device)
+            centers = xyz[:, torch.randperm(n, generator=gen)[:m]].contiguous()
+
+            def ops():
+                return {"ball_query": point_ops.ball_query(stage.radius, stage.nsample, xyz, centers),
+                        "knn": point_ops.knn(16, centers, xyz), "three_nn": point_ops.three_nn(centers, xyz),
+                        "square_distance": point_ops.square_distance(centers, xyz)}
+
+            def sa_call(ctr=centers):
+                return sa.fused_sa_inference(xyz, ctr, None, stage.radius, stage.nsample, weights, biases)
+
+            whole, whole_sa = ops(), sa_call()
+            with mesh_ctx.use_point_group(group):
+                before = mesh_ctx.gathers
+                split, split_sa = ops(), sa_call()
+                gathers = mesh_ctx.gathers - before
+            plain = sa.fused_sa_plain(xyz, centers, None, stage.radius, stage.nsample, weights, biases)
+            equal = {k: all(torch.equal(a, b) for a, b in zip(v, whole[k])) if isinstance(v, tuple)
+                     else torch.equal(v, whole[k]) for k, v in split.items()}
+            row = {"shape": [POINT_B, n, m], "gathers": gathers, "equal": equal,
+                   "sa_equal": torch.equal(split_sa, whole_sa), "sa_plain_err": float((split_sa - plain).abs().max()),
+                   "sa_plain_ok": bool(torch.allclose(split_sa, plain, rtol=SA_RTOL, atol=SA_ATOL))}
+            del whole, split, plain
+            half = centers[:, group.rows(m)].contiguous()
+            local = sa_call(half)
+            dist.barrier()
+            if rank == 0:  # rank 1 waits: the card's time for all the centers and for one rank's share
+                row["sa_ms"] = cuda_ms(sa_call, POINT_TIMED)
+                row["sa_half_ms"] = cuda_ms(lambda: sa_call(half), POINT_TIMED)
+            dist.barrier()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(POINT_TIMED):
+                mesh_ctx.gather_rows(local, group)
+            torch.cuda.synchronize(device)
+            row["gather_ms"] = (time.perf_counter() - t0) * 1e3 / POINT_TIMED
+            row["gather_bytes"] = local.numel() * local.element_size() * group.size
+            out["rows"].append(row)
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(job_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def summaries(text) -> list:
+    return [json.loads(line.split("  summary ", 1)[1]) for line in text.splitlines() if "  summary {" in line]
+
+
+def point_phase(root, phase13b, card, tmp):
+    """Phase 20: POINT_SHARDING as one point group of two gloo ranks sharing
+    the card, each started by torchrun: (a) the split ops and the SA kernel on
+    each rank's centers at ptt_waymo's stage-0 shapes (``point_rank``); (b)
+    the test CLI with ptt_waymo.yaml as the two ranks on 13b's scene: 13b's
+    result file line for line and its Success/Precision, the SA calls that
+    split, the bytes gathered, ms a frame step and frames/s a rank against
+    13b's one process (cost, not scaling: the two ranks share one card); (c)
+    the train CLI with ptt_synth_ps.yaml as two ranks, 2 steps of global B =
+    48 from the asset: finite losses, data-parallel, the training note."""
+    t_phase = time.perf_counter()
+    job_dir = os.path.join(tmp, "point")
+    os.makedirs(job_dir)
+    run_ranks([__file__, "--point-rank", job_dir], "[20a]")
+    ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"), weights_only=False) for r in range(POINT_RANKS)]
+    for r, out in enumerate(ranks):
+        for row in out["rows"]:
+            b, n, m = row["shape"]
+            timing = (f"; the kernel on all {m} centers {row['sa_ms']:.3f} ms, on one rank's {m // POINT_RANKS} "
+                      f"{row['sa_half_ms']:.3f} ms (rank 1 idle)" if r == 0 else "")
+            log(f"[20a] rank {r}, (B, N, M) = ({b}, {n}, {m}): split ops torch.equal to unsplit {row['equal']} "
+                f"({row['gathers']} gathers); the SA kernel on {m // POINT_RANKS} centers a rank, gathered, torch.equal "
+                f"to the unsplit kernel {row['sa_equal']}, max |diff| to fused_sa_plain {row['sa_plain_err']:.2e} "
+                f"(rtol = atol = {SA_RTOL}){timing}; a gather of {row['gather_bytes'] / 1e6:.2f} MB "
+                f"{row['gather_ms']:.3f} ms (gloo, through host memory); card {card}")
+            if not all(row["equal"].values()) or not row["sa_equal"] or not row["sa_plain_ok"]:
+                fail(f"[20a] a split op or the split SA kernel differs from the unsplit one at {row['shape']}")
+            if row["gathers"] != 6:
+                fail(f"[20a] {row['gathers']} gathers at {row['shape']}, not 6 (4 ops, three_nn's pair, SA)")
+
+    tag = "chip_smoke_20b"
+    data = os.path.join(REPO, "output", "kitti_models", "ptt_waymo", tag, "eval", "default", "final_result", "data")
+    try:
+        t0 = time.perf_counter()
+        text = run_ranks(["-m", "ptt_tpu_torch.tools.test_tracking", "--launcher", "pytorch", "--dist_backend", "gloo",
+                          "--device", "cuda:0", "--cfg_file", "tools/cfgs/kitti_models/ptt_waymo.yaml", "--batch_size",
+                          8, "--extra_tag", tag, "--set", "DATA_CONFIG.DATA_PATH", root], "[20b]")
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(data))
+        with open(os.path.join(data, "track_result.rank0.txt")) as fh:
+            lines = fh.read().splitlines()
+    finally:
+        shutil.rmtree(os.path.join(REPO, "output", "kitti_models", "ptt_waymo"), ignore_errors=True)
+    records = summaries(text)
+    if len(records) != 1:
+        fail(f"[20b] {len(records)} summary lines, not rank 0's one")
+    rec = records[0]
+    steps = 160 - 1
+    group = rec["point_group"]
+    split = {int(m): n for m, n in group["sa_split"].items()}
+    frames = len(lines)
+    ms_step = {"13b": 1e3 * frames / phase13b["frames_per_s"] / steps, "20b": 1e3 * frames / rec["frames_per_s"] / steps}
+    same = lines == phase13b["lines"]
+    log(f"[20b] test CLI ptt_waymo.yaml as a point group of {group['ranks']} gloo ranks on cuda:0 (torchrun) on 13b's "
+        f"scene: result files {files}; rank 0's {frames} lines equal to 13b's line for line {same}; Success "
+        f"{rec['success']:.2f} Precision {rec['precision']:.2f} (13b {phase13b['success']:.2f}/"
+        f"{phase13b['precision']:.2f}); graph {rec['graph']!r}; SA launches on half the centers by the stage's M "
+        f"{split} over {steps} frame steps ({sum(split.values()) / steps:.0f} of {rec['launches']['sa'] / steps:.0f} "
+        f"SA calls a step split); {group['gathers'] / steps:.0f} gathers and {group['gathered_bytes'] / steps / 1e6:.2f} "
+        f"MB gathered a frame step; rank 0 launches {rec['launches']}; {rec['frames_per_s']:.1f} frames/s a rank, "
+        f"{ms_step['20b']:.2f} ms a frame step, against 13b's one process {phase13b['frames_per_s']:.1f} frames/s, "
+        f"{ms_step['13b']:.2f} ms a step (graphed, under the profiler; cost, not scaling: the ranks share one card); "
+        f"torchrun wall {wall:.1f} s; card {card}")
+    if not same or files != ["track_result.rank0.txt"]:
+        fail("[20b] the point group's result file is not 13b's line for line, or rank 1 wrote one")
+    if (rec["success"], rec["precision"]) != (phase13b["success"], phase13b["precision"]):
+        fail("[20b] Success/Precision differ from 13b's")
+    if split != {2048: steps, 1024: 2 * steps, 512: steps} or rec["launches"]["sa"] != 7 * steps \
+            or rec["launches"]["fps"] != 2 * steps:
+        fail(f"[20b] SA split {split}, launches {rec['launches']}: not 4 of 7 SA calls split and 2 FPS a step over "
+             f"{steps} steps")
+    if rec["graph"] != f"off (point group of {POINT_RANKS} ranks on gloo)":
+        fail(f"[20b] graph mode {rec['graph']!r} under the point group")
+
+    tag = "chip_smoke_20c"
+    try:
+        text = run_ranks(["-m", "ptt_tpu_torch.tools.train_tracking", "--launcher", "pytorch", "--dist_backend", "gloo",
+                          "--device", "cuda:0", "--cfg_file", "tools/cfgs/synthetic_models/ptt_synth_ps.yaml",
+                          "--batch_size", TRAIN_B, "--epochs", 1, "--workers", 0, "--pretrained_model", ASSET,
+                          "--extra_tag", tag, "--set", "DATA_CONFIG.NUM_TRACKLETS", 4,
+                          "DATA_CONFIG.FRAMES_PER_TRACKLET", 6, "TRAIN.WITH_EVAL.ENABLE", "False"], "[20c]")
+    finally:
+        shutil.rmtree(os.path.join(REPO, "output", "synthetic_models", "ptt_synth_ps"), ignore_errors=True)
+    train = (summaries(text) or [{}])[-1]
+    losses = [float(line.split("  loss ", 1)[1].split()[0]) for line in text.splitlines() if "  loss " in line]
+    noted = "POINT_SHARDING: training splits no point axis" in text
+    seconds = time.perf_counter() - t_phase
+    log(f"[20c] train CLI ptt_synth_ps.yaml as {POINT_RANKS} gloo ranks on cuda:0 from the asset, global B = {TRAIN_B}: "
+        f"steps {train.get('steps')}, epoch loss {losses}, rank 0 launches {train.get('launches')}, world size "
+        f"{train.get('world_size')}, the training note logged {noted}; phase 20 took {seconds:.1f} s")
+    if train.get("steps") != [0, 2] or train.get("world_size") != POINT_RANKS or not losses \
+            or not all(np.isfinite(losses)) or not noted:
+        fail("[20c] the train CLI on ptt_synth_ps.yaml did not train 2 finite data-parallel steps with its note")
+    return {"ops": ranks[0]["rows"], "sa_split": split, "sa_launches": rec["launches"]["sa"],
+            "fps_launches": rec["launches"]["fps"], "frames_per_s": rec["frames_per_s"], "ms_step": ms_step,
+            "gathered_bytes_a_step": group["gathered_bytes"] / steps, "seconds": seconds}
+
+
+TOOL_RUNS = (("train_bench", ["--iters", 8, "--tracklets", 8]), ("demo_tracking", []))
 
 
 def tools_phase(card):
     """Phase 19: the training-side tools run as a user runs them, ``python3 -m
     ptt_tpu_torch.tools.train_bench`` (ptt.yaml and ptt_large.yaml at B = 48,
-    16 chained steps for the device step, 8 x 24 synthetic tracklets: 16
+    8 chained steps for the device step, 8 x 24 synthetic tracklets: 16
     steps an epoch) and ``python3 -m
     ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8): their output
     printed, a non-zero exit fails the run."""
@@ -2950,10 +3157,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
                                                   device, card, clock, 2, agreement, bench, graph_rows)
-        waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
+        phase13b = waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
+        # 20. POINT_SHARDING: two ranks on the one card as one point group
+        phase20 = point_phase(os.path.join(tmp, "sweeps"), phase13b, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[time] phases 11, 12, 18, 13: {time.perf_counter() - t_start:.1f} s")
+    log(f"[time] phases 11, 12, 18, 13, 20: {time.perf_counter() - t_start:.1f} s")
     bf16_phase(device, card)
     nuscenes_phase(agreement, phase10, card)
     log(f"[time] phases 15 and 16: {time.perf_counter() - t_start:.1f} s")
@@ -2979,7 +3188,10 @@ def main() -> int:
             "ptt.yaml tracker (agreement batch)": launches[name],
             "ptt_large.yaml tracker (benchmark batch)": large_launches[name],
             "p2b_synth.yaml tracker (benchmark batch)": p2b_launches[name],
-            "ptt_waymo.yaml tracker (benchmark batch)": waymo_launches[name]}
+            "ptt_waymo.yaml tracker (benchmark batch)": waymo_launches[name],
+            "ptt_waymo.yaml test CLI, a point group of 2 (rank 0, 159 steps)": phase20[f"{name}_launches"]}
+        if name == "sa":
+            record["kernels"][-1]["split_launches_by_centers"] = phase20["sa_split"]
         record["kernels"][-1]["shapes"] = [
             {"config": config, **{k: r[k] for k in ("shape", "err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
             for config, rs_ in (("ptt.yaml", rs), ("ptt_large.yaml", large_rows[name]), ("p2b_synth.yaml", p2b_rows[name]),
@@ -3006,6 +3218,7 @@ def main() -> int:
             for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log("data_parallel " + json.dumps(phase18))
+    log("point_sharding " + json.dumps(phase20))
     stop_children()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
@@ -3050,6 +3263,8 @@ def loader_start() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:  # a rank of phase 18a, started by torchrun
         sys.exit(dist_train_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--point-rank"]:  # a rank of phase 20a, started by torchrun
+        sys.exit(point_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--loader-start"]:
         sys.exit(loader_start())
     sys.exit(main())

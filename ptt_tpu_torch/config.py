@@ -300,18 +300,14 @@ def p2b_synth_config() -> dict:
     return config_by_path("synthetic_models/p2b_synth.yaml")
 
 
-def check_ported(cfg: dict, training: bool, devices: int = 1) -> None:
-    """Raises NotImplementedError, naming the ROADMAP.md item, for what the port
-    does not run: POINT_SHARDING over ``devices`` > 1 (the processes of a
-    data-parallel group), and clouds beyond the kernels' largest forms. The
-    CLIs call it before they build a loader; on one device POINT_SHARDING
-    splits nothing, as in the JAX package."""
+def check_ported(cfg: dict, training: bool) -> None:
+    """Raises NotImplementedError for what the port does not run: clouds
+    beyond the kernels' largest forms. The CLIs call it before they build a
+    loader. Every POINT_SHARDING configuration runs (``point_sharding_note``)."""
     from .ops.fps import MAX_POINTS
     from .ops.group import BACKWARD_MAX_POINTS
 
     todo = []
-    if cfg["MODEL"].get("POINT_SHARDING", {}).get("ENABLED", False) and devices > 1:
-        todo.append(f"MODEL.POINT_SHARDING over {devices} devices (Queue 1 item 10)")
     n = int(cfg["DATA_CONFIG"]["SEARCH_INPUT_SIZE"])
     if cfg["MODEL"]["BACKBONE_3D"]["SA_CONFIG"]["SAMPLE_METHOD"][0] in ("fps", "ffps") and n > MAX_POINTS:
         todo.append(f"FPS over {n} points, the FPS kernel takes at most {MAX_POINTS}")
@@ -332,14 +328,22 @@ def steps_per_dispatch(optim_cfg: dict) -> int:
     return int(k)
 
 
-def point_sharding_note(cfg: dict):
-    """The log line of a configuration with POINT_SHARDING run on one device,
-    or None."""
+def point_sharding_note(cfg: dict, ranks: int = 1, training: bool = False):
+    """The log line of a configuration with POINT_SHARDING, or None without:
+    in training, which splits no point axis (as the JAX train CLI), the ranks
+    are data-parallel; in evaluation the point axis is split over the
+    ``ranks`` of a node, or not at all on one device."""
     ps = cfg["MODEL"].get("POINT_SHARDING", {})
-    if ps.get("ENABLED", False):
-        return (f"POINT_SHARDING: one device, so the point axis '{ps.get('AXIS', 'point')}' is not split "
-                "(the JAX package installs a point mesh only over several local devices)")
-    return None
+    if not ps.get("ENABLED", False):
+        return None
+    axis = ps.get("AXIS", "point")
+    if training:
+        return (f"POINT_SHARDING: training splits no point axis, as the JAX train CLI; the point axis '{axis}' "
+                "is not split and every rank trains data-parallel on its shard of the global batch")
+    if ranks > 1:
+        return f"POINT_SHARDING on: point axis '{axis}' sharded over the {ranks} ranks of a node"
+    return (f"POINT_SHARDING: one device, so the point axis '{axis}' is not split "
+            "(the JAX package installs a point mesh only over several local devices)")
 
 
 def log_config_to_file(config: dict, pre: str = "cfg", logger=None) -> None:

@@ -28,6 +28,14 @@ JAX package's ``masked_resample`` and ``masked_resample_long``, with one
 prefix-sum path for every row length. The evaluator reseeds its generator at
 every dispatch, as the JAX evaluator derives its keys from its seed at every
 dispatch, so a batch's boxes depend only on the seed and the batch.
+
+Under a point group (``ops/mesh_ctx.py``, POINT_SHARDING over the ranks of a
+node) every rank of the group tracks the same batch and the split ops gather
+each other's rows inside the forward. The frame step then runs eagerly, also
+on the GPU, and the evaluator says so (``graph_mode``): gloo's gathers run on
+the host and cannot be captured in a CUDA graph. The ranks draw the same
+uniforms, from the same seed at every dispatch, never one derived from the
+rank, and each dispatch checks that they hold the same clouds.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 
 from .. import resolve_device
 from ..core import geometry as geo
+from ..ops import mesh_ctx
 from ..utils import cuda_graph
 from .evaluator import (aggregation_mode, anno_scene_frame, ref_box_mode, result_file_name, result_line,
                         save_candidate_pcd)
@@ -283,6 +292,20 @@ def make_device_tracker(model, data_cfg: dict, test_cfg: dict) -> FrameLoop:
     return FrameLoop(model, data_cfg, test_cfg)
 
 
+def graph_mode(device) -> str:
+    """How a frame step runs on ``device``: "on" (a replay of its captured
+    CUDA graph), or "off" and why (the CPU, or a point group, whose gathers
+    the step must make from the host)."""
+    if torch.device(device).type == "cpu":
+        return "off (CPU: the eager loop)"
+    group = mesh_ctx.get_point_group()
+    if group is not None:
+        import torch.distributed as dist
+
+        return f"off (point group of {group.size} ranks on {dist.get_backend(group.group)})"
+    return "on"
+
+
 def tracker_graph_key(pcs, has_gt: bool, model) -> tuple:
     """What a captured frame step is keyed by: what the JAX jit retraces on
     (B, T_pad, n_pad, the cloud's dtype, the ground truth present) and the
@@ -309,8 +332,8 @@ class DeviceTrackingEvaluator:
 
     On the GPU every frame step is a replay of the batch shape's captured step
     body (``graphs``: at most ``cuda_graph.GRAPH_CACHE_SIZE`` shapes, keyed by
-    ``tracker_graph_key``); a capture that fails raises. On the CPU the same body
-    runs eagerly.
+    ``tracker_graph_key``); a capture that fails raises. On the CPU, and under a
+    point group, the same body runs eagerly (``graph_mode``).
     """
 
     def __init__(self, cfg: dict, model, max_points: int = 16384, batch_size: int = 8,
@@ -371,7 +394,9 @@ class DeviceTrackingEvaluator:
         self.generator.manual_seed(self.seed)
         if len(tracklets) > self.batch_size:
             raise ValueError(f"dispatch_batch got {len(tracklets)} tracklets > batch_size={self.batch_size}")
-        boxes = self._track(self._pack(tracklets))
+        batch = self._pack(tracklets)
+        mesh_ctx.check_same_data([v.numpy() for v in batch.values() if v is not None], "tracklets")
+        boxes = self._track(batch)
         done = None
         if self.device.type == "cuda":
             # copied out in stream order, before the next batch can overwrite them,
@@ -417,10 +442,10 @@ class DeviceTrackingEvaluator:
 
     def _track(self, batch):
         """The (B, T, 4) boxes of a packed batch on the device, enqueued: the
-        eager loop on the CPU, the captured frame step on the GPU."""
-        if self.device.type == "cpu":
-            return self._track_eager(batch)
-        return self._track_graphed(batch)
+        captured frame step on the GPU, else the eager loop (``graph_mode``)."""
+        if graph_mode(self.device) == "on":
+            return self._track_graphed(batch)
+        return self._track_eager(batch)
 
     def _track_eager(self, batch):
         """``FrameLoop`` called: a Python loop over the step body."""
@@ -522,6 +547,7 @@ class DeviceTrackingEvaluator:
             "success": self.evaluator.Success_main.average,
             "precision": self.evaluator.Precision_main.average,
             "frames": self.evaluator.Success_main.count,
+            "graph": graph_mode(self.device),
         }
 
 
@@ -533,10 +559,13 @@ def eval_one_epoch_device(cfg, model, dataloader, epoch_id="?", logger=None, max
     the host waits for and scores batch k. Returns (success, precision, frames
     per second); in a process group, where each rank tracks its shard of the
     tracklets on its own device (its own captured graphs), Success and
-    Precision merged over the ranks and this rank's frames per second."""
+    Precision merged over the ranks and this rank's frames per second. Under a
+    point group every rank of the group tracks the same tracklets, and only its
+    first rank's frames count in the merge."""
     emit = logger.info if logger is not None else print
     ev = DeviceTrackingEvaluator(cfg, model, max_points=max_points, batch_size=batch_size, device=device,
                                  output_dir=result_dir)
+    emit(f"[device eval] graph: {graph_mode(ev.device)}")
     pending, in_flight, n_frames = [], None, 0
     start = time.perf_counter()
 

@@ -9,9 +9,11 @@ network and decodes the best proposal back to the world frame
 ``core/geometry.py`` with its reseeded RNG, so they are the JAX host loop's
 exactly; the forward and the argmax over the proposals run on the device, as
 one replay of a captured CUDA graph on the GPU (``TrackStep``, the JAX
-package's jitted ``track_step``), and 5 floats come back a frame. With
-TEST.SAVE_PCD each frame's search cloud is written as a ``.pcd`` in the world
-frame.
+package's jitted ``track_step``; the forward itself under a point group, whose
+gathers run from the host), and 5 floats come back a frame. Under a point
+group every rank of the group tracks the same tracklets, which each tracklet
+checks. With TEST.SAVE_PCD each frame's search cloud is written as a ``.pcd``
+in the world frame.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..core import geometry as geo
+from ..ops import mesh_ctx
 from ..utils import cuda_graph, timer
 from ..utils.common import AverageMeter
 from .metrics import Evaluator, merged_main_metrics
@@ -104,7 +107,8 @@ class TrackStep:
     of the JAX package's jitted ``track_step``: on the GPU a CUDA graph per
     (search, template) shape and ``cuda_graph.model_signature``, replayed on
     inputs copied into its static buffers (the first call of a shape runs
-    eagerly, then captures); on the CPU the forward itself."""
+    eagerly, then captures); on the CPU and under a point group the forward
+    itself."""
 
     def __init__(self, model):
         self.model = model
@@ -112,7 +116,7 @@ class TrackStep:
 
     @torch.no_grad()
     def __call__(self, search_points, template_points):
-        if search_points.device.type == "cpu":
+        if search_points.device.type == "cpu" or mesh_ctx.get_point_group() is not None:
             return best_proposal(self.model, search_points, template_points)
         key = (tuple(search_points.shape), tuple(template_points.shape), cuda_graph.model_signature(self.model))
         entry = self.graphs.get(key)
@@ -184,6 +188,7 @@ class TrackingEvaluator:
     def test_tracklet(self, pcs, gt_boxes, annos=None):
         """Track one tracklet: update the metrics frame by frame and return the
         predicted boxes."""
+        mesh_ctx.check_same_data([np.asarray(pc, np.float32) for pc in pcs], "tracklets")
         self.batch_num += 1
         results = []
         use_z = bool(self.data_cfg.get("USE_Z_AXIS", False))

@@ -209,13 +209,16 @@ def merged_main_metrics(evaluator):
     """Global (success, precision, frames) over every process of a group:
     each process's per-frame overlap and accuracy lists gathered
     (``merge_metric_lists``) and the AUCs computed over their union, as the
-    JAX package merges them. With no group: the local averages."""
+    JAX package merges them. Under a point group only the group's first rank
+    contributes its lists: the others tracked the same frames. With no group:
+    the local averages."""
+    from ..ops.mesh_ctx import leads
     from ..utils.dist import get_dist_info, merge_metric_lists
 
     if get_dist_info()[1] == 1:
         return evaluator.Success_main.average, evaluator.Precision_main.average, evaluator.Success_main.count
     s = Success()
-    s.overlaps = list(merge_metric_lists(evaluator.Success_main.overlaps))
+    s.overlaps = list(merge_metric_lists(evaluator.Success_main.overlaps, contribute=leads()))
     p = Precision()
-    p.accuracies = list(merge_metric_lists(evaluator.Precision_main.accuracies))
+    p.accuracies = list(merge_metric_lists(evaluator.Precision_main.accuracies, contribute=leads()))
     return s.average, p.average, s.count

@@ -29,7 +29,8 @@ def sample_indices(method: str, xyz: torch.Tensor, npoint: int, use_kernels: boo
                    features: torch.Tensor | None = None) -> torch.Tensor:
     """Center sampling: 'fps', 'ffps' (FPS on squared distances in [xyz |
     features] space, plain PyTorch as in the JAX package, which has no kernel
-    for it), or 'sequence'/'rs' (the first ``npoint`` points, as in the
+    for it; under a point group ``point_ops.square_distance`` splits the
+    distance rows), or 'sequence'/'rs' (the first ``npoint`` points, as in the
     reference). -> (B, npoint) int32."""
     if method == "fps":  # on float32 coordinates, bf16-rounded ones under mixed precision
         fn = fps.furthest_point_sample if use_kernels else point_ops.furthest_point_sample

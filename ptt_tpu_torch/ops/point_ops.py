@@ -8,13 +8,47 @@ the library, and that differs between the CPU and the GPU; the fixed order
 gives the same bits on both, and the same bits as the CUDA kernels in
 ``csrc/``, which use the ``__fmul_rn``/``__fadd_rn`` intrinsics. In-ball
 membership and neighbour order then agree exactly between every path.
+
+Point-axis sharding: under a point group (``ops/mesh_ctx.py``, the
+POINT_SHARDING configurations) ``square_distance``, ``ball_query``, ``knn`` and
+``three_nn`` split their query or center rows over the group's ranks and gather
+the result: each row is computed against the full cloud by the same
+elementwise arithmetic, so the result equals the unsplit one bit for bit. Each
+has a ``_raw`` form that never splits, which the others call inside.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 
 import torch
+
+from . import mesh_ctx
+
+# Rows fewer than this stay local under a point group: splitting a 128-seed
+# kNN adds a gather for nothing (the JAX package's MIN_SHARD_POINTS).
+MIN_SHARD_POINTS = 512
+
+_declined_shapes: set = set()
+
+
+def _point_group_for(rows: int):
+    """The installed point group when it should split ``rows`` rows, else
+    None. Rows that are enough but do not divide by the group's size run
+    replicated, with a warning once per (rows, size)."""
+    group = mesh_ctx.get_point_group()
+    if group is None or rows < MIN_SHARD_POINTS:
+        return None
+    if rows % group.size:
+        key = (rows, group.size)
+        if key not in _declined_shapes:
+            _declined_shapes.add(key)
+            warnings.warn(f"point sharding declined: {rows} rows not divisible by the {group.size}-rank "
+                          f"'{group.axis}' group; this op runs replicated; pad the configuration's point "
+                          f"counts to a multiple of {group.size}", stacklevel=3)
+        return None
+    return group
 
 
 def _sq_norm(p: torch.Tensor) -> torch.Tensor:
@@ -27,7 +61,16 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distance in the matmul form |a|^2 + |b|^2 - 2ab, clamped
     at 0, in float32: (B, N, C) x (B, M, C) -> (B, N, M). For points (C = 3)
     every sum is spelled out in the fixed order above; wider rows (the 'ffps'
-    feature space) use a float32 matrix product, as the JAX package does."""
+    feature space) use a float32 matrix product, as the JAX package does.
+    Under a point group the ``src`` rows split (for C = 3 bit-equal; a matrix
+    product of fewer rows may take another kernel on the GPU)."""
+    group = _point_group_for(src.shape[1])
+    if group is not None:
+        return mesh_ctx.shard_pointwise(_square_distance_raw, group, 1, 1)(src, dst)
+    return _square_distance_raw(src, dst)
+
+
+def _square_distance_raw(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     src = src.float()
     dst = dst.float()
     if src.shape[-1] != 3:
@@ -107,8 +150,21 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Te
     """For each center, the first ``nsample`` points with squared distance below
     float32(radius^2), in ascending index order. Short rows are padded with the
     first hit; a center with no hit takes point 0 in every slot.
-    (B, N, 3) points, (B, M, 3) centers -> (B, M, nsample) int32."""
-    d2 = square_distance(new_xyz, xyz)  # (B, M, N)
+    (B, N, 3) points, (B, M, 3) centers -> (B, M, nsample) int32. Under a point
+    group the centers split."""
+    group = _point_group_for(new_xyz.shape[1])
+    if group is not None:
+        fn = functools.partial(_ball_query_centers, radius, nsample)
+        return mesh_ctx.shard_pointwise(fn, group, 1, 1)(new_xyz, xyz)
+    return _ball_query_raw(radius, nsample, xyz, new_xyz)
+
+
+def _ball_query_centers(radius, nsample, new_xyz, xyz):
+    return _ball_query_raw(radius, nsample, xyz, new_xyz)
+
+
+def _ball_query_raw(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    d2 = _square_distance_raw(new_xyz, xyz)  # (B, M, N)
     N = xyz.shape[1]
     order = torch.arange(N, device=xyz.device).expand_as(d2)
     # in-ball points keep their index as key, the others N + index: the k
@@ -145,6 +201,38 @@ def query_and_group(radius, nsample, xyz, new_xyz, features=None, use_xyz=True,
 
 def knn(k: int, query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """The k nearest ref points of each query point (self included when query is
-    ref), nearest first, ties to the lower index. -> (B, Nq, k) int32."""
-    d2 = square_distance(query, ref)
+    ref), nearest first, ties to the lower index. -> (B, Nq, k) int32. Under a
+    point group the queries split."""
+    group = _point_group_for(query.shape[1])
+    if group is not None:
+        return mesh_ctx.shard_pointwise(functools.partial(_knn_raw, k), group, 1, 1)(query, ref)
+    return _knn_raw(k, query, ref)
+
+
+def _knn_raw(k: int, query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    d2 = _square_distance_raw(query, ref)
     return torch.argsort(d2, dim=-1, stable=True)[..., :k].int()
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """The three nearest known points of each unknown point: (dist (B, n, 3),
+    the EUCLIDEAN distance, as _ext.three_nn gives it; idx (B, n, 3) int32),
+    nearest first, ties to the lower index. Under a point group the unknown
+    rows split."""
+    group = _point_group_for(unknown.shape[1])
+    if group is not None:
+        return mesh_ctx.shard_pointwise(_three_nn_raw, group, 1, 1, n_out=2)(unknown, known)
+    return _three_nn_raw(unknown, known)
+
+
+def _three_nn_raw(unknown: torch.Tensor, known: torch.Tensor):
+    d2 = _square_distance_raw(unknown, known)
+    idx = torch.argsort(d2, dim=-1, stable=True)[..., :3]
+    return torch.sqrt(torch.gather(d2, -1, idx).clamp_min(0.0)), idx.int()
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Weighted 3-NN feature interpolation: (B, M, C) features, (B, n, 3) idx
+    and weights -> (B, n, C), the sum over the three in order. Differentiable
+    (the backward is the scatter-add of _ext.three_interpolate_grad)."""
+    return (group_points(features, idx) * weight[..., None]).sum(dim=2)

@@ -6,6 +6,17 @@ emulation of the kernel's tensor-core arithmetic (``fused_sa_split``).
 The function: for each center, ball-query its ``nsample`` neighbours, group
 [relative xyz (/ radius) | features], run the BatchNorm-folded MLP with a ReLU
 after every layer, and take the max over the neighbourhood.
+
+Under a point group (``ops/mesh_ctx.py``) the kernel runs on this rank's
+slice of the centers against the whole cloud, and the slices are gathered.
+The kernel's grid is split by center already and every center's row is
+computed alone (its ball query, its layer-0 offset, its MLP rows, its max), so
+the gathered rows equal the unsplit kernel's bit for bit; what the kernel
+checks and plans (``check_kernel_shapes``, shared memory) depends on N and the
+widths, not on M. The JAX package turns its Pallas kernel off under a point
+mesh instead (``pallas_sa.py`` ``fused_enabled``) and runs the jnp stage,
+whose ball query is the sharded one: that is what ``fused_sa_plain``, the CPU
+path, does here.
 """
 
 from __future__ import annotations
@@ -14,11 +25,14 @@ import ctypes
 
 import torch
 
-from . import _build
-from .point_ops import ball_query, query_and_group, radius_sq
+from . import _build, mesh_ctx
+from .point_ops import _point_group_for, ball_query, query_and_group, radius_sq
 
 # kernel launches made through fused_sa_inference (a run resets it to 0)
 launches = 0
+# the launches above made on a slice of the centers under a point group, by the
+# stage's whole center count M (a run resets it to {})
+split_launches: dict = {}
 
 _MAX_TAIL = 4  # tail layers the kernel takes (csrc/sa.cu kMaxTail)
 _NSAMPLES = (16, 32, 64)  # a center's rows are whole warps of the kernel's 16-row fragments
@@ -93,14 +107,32 @@ def fused_sa_inference(xyz, new_xyz, features, radius: float, nsample: int, weig
     """One eval-mode SA stage: (B, N, 3) points, (B, M, 3) centers, (B, N, C)
     features or None -> (B, M, C_out). The CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``idx_out``, a (B, M, nsample) int32 tensor,
-    receives the neighbour table when given."""
+    receives the neighbour table when given.
+
+    Under a point group the centers split (the CPU path through the split
+    ``ball_query``, the kernel on this rank's centers); a stage of fewer than
+    ``point_ops.MIN_SHARD_POINTS`` centers, or of a count the group does not
+    divide, runs whole on every rank."""
     if xyz.device.type == "cpu":
         if idx_out is not None:
             idx_out.copy_(ball_query(radius, nsample, xyz, new_xyz))
         return fused_sa_plain(xyz, new_xyz, features, radius, nsample, weights, biases,
                               normalize_xyz=normalize_xyz, use_xyz=use_xyz)
-    return _launch(xyz, new_xyz, features, weights[0].float().contiguous(), biases[0].float().contiguous(),
-                   weights[1:], biases[1:], radius, nsample, normalize_xyz, use_xyz, idx_out)[0]
+    w1, b1 = weights[0].float().contiguous(), biases[0].float().contiguous()
+    group = _point_group_for(new_xyz.shape[1])
+    if group is None:
+        return _launch(xyz, new_xyz, features, w1, b1, weights[1:], biases[1:], radius, nsample, normalize_xyz,
+                       use_xyz, idx_out)[0]
+    M = new_xyz.shape[1]
+    rows = group.rows(M)
+    local_idx = None if idx_out is None else torch.empty((xyz.shape[0], rows.stop - rows.start, nsample),
+                                                         dtype=torch.int32, device=xyz.device)
+    out = _launch(xyz, new_xyz[:, rows].contiguous(), features, w1, b1, weights[1:], biases[1:], radius, nsample,
+                  normalize_xyz, use_xyz, local_idx)[0]
+    split_launches[M] = split_launches.get(M, 0) + 1
+    if idx_out is not None:
+        idx_out.copy_(mesh_ctx.gather_rows(local_idx, group))
+    return mesh_ctx.gather_rows(out, group)
 
 
 def _first_layer(xyz, new_xyz, features, radius, w1, b1, normalize_xyz, use_xyz):

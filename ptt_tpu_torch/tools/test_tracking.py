@@ -21,6 +21,19 @@ Rank i tracks tracklet i of each batch of world-size tracklets and writes
 ``track_result.rank{i}.txt``; Success and Precision are merged over the ranks,
 and rank 0 logs them. ``--dist_backend`` is nccl (a GPU a rank) unless gloo is
 named.
+
+MODEL.POINT_SHARDING (``ptt_waymo.yaml``) splits the point axis over the ranks
+of each node, as the JAX CLI splits it over the local devices of a process:
+the ranks of a node form a point group (``utils/dist.py`` ``point_groups``;
+torchrun's LOCAL_WORLD_SIZE, or the whole world where it is not set), every
+rank of it tracks the node's shard of the tracklets (the loader's batch is the
+number of nodes), the large neighbourhood ops and SA stages split their rows
+over it (``ops/mesh_ctx.py``), and its first rank writes the node's result
+file. The frame step then runs eagerly (``eval/device_loop.py``
+``graph_mode``). On one card, as two ranks sharing it:
+
+    torchrun --nproc_per_node 2 -m ptt_tpu_torch.tools.test_tracking --launcher pytorch --dist_backend gloo \
+        --device cuda:0 --cfg_file tools/cfgs/kitti_models/ptt_waymo.yaml ...
 """
 
 from __future__ import annotations
@@ -73,6 +86,10 @@ def eval_single_ckpt(args, cfg, model, loader, ckpt_path, logger, result_dir, ep
         load_params_from_file(resolve_checkpoint_path(ckpt_path), model, logger, strict=True)
     else:
         logger.info("no --ckpt given: evaluating a randomly initialized network")
+    from ..ops.mesh_ctx import leads
+
+    if not leads():  # the group's first rank writes the results of the tracklets it shares
+        result_dir = None
     if args.host_loop:
         succ, prec = eval_one_epoch(cfg, model, loader, epoch_id=epoch_tag, logger=logger, result_dir=result_dir,
                                     device=args.device)
@@ -141,11 +158,14 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
     from .. import resolve_device
     from ..config import check_ported, log_config_to_file, point_sharding_note
     from ..data.loader import build_dataloader
+    from ..eval.device_loop import graph_mode
     from ..nn import build_network
+    from ..ops.mesh_ctx import use_point_group
     from ..utils.common import create_logger, set_manual_seed
+    from ..utils.dist import data_shard
     from . import describe_process, kernel_launches, summary_line
 
-    check_ported(cfg, training=False, devices=world)
+    check_ported(cfg, training=False)
     device = resolve_device(args.device)
     set_manual_seed(TEST_SEED)
     output_dir = OUTPUT_ROOT / cfg["EXP_GROUP_PATH"] / cfg["TAG"] / args.extra_tag
@@ -154,29 +174,65 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
     logger = create_logger(result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt", rank=rank)
     logger.info(describe_process(device, args, rank, world))
     log_config_to_file(cfg, logger=logger)
-    if point_sharding_note(cfg):
-        logger.info(point_sharding_note(cfg))
+    group = point_group(cfg, rank, world)
+    note = point_sharding_note(cfg, ranks=1 if group is None else group.size)
+    if note:
+        logger.info(note)
+    # each rank tracks its shard: the loader's batch is one tracklet a shard; the ranks of a point group share one
+    shard, shards = (rank, world) if group is None else data_shard()
 
     t0 = time.perf_counter()
-    # each rank tracks its shard: the loader's batch is `world` tracklets, one a rank
-    _, loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=world, workers=args.workers,
-                                 logger=logger, training=False, num_shards=world, shard_id=rank)
+    _, loader = build_dataloader(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], batch_size=shards, workers=args.workers,
+                                 logger=logger, training=False, num_shards=shards, shard_id=shard)
     load_seconds = time.perf_counter() - t0
     model = build_network(cfg["MODEL"], device=device)
-    before = kernel_launches()
+    before, split_before = kernel_launches(), point_split_counts()
     try:
-        if args.eval_all:
-            repeat_eval_ckpt(args, cfg, model, loader, args.ckpt_dir or output_dir / "ckpt", logger, result_dir)
-            record = {}
-        else:
-            succ, prec, fps = eval_single_ckpt(args, cfg, model, loader, args.ckpt, logger, result_dir)
-            record = {"success": succ, "precision": prec, "frames_per_s": fps}
+        with use_point_group(group):
+            if args.eval_all:
+                repeat_eval_ckpt(args, cfg, model, loader, args.ckpt_dir or output_dir / "ckpt", logger, result_dir)
+                record = {}
+            else:
+                succ, prec, fps = eval_single_ckpt(args, cfg, model, loader, args.ckpt, logger, result_dir)
+                record = {"success": succ, "precision": prec, "frames_per_s": fps}
+            if not args.host_loop:
+                record["graph"] = graph_mode(device)
     finally:
         loader.close()
     record.update(dataset_seconds=load_seconds,
                   launches={key: n - before[key] for key, n in kernel_launches().items()}, world_size=world)
+    if group is not None:
+        split = point_split_counts()
+        record["point_group"] = {
+            "ranks": group.size, "axis": group.axis, "shards": shards,
+            "gathers": split["gathers"] - split_before["gathers"],
+            "gathered_bytes": split["gathered_bytes"] - split_before["gathered_bytes"],
+            "sa_split": {m: n - split_before["sa_split"].get(m, 0) for m, n in split["sa_split"].items()}}
     logger.info(summary_line(record))
     return 0
+
+
+def point_group(cfg: dict, rank: int, world: int):
+    """MODEL.POINT_SHARDING with more than one rank on this node: each node's
+    ranks made a process group (every rank makes every group), and this rank's
+    as the point group the evaluation installs (``ops/mesh_ctx.py``), as the
+    JAX CLI installs a point mesh over a process's local devices; else None."""
+    from ..ops.mesh_ctx import PointGroup
+    from ..utils.dist import local_world_size, point_groups
+
+    ps = cfg["MODEL"].get("POINT_SHARDING", {})
+    if not ps.get("ENABLED", False) or world == 1 or local_world_size() == 1:
+        return None
+    handle, ranks = point_groups()
+    return PointGroup(handle, tuple(ranks), ranks.index(rank), str(ps.get("AXIS", "point")))
+
+
+def point_split_counts() -> dict:
+    """The point-axis counters so far: gathers, the bytes they brought in, and
+    the SA launches on a slice of the centers by the stage's center count."""
+    from ..ops import mesh_ctx, sa
+
+    return {"gathers": mesh_ctx.gathers, "gathered_bytes": mesh_ctx.gathered_bytes, "sa_split": dict(sa.split_launches)}
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ must divide; BatchNorm statistics, loss denominators and the gradient are the
 global batch's (``train/train_step.py``), so ``--sync_bn`` changes nothing and
 is accepted as in the JAX CLI. TRAIN.WITH_EVAL shards the test tracklets over
 the ranks and merges the metrics. Rank 0 logs, writes tensorboard and saves.
-``--dist_backend`` is nccl (a GPU a rank) unless gloo is named.
+``--dist_backend`` is nccl (a GPU a rank) unless gloo is named. A
+MODEL.POINT_SHARDING configuration trains data-parallel over every rank, as
+the JAX train CLI (which installs no point mesh), and logs one line that says so.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     from ..utils.common import create_logger, set_manual_seed
     from . import describe_process, kernel_launches, summary_line
 
-    check_ported(cfg, training=True, devices=world)
+    check_ported(cfg, training=True)
     device = resolve_device(args.device)
     if args.fix_random_seed:
         set_manual_seed(args.seed)
@@ -94,8 +96,9 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     if args.sync_bn:
         logger.info("--sync_bn: a no-op, BatchNorm statistics are always taken over the global batch")
     log_config_to_file(cfg, logger=logger)
-    if point_sharding_note(cfg):
-        logger.info(point_sharding_note(cfg))
+    note = point_sharding_note(cfg, training=True)
+    if note:
+        logger.info(note)
 
     batch_size = args.batch_size or cfg["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"]
     if args.epochs is not None:

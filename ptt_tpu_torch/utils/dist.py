@@ -11,7 +11,11 @@
 - ``all_reduce_sum`` is an all-reduce that carries a gradient (BatchNorm
   statistics over the global batch), ``all_reduce_mean_`` averages tensors in
   place through one flat buffer (the gradients of a train step);
-- ``broadcast_module`` copies rank 0's parameters and buffers to every rank.
+- ``broadcast_module`` copies rank 0's parameters and buffers to every rank;
+- ``point_groups`` makes each node's ranks a process group (the point axis of
+  POINT_SHARDING is split over it), ``all_gather_rows`` gathers a group's row
+  slices along dim 1, and ``data_shard`` is this rank's shard of the data when
+  the ranks of a node share theirs.
 
 The backend is NCCL unless the caller names another; nothing switches it.
 NCCL needs a GPU a rank, so two ranks on one device are refused. Gloo takes
@@ -67,6 +71,78 @@ def init_distributed(backend: str = "nccl", init_method: str = "env://", device=
     return rank, world, device
 
 
+def local_world_size() -> int:
+    """The ranks of this node: torchrun's ``LOCAL_WORLD_SIZE``, or the whole
+    world where it is not set (a ``file://`` start); 1 with no group."""
+    world = get_dist_info()[1]
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world)) if world > 1 else 1
+
+
+def point_groups():
+    """Each node's ranks as a process group of the default backend: ranks
+    [k * L, (k + 1) * L) for node k, L = ``local_world_size()``, torchrun's
+    numbering. ``new_group`` is collective over the whole world, so every rank
+    makes every group, in the order of the nodes. Returns (this rank's group,
+    its ranks)."""
+    rank, world = get_dist_info()
+    local = local_world_size()
+    if world % local:
+        raise ValueError(f"{world} ranks do not split into nodes of {local}")
+    mine = None
+    for node in range(world // local):
+        ranks = list(range(node * local, (node + 1) * local))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = (group, ranks)
+    return mine
+
+
+def data_shard():
+    """(shard, shards) of this rank when the ranks of a node share one shard
+    of the data: the node's index and the number of nodes."""
+    rank, world = get_dist_info()
+    local = local_world_size()
+    return rank // local, world // local
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (B, n, ...) of the process group ``group``,
+    concatenated along dim 1 in the group's rank order: (B, n * size, ...).
+    Every rank's ``x`` has the same shape. A CUDA tensor on gloo is staged
+    through pinned host memory (gloo's collectives run on the host); on NCCL
+    it is gathered where it lies."""
+    size = dist.get_world_size(group)
+    x = x.contiguous()
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    src = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x) if staged else x
+    out = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(out, src, group=group)
+    rows = torch.cat(out, dim=1)
+    return rows.to(x.device) if staged else rows
+
+
+def all_equal(values, group) -> bool:
+    """Whether every rank of ``group`` passed the same list of integers."""
+    device = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend(group) == "nccl" else "cpu"
+    t = torch.tensor(values, dtype=torch.int64, device=device)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t, group=group)
+    return all(torch.equal(o, out[0]) for o in out)
+
+
+def group_broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` (contiguous) replaced in place by rank ``src``'s (a global rank of
+    ``group``); staged through host memory as ``all_gather_rows`` stages it."""
+    if not x.is_contiguous():
+        raise ValueError("group_broadcast_ takes a contiguous tensor")
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    buf = x.cpu() if staged else x
+    dist.broadcast(buf, src=src, group=group)
+    if staged:
+        x.copy_(buf)
+    return x
+
+
 def barrier() -> None:
     """Wait for every rank; nothing with no group."""
     if get_dist_info()[1] > 1:
@@ -91,15 +167,17 @@ def all_gather_array(x: np.ndarray) -> np.ndarray:
     return torch.stack(out).cpu().numpy().reshape(world, *x.shape)
 
 
-def merge_metric_lists(values) -> np.ndarray:
+def merge_metric_lists(values, contribute: bool = True) -> np.ndarray:
     """Gather variable-length per-rank metric lists (per-frame overlaps) into
-    one flat array on every rank, in rank order.
+    one flat array on every rank, in rank order. A rank that does not
+    ``contribute`` (one that repeats its point group's first rank's frames)
+    still enters the gathers, with an empty list.
 
     Pads to the longest list for the fixed-shape gather, then slices each row
     back to its rank's true length (gathered beside it), so a NaN metric value
     (a degenerate-box IoU) survives the merge instead of being dropped with the
     padding."""
-    values = np.asarray(list(values), np.float64)
+    values = np.asarray(list(values) if contribute else [], np.float64)
     lengths = all_gather_array(np.asarray(np.int64(values.shape[0])))  # (world,)
     max_n = int(lengths.max()) if lengths.size else 0
     padded = np.zeros(max_n)

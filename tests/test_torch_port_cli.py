@@ -259,13 +259,16 @@ def test_train_cli_resume_and_eval_all(narrow, cli_root):
 
 @pytest.mark.parametrize("case", ["point_sharding_over_2_devices", "sync_bn", "fps_beyond_8192"])
 def test_clis_refuse_unported_features_at_start(cli_root, case):
-    """What the port does not run is refused with the ROADMAP item named,
-    before a dataset is read: POINT_SHARDING over more than one GPU, and clouds
-    beyond the kernels' largest forms; and NCCL ranks on the CPU. ``--sync_bn``
-    is accepted. (Everything else of tools/cfgs/ runs: the tests below.)"""
+    """What the port does not run is refused before a dataset is read: clouds
+    beyond the kernels' largest forms, and NCCL ranks on the CPU. POINT_SHARDING
+    over more than one GPU is accepted, with its note for the ranks of a node,
+    and ``--sync_bn`` is accepted. (Everything else of tools/cfgs/ runs: the
+    tests below.)"""
     if case == "point_sharding_over_2_devices":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            check_ported(config_by_path("tools/cfgs/synthetic_models/ptt_synth_ps.yaml"), training=False, devices=2)
+        cfg = config_by_path("tools/cfgs/synthetic_models/ptt_synth_ps.yaml")
+        check_ported(cfg, training=False)
+        assert point_sharding_note(cfg, ranks=2) == "POINT_SHARDING on: point axis 'point' sharded over the 2 ranks " \
+                                                    "of a node"
     elif case == "sync_bn":
         # --sync_bn is accepted (BatchNorm statistics are always the global batch's): the CLI
         # gets past its checks to the data; NCCL ranks on the CPU are what is refused

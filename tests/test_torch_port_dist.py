@@ -62,14 +62,16 @@ RANK_TIMEOUT = 120  # seconds a run of two ranks may take
 RANKS_RTOL = 1e-5  # two ranks against one process on the global batch, relative to each tensor's largest entry
 
 
-def _spawn(argv, tmp_path, world=2):
-    """Start ``world`` ranks of ``argv`` (a file:// store under ``tmp_path``),
-    wait for them within RANK_TIMEOUT, kill any left, and fail with a rank's
-    output unless every rank exited 0. Returns the ranks' outputs."""
-    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+def _spawn(argv, tmp_path, world=2, local=None):
+    """Start ``world`` ranks of ``argv`` (a file:// store under ``tmp_path``)
+    in nodes of ``local`` ranks (default: one node), wait for them within
+    RANK_TIMEOUT, kill any left, and fail with a rank's output unless every
+    rank exited 0. Returns the ranks' outputs."""
+    local = local or world
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(local), OMP_NUM_THREADS="1",
                PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen(argv, cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    procs = [subprocess.Popen(argv, cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r % local)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline, outs = time.monotonic() + RANK_TIMEOUT, []
     try:
         for p in procs:

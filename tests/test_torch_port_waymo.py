@@ -10,7 +10,8 @@
 - a narrowed ptt_waymo forward against the JAX package on an 8192-point
   search cloud: sample indices equal, pred_box_data within 2e-3 (the band of
   the other whole forwards), the same best proposal;
-- ``config.check_ported`` accepting ptt_waymo and ptt_synth_ps on one device.
+- ``config.check_ported`` accepting ptt_waymo and ptt_synth_ps, with the
+  ``point_sharding_note`` of two ranks.
 """
 
 import copy
@@ -23,7 +24,7 @@ import torch
 
 from ptt_tpu.nn import build_network as jbuild
 from ptt_tpu.ops import point_ops as jops
-from ptt_tpu_torch.config import check_ported, config_by_path
+from ptt_tpu_torch.config import check_ported, config_by_path, point_sharding_note
 from ptt_tpu_torch.convert import state_dict_from_variables
 from ptt_tpu_torch.nn import build_network
 from ptt_tpu_torch.ops import fps, group, point_ops
@@ -135,8 +136,13 @@ def test_ptt_waymo_forward_matches_jax():
 @pytest.mark.parametrize("path", ["kitti_models/ptt_waymo.yaml", "synthetic_models/ptt_synth_ps.yaml"])
 @pytest.mark.parametrize("training", [False, True])
 def test_one_device_configs_are_accepted(path, training):
+    """Accepted on one device and on two ranks of a node: evaluation splits the
+    point axis over the ranks, training runs data-parallel and says so."""
     cfg = config_by_path(path)
     assert cfg["MODEL"]["POINT_SHARDING"]["ENABLED"]
     check_ported(cfg, training=training)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        check_ported(cfg, training=training, devices=2)
+    note = point_sharding_note(cfg, ranks=2, training=training)
+    if training:
+        assert note.startswith("POINT_SHARDING: training splits no point axis") and "data-parallel" in note
+    else:
+        assert note == "POINT_SHARDING on: point axis 'point' sharded over the 2 ranks of a node"
