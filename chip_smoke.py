@@ -118,9 +118,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      Success/Precision within 1.0 of 11a's, each rank's lines equal to one
      process's on its shard.
   19. the training-side tools, as a user runs them: ``python3 -m
-     ptt_tpu_torch.tools.train_bench`` (device step, pipelined and blocking
-     ms/it over the loader, samples/s, GFLOP a step and mfu for ptt.yaml and
-     ptt_large.yaml at B = 48) and ``python3 -m
+     ptt_tpu_torch.tools.train_bench`` (device step, pipelined, blocking and
+     K = 4 dispatch ms/it over the loader, samples/s, GFLOP a step and mfu for
+     ptt.yaml and ptt_large.yaml at B = 48) and ``python3 -m
      ptt_tpu_torch.tools.demo_tracking`` (parameter counts, FLOPs per module
      and per layer, a train step); their output printed; (19b) the
      ptt.yaml forward's matrix products by (M, K, N) with their device time,
@@ -137,10 +137,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      SA calls that split (4 of 7 a step), bytes gathered, ms a frame step and
      frames/s a rank beside 13b's; (c) the train CLI with ptt_synth_ps.yaml as
      two ranks, 2 data-parallel steps, finite, the training note logged.
+  21. (run after 14) the train step as one CUDA graph (``TrainStep``),
+     ptt_synth.yaml at B = 48 from the trained asset on the kernels: (a) 5
+     replays of the one-step graph against 5 eager steps from one state,
+     step 0's loss terms torch.equal, every step's loss and grad_norm and the
+     parameters after 1, 4 and 5 steps within 10 x what the eager steps again
+     differ by (``torch.gather``'s backward scatters with atomics), 5 distinct
+     losses, 2 FPS + 7 + 7 group launches a replay; (b) one replay of the K =
+     4 graph against 4 replays of the one-step graph and 4 eager steps, its
+     table of hyperparameters equal to the optimizer's schedules; (c) ms a
+     step of the Trainer's loop over pre-made batches, eager and graphed, K =
+     1 and 4, alternated, each under torch.profiler (device idle share, the
+     device's launches), capture seconds and pool MB; (d) a graphed bf16 step
+     against the eager one, and a graphed ptt_waymo.yaml step with its peak
+     memory; (e) ``Trainer`` at STEPS_PER_DISPATCH = 4 over 5 steps an epoch
+     (one K = 4 dispatch, the tail through the one-step graph), two epochs
+     torch.equal to the eager Trainer's under
+     deterministic algorithms, exact counts and each step's own loss,
+     checkpoints and a resumed epoch; (f, with
+     phases 18a and 20c) under a process group the step stays eager and says
+     so. Phases 7, 12, 14, 15 and 18a's one process take the eager step
+     (``graph=False``) as before; the Trainer (7, 21e), the CLIs and
+     ``train_bench`` take the graphed one.
 The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
-device's launch counts must equal the wrappers' and replays' counts. Phase 14
-runs right after phase 7 (late in a long process the profiler can miss the
-device's activity); ``[time]`` lines give the seconds so far.
+device's launch counts must equal the wrappers' and replays' counts. Phases 14
+and 21 run right after phase 7 (late in a long process the profiler can miss
+the device's activity); ``[time]`` lines give the seconds so far.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 Every process the run starts has ended when it exits, by any path: this process
@@ -159,6 +181,7 @@ from __future__ import annotations
 import atexit
 import copy
 import ctypes
+import faulthandler
 import gc
 import json
 import logging
@@ -204,6 +227,8 @@ GROUP_FWD_TOL = 1e-5
 GROUP_BWD_TOL = 1e-5
 GROUP_GRAD_TOL = 5e-4
 TRAIN_B = 48
+# a train step's loss terms: its forward's, which has no atomics (the backward's gather scatters with them)
+LOSS_TERMS = ("centroids_cls_loss", "centroids_reg_loss", "boxes_cls_loss", "boxes_reg_loss", "loss")
 LOADER_WORKERS = 8  # the loader's processes in phases 7, 12 and 14, as many as the card's host has cores
 SEED = 0  # torch.manual_seed of the configurations without trained weights
 
@@ -1510,6 +1535,15 @@ def premade_vs_loader(tag, step, model, opt, batch, loader, n, card, warm: int =
     return premade, fed
 
 
+def busy_us(events) -> float:
+    """The union of the trace events' intervals, in the trace's microseconds."""
+    union, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return union
+
+
 def profile_fed_steps(tag, step, model, opt, batches):
     """``batches`` through the Trainer's loop under torch.profiler, the trace
     read back: each host-to-device copy, the stream it ran on and whether a
@@ -1544,10 +1578,7 @@ def profile_fed_steps(tag, step, model, opt, batches):
     copies = [e for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
     side = [e for e in copies if e.get("args", {}).get("stream") != compute]
     overlapped = [e for e in side if any(a < e["ts"] + e["dur"] and b > e["ts"] for a, b in busy)]
-    union, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
-        union += max(0.0, b - max(a, end))
-        end = max(end, b)
+    union = busy_us(device)
     names = sorted({e["name"] for e in copies})
     out = {"steps": n, "wall_ms": wall, "device_busy_ms": union / 1e3, "idle_share": 1 - union / 1e3 / wall,
            "h2d_copies": len(copies), "side_stream_copies": len(side), "copies_beside_kernels": len(overlapped),
@@ -1589,8 +1620,10 @@ def upload_witness(step, model, opt, fresh, batches, device):
     one state on the same 5 batches. The step itself is not deterministic
     (see the kernels it changes below), so the two are held equal
     (torch.equal, every metric and every weight after the 5 steps) under
-    ``torch.use_deterministic_algorithms``; in the default mode step 0 must be
-    equal and the later steps are reported beside the synchronous run twice."""
+    ``torch.use_deterministic_algorithms``; in the default mode step 0's loss
+    terms (the forward, which has no atomics) must be equal, its grad_norm
+    (the backward's gather scatters with atomics) and the later steps are
+    reported beside the synchronous run twice."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     from ptt_tpu_torch.train.train_step import BatchUploader
@@ -1618,7 +1651,8 @@ def upload_witness(step, model, opt, fresh, batches, device):
         torch.use_deterministic_algorithms(False)
     free = runs_from(state, fresh, batches, piped) + runs_from(state, fresh, batches, synced, n=2)
     det_equal = same_steps(det[0], det[1])
-    step0_equal = all(torch.equal(v, free[1][0][0][k]) for k, v in free[0][0][0].items())
+    step0_equal = all(torch.equal(free[0][0][0][k], free[1][0][0][k]) for k in LOSS_TERMS)
+    step0_norm = bool(torch.equal(free[0][0][0]["grad_norm"], free[1][0][0]["grad_norm"]))
 
     def rel(a, b):
         return [f"{abs(float(x['loss']) - float(y['loss'])) / abs(float(y['loss'])):.1e}" for x, y in zip(a[0], b[0])]
@@ -1629,13 +1663,13 @@ def upload_witness(step, model, opt, fresh, batches, device):
     log(f"[7] the kernels a step runs only in the default mode (not deterministic): "
         f"{sorted(k[:80] for k in default_kernels - det_kernels)}; only under deterministic algorithms: "
         f"{sorted(k[:80] for k in det_kernels - default_kernels)}")
-    log(f"[7] the same in the default mode: step 0 equal {step0_equal}; "
+    log(f"[7] the same in the default mode: step 0's loss terms equal {step0_equal}, its grad_norm {step0_norm}; "
         f"loss rel diff per step pipelined vs synchronous {rel(free[0], free[1])}, synchronous twice "
         f"{rel(free[2], free[1])}")
     if not det_equal:
         fail("[7] under deterministic algorithms the pipelined upload changed the steps")
     if not step0_equal:
-        fail("[7] the pipelined upload changed step 0")
+        fail("[7] the pipelined upload changed step 0's loss terms")
 
 
 def profile_train(step, model, opt, batch, n_steps=3):
@@ -1731,7 +1765,9 @@ def train_phase(cfg, device, card):
     log(f"[6] dataset {len(loader.dataset)} train items, {len(loader)} steps per epoch; 5 batches of "
         f"{TRAIN_B} built in {time.perf_counter() - t0:.1f} s")
     weights = state_dict_from_npz(ASSET)
-    step = make_train_step(model_cfg, device=device)
+    # the eager step: FpsReplay swaps the FPS function in Python, which a graph's replay never calls again
+    # (phase 21 holds the captured step against this one)
+    step = make_train_step(model_cfg, device=device, graph=False)
 
     def fresh(use_kernels):
         model = build_network(model_cfg, device=device, train=True)
@@ -1836,7 +1872,7 @@ def train_phase(cfg, device, card):
     # time per step: one pre-made batch, each step waited for (as before); then the Trainer's loop on one
     # pre-made batch against the loader, alternated
     premade_ms = median_step_ms(step, model, opt, [batches[0]] * 20)
-    premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 20, card)
+    premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 10, card)
     plain_ms = median_step_ms(step, plain_model, plain_opt, [batches[0]] * 3)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[7] train step at B = {TRAIN_B}, median of 20 after warm-up, each waited for: {premade_ms:.1f} ms on one "
@@ -2219,7 +2255,7 @@ def kitti_loader_phase(root, device, card):
     model = build_network(cfg["MODEL"], device=device, train=True)
     model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
     opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
-    step = make_train_step(cfg["MODEL"], device=device)
+    step = make_train_step(cfg["MODEL"], device=device, graph=False)  # the eager step: these are its loop's times
     batch = next(iter(loader))
     median_step_ms(step, model, opt, [batch] * 2)  # warm-up
     one_item = item_ms(dataset)
@@ -2316,7 +2352,7 @@ def kitti_train_phase(model, batch, device, card):
 
 DIST_RANKS = 2  # ranks that share the one card, on the gloo backend (NCCL refuses two ranks on one device)
 DIST_STEPS = 3
-DIST_TIMED = 10  # steps timed after the compared ones
+DIST_TIMED = 5  # steps timed after the compared ones
 DIST_TIMEOUT = 600  # seconds a torchrun of the ranks may take
 DIST_STEP0_RTOL = 1e-4  # step 0 against one process: PERF.md section 2's step-0 band
 DIST_FAULT_RTOL = 5e-2  # steps 1-2: FPS picks may flip with the summation order; beyond this, a fault
@@ -2380,6 +2416,7 @@ def dist_train_rank(job_dir) -> int:
                 out["state0"] = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
         out["state"] = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
         out["launches"] = kernel_launches()
+        out["graph"] = step.steps.mode
         out["ms"] = []
         for _ in range(DIST_TIMED):
             torch.cuda.synchronize(device)
@@ -2417,7 +2454,8 @@ def dist_train_phase(device, card, tmp):
     model = build_network(cfg["MODEL"], device=device, train=True)
     model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
     opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
-    step = make_train_step(cfg["MODEL"], device=device)
+    # eager, as the ranks' steps are: it reads each step's gradient, which a graphed step keeps in its pool
+    step = make_train_step(cfg["MODEL"], device=device, graph=False)
     one = []
     for i, batch in enumerate(batches):
         one.append({k: float(v) for k, v in step(model, opt, batch).items()})
@@ -2475,6 +2513,11 @@ def dist_train_phase(device, card, tmp):
     want = {"fps": 2 * DIST_STEPS, "sa": 0, "group_fwd": 7 * DIST_STEPS, "group_bwd": 7 * DIST_STEPS}
     if any(r["launches"] != want for r in ranks):
         fail(f"[18a] launches a rank {[r['launches'] for r in ranks]}, not {want}")
+    # 21f: under a process group the train step stays eager (gloo's collectives run from the host)
+    modes = [r["graph"] for r in ranks]
+    log(f"[18a] (21f) the ranks' train step, made with the graph asked for: graph {modes}")
+    if modes != [f"off (process group of {DIST_RANKS} ranks on gloo)"] * DIST_RANKS:
+        fail(f"[18a] the ranks' train step mode {modes}, not eager under the process group")
     del model, opt
     torch.cuda.empty_cache()
     return {"one_process_ms": one_ms, "ranks_ms": rank_ms, "step0": step0, "grad_err": grad_err}
@@ -2602,7 +2645,7 @@ def waymo_train_phase(device, card):
 
     model = fresh()
     opt = Optimizer(model.parameters(), ptt_synth_config()["OPTIMIZATION"], len(loader))
-    step = make_train_step(cfg["MODEL"], device=device)
+    step = make_train_step(cfg["MODEL"], device=device, graph=False)  # eager: phase 21d takes the graphed step
     torch.cuda.reset_peak_memory_stats()
     fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
     losses = [float(step(model, opt, b)["loss"]) for b in batches]
@@ -2611,7 +2654,7 @@ def waymo_train_phase(device, card):
     peak = torch.cuda.max_memory_allocated()
     log(f"[14] the loader at 8192 / 2048 points: one train item {item_ms(loader.dataset):.2f} ms in one thread "
         f"(median of {TRAIN_B}), {loader_batch_ms(loader, 8):.1f} ms a batch by its {LOADER_WORKERS} processes alone")
-    premade_vs_loader("[14]", step, model, opt, batches[0], loader, 10, card)
+    premade_vs_loader("[14]", step, model, opt, batches[0], loader, 5, card, warm=LOADER_WORKERS)
     loader.close()
     log(f"[14] ptt_waymo train steps at B = {TRAIN_B}: losses {[f'{x:.4f}' for x in losses]}; launches {launches} "
         f"over 3 steps; {ms:.1f} ms a step on one pre-made batch (median of 5); peak device memory {peak} bytes "
@@ -2626,16 +2669,447 @@ def waymo_train_phase(device, card):
     return rows
 
 
+# ------------------------------------------------------------ the captured train step (phase 21)
+
+TRAIN_KERNELS = ("fps_kernel", "group_fwd_kernel") + BWD_KERNELS
+# graph against eager from one state may differ by up to this many times what two eager runs from that state
+# differ by (torch.gather's backward scatters with atomics), and by at least this relative floor
+WITNESS_FACTOR = 10
+WITNESS_FLOOR = 1e-6
+GRAPH_TIMED = 8  # steps a timed run of phase 21c, 2 dispatches of K = 4
+GRAPH_TRACED = 4  # steps phase 21c profiles, one dispatch of K = 4, after as many
+
+
+def params_err(got, want) -> float:
+    """Largest |difference| of two parameter lists, relative to each tensor's largest entry."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want))
+
+
+def train_runs(step, model, opt, batches, marks=(1, 4, 5)):
+    """``step`` over ``batches`` from the model's state: each step's metrics
+    and the parameters after the steps in ``marks``."""
+    metrics, params = [], {}
+    for i, batch in enumerate(batches, 1):
+        metrics.append(step(model, opt, batch))
+        if i in marks:
+            params[i] = [p.detach().clone() for p in model.parameters()]
+    return metrics, params
+
+
+def witness_check(tag, got, want, witnesses) -> dict:
+    """``got`` against ``want`` (each ``train_runs``' result from one state on
+    the same batches): step 0's loss terms torch.equal; the first and the last
+    step's grad_norm and the parameters at each mark within WITNESS_FACTOR x
+    the most that a run of ``witnesses`` (``want``'s path again) differs from
+    ``want`` by. The other steps' losses are reported: a near-tie among the
+    votes makes FPS pick another point in one run and not in another, so two
+    free runs part by jumps from step 2 on. Fails otherwise; returns the
+    differences."""
+    (gm, gp), (wm, wp) = got, want
+    step0 = {k: bool(torch.equal(gm[0][k], wm[0][k])) for k in LOSS_TERMS}
+    rows, bad = {}, []
+
+    def row(name, d, w, held):
+        rows[name] = (d, w)
+        if held and d > WITNESS_FACTOR * max(w, WITNESS_FLOOR):
+            bad.append(name)
+
+    last = len(gm) - 1
+    for i in range(len(gm)):
+        for k in ("loss", "grad_norm"):
+            row(f"step {i} {k}", relerr(gm[i][k], wm[i][k]), max(relerr(x[0][i][k], wm[i][k]) for x in witnesses),
+                k == "grad_norm" and i in (0, last))
+    for i in gp:
+        row(f"params after {i}", params_err(gp[i], wp[i]), max(params_err(x[1][i], wp[i]) for x in witnesses), True)
+    log(f"{tag} step 0's loss terms torch.equal {step0}; rel diff (this, the witness): "
+        + ", ".join(f"{k} ({d:.1e}, {w:.1e})" for k, (d, w) in rows.items()))
+    if not all(step0.values()):
+        fail(f"{tag} step 0's loss terms differ")
+    if bad:
+        fail(f"{tag} beyond {WITNESS_FACTOR} x the witness (floor {WITNESS_FLOOR}): {bad}")
+    return {k: list(v) for k, v in rows.items()}
+
+
+def same_runs(a, b) -> bool:
+    """Every metric of every step and the parameters at every mark torch.equal."""
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a[0], b[0]) for k in x) and \
+        all(torch.equal(x, y) for i in a[1] for x, y in zip(a[1][i], b[1][i]))
+
+
+def traced_run(fn, prelude) -> dict:
+    """``fn()`` under torch.profiler: wall and host ms (until ``fn`` returned),
+    the device's busy ms (the union of its kernels, copies and sets) and idle
+    share, and the launches of each training kernel. The profiler can miss
+    the device's first events of a window, so ``prelude()`` runs first in it,
+    then a marker kernel (``torch.cuda._sleep``), and only the events after the
+    marker are counted; without a marker in the trace the device's numbers
+    are None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prelude()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        with open(os.path.join(tmp, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    marks = [e["ts"] + e["dur"] for e in device if "spin_kernel" in e["name"]]
+    out = {"wall_ms": wall * 1e3, "host_ms": host * 1e3, "busy_ms": None, "idle_share": None, "launches": None}
+    if not marks:
+        return out
+    device = [e for e in device if e["ts"] >= max(marks)]
+    union = busy_us(device)
+    kernels = [e["name"] for e in device if e["cat"] == "kernel"]
+    out.update(busy_ms=union / 1e3, idle_share=1 - union / 1e3 / (wall * 1e3),
+               launches={k: sum(k in name for name in kernels) for k in TRAIN_KERNELS})
+    return out
+
+
+def graph_entry(steps):
+    """The one captured graph of a ``TrainStep``."""
+    entries = steps.graphs.values()
+    if len(entries) != 1 or entries[0].graph is None:
+        fail(f"expected one captured graph, found {len(entries)}")
+    return entries[0]
+
+
+def train_graph_phase(device, card):
+    """Phase 21: the train step as one CUDA graph (``train/train_step.py``
+    ``TrainStep``), ptt_synth.yaml at B = 48 from the trained asset on the
+    kernels. (a) 5 replays of the one-step graph against 5 eager steps from
+    one state on the same batches, beside the eager steps again (the
+    witness); launches a replay, by the wrappers' counts and by the device;
+    (b) one replay of the K = 4 graph against 4 replays of the one-step graph
+    and 4 eager steps, and its table of hyperparameters against the
+    optimizer's schedules; (c) ms a step of the Trainer's loop over pre-made
+    batches, eager and graphed, K = 1 and 4, alternated, each also under
+    torch.profiler (idle share), capture seconds and pool MB; (d) a graphed
+    bf16 step against an eager one, and a graphed ptt_waymo.yaml step with
+    its peak memory; (e) the Trainer at STEPS_PER_DISPATCH = 4 over 5 steps an
+    epoch (4 and a tail of 1), two epochs graphed and eager under
+    deterministic algorithms, checkpoints and a resumed epoch. Returns the
+    numbers."""
+    from ptt_tpu_torch.config import config_by_path, ptt_synth_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.data.loader import DataLoader
+    from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.ops import fps, group, sa
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import BatchUploader, make_multi_step, make_train_step, stack_batches
+    from ptt_tpu_torch.train.trainer import Trainer, pipelined_steps
+    from ptt_tpu_torch.utils.cuda_graph import read_launches
+
+    t_phase = time.perf_counter()
+    cfg = ptt_synth_config()
+    model_cfg, optim_cfg = cfg["MODEL"], cfg["OPTIMIZATION"]
+    loader, batches = train_batches(cfg["DATA_CONFIG"], 6, seed=21)
+    n_iters = len(loader)
+    loader.close()
+    weights = state_dict_from_npz(ASSET)
+    out = {}
+
+    def fresh():
+        net = build_network(model_cfg, device=device, train=True)
+        net.load_state_dict(weights, strict=True)
+        return net, Optimizer(net.parameters(), optim_cfg, n_iters)
+
+    def zero_counts():
+        fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+
+    # (a) the one-step graph: its key's first dispatch (the eager warm-up step, then the capture) on batch 5, the
+    # state put back in place (the graph reads the parameters, statistics and moments by address), 5 replays
+    model, opt = fresh()
+    start = opt.state_dict()
+
+    def reset():
+        model.load_state_dict(weights, strict=True)
+        opt.load_state_dict(start)
+
+    eager_step = make_train_step(model_cfg, device=device, graph=False)
+    eager = train_runs(eager_step, *fresh(), batches[:5])
+    witness = [train_runs(eager_step, *fresh(), batches[:5]) for _ in range(2)]
+    step1 = make_train_step(model_cfg, device=device)
+    if step1.steps.mode != "on":
+        fail(f"[21a] the train step's graph mode is {step1.steps.mode!r} on one GPU")
+    t0 = time.perf_counter()
+    step1(model, opt, batches[5])
+    torch.cuda.synchronize()
+    first1 = time.perf_counter() - t0
+    g1 = graph_entry(step1.steps).graph
+    reset()
+    zero_counts()
+    graphed = train_runs(step1, model, opt, batches[:5])
+    replays = dict(zip(("fps", "sa", "group_fwd", "group_bwd"), read_launches()))
+    losses = [float(m["loss"]) for m in graphed[0]]
+    log(f"[21a] ptt_synth.yaml train step graph (B = {TRAIN_B}, from the asset): first dispatch {first1:.2f} s "
+        f"(eager step, then capture {g1.capture_s:.2f} s), pool {g1.pool_bytes() / 2**20:.1f} MB; 5 replays from the "
+        f"asset's state: losses {[f'{x:.6f}' for x in losses]} (eager {[f'{float(m['loss']):.6f}' for m in eager[0]]})"
+        f"; launches a replay (fps, sa, group fwd, group bwd) {g1.launches}, the counters over 5 replays {replays}")
+    out["a"] = witness_check("[21a] graph against eager:", graphed, eager, witness)
+    out["a_launches"] = replays
+    if len(set(losses)) != 5:
+        fail("[21a] the 5 replays' losses are not 5 values (a replay's output read after the next)")
+    if g1.launches != (2, 0, 7, 7) or replays != {"fps": 10, "sa": 0, "group_fwd": 35, "group_bwd": 35}:
+        fail(f"[21a] launches a replay {g1.launches}, over 5 replays {replays}: not 2 FPS + 7 + 7 group a step")
+    # under deterministic algorithms (the gather's backward without atomics) graph and eager are one arithmetic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det_eager = train_runs(eager_step, *fresh(), batches[:5])
+        det_step = make_train_step(model_cfg, device=device)
+        reset()
+        det_step(model, opt, batches[5])
+        reset()
+        det_graph = train_runs(det_step, model, opt, batches[:5])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["a_deterministic_equal"] = same_runs(det_graph, det_eager)
+    log(f"[21a] under torch.use_deterministic_algorithms: 5 replays of a graph captured there against 5 eager "
+        f"steps, every metric and the parameters after 1, 4 and 5 steps torch.equal {out['a_deterministic_equal']}")
+    if not out["a_deterministic_equal"]:
+        fail("[21a] under deterministic algorithms the graphed steps differ from the eager ones")
+    det_step.steps.close()
+
+    # (b) one K = 4 dispatch against 4 replays of the one-step graph and 4 eager steps
+    multi4 = make_multi_step(model_cfg, 4, device=device)
+    reset()
+    t0 = time.perf_counter()
+    multi4(model, opt, stack_batches([batches[5]] * 4))
+    torch.cuda.synchronize()
+    first4 = time.perf_counter() - t0
+    entry4 = graph_entry(multi4)
+    g4 = entry4.graph
+    reset()
+    k4_metrics = multi4.metrics(multi4(model, opt, stack_batches(batches[:4])))
+    table = entry4.state[1].cpu()
+    want = torch.tensor([[opt.lr_schedule(c), b1, 1.0 - b1, 1.0 - b1 ** (c + 1), 1.0 - opt.b2 ** (c + 1)]
+                         for c in range(4) for b1 in [opt.b1 if opt.mom_schedule is None else opt.mom_schedule(c)]],
+                        dtype=torch.float32)
+    k4 = (k4_metrics, {4: [p.detach().clone() for p in model.parameters()]})
+    reset()
+    k1 = train_runs(step1, model, opt, batches[:4], marks=(4,))
+    eager4 = (eager[0][:4], {4: eager[1][4]})
+    witness4 = [(w[0][:4], {4: w[1][4]}) for w in witness]
+    log(f"[21b] the K = 4 graph: first dispatch {first4:.2f} s (capture {g4.capture_s:.2f} s), pool "
+        f"{g4.pool_bytes() / 2**20:.1f} MB, launches a replay {g4.launches}; its table of updates 0-3 (lr, b1, 1 - b1, "
+        f"corrections) {table.tolist()}, equal to the optimizer's schedules {torch.equal(table, want)}")
+    out["b_vs_eager"] = witness_check("[21b] one K = 4 replay against 4 eager steps:", k4, eager4, witness4)
+    out["b_vs_k1"] = witness_check("[21b] one K = 4 replay against 4 replays of the one-step graph:", k4, k1, witness4)
+    if not torch.equal(table, want):
+        fail("[21b] the K = 4 graph's table is not the optimizer's schedules")
+    if g4.launches != (8, 0, 28, 28):
+        fail(f"[21b] launches a K = 4 replay {g4.launches}, not 4 x (2 FPS + 7 + 7 group)")
+
+    # (c) the Trainer's loop over pre-made batches, eager and graphed, K = 1 and 4, alternated
+    eager_multi = make_multi_step(model_cfg, 4, device=device, graph=False)
+    uploader = BatchUploader(device)
+    timed = (batches[:4] * (GRAPH_TIMED // 4))
+    variants = {"eager K=1": (eager_step, None), "graph K=1": (step1, None),
+                "eager K=4": (eager_step, eager_multi), "graph K=4": (step1, multi4)}
+
+    def loop(name, data):
+        step, multi = variants[name]
+        return len(pipelined_steps(step, model, opt, data, uploader, multi_step=multi))
+
+    for name in variants:
+        loop(name, batches[:4])  # warm-up
+    ms = {name: [] for name in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = loop(name, timed)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / n)
+    traced = batches[:GRAPH_TRACED]
+    traces = {name: traced_run(lambda: loop(name, traced), lambda: loop(name, traced)) for name in variants}
+    for name, tr in traces.items():
+        busy = "device not measured (no marker in the trace)" if tr["launches"] is None else \
+            f"device busy {tr['busy_ms'] / GRAPH_TRACED:.1f} ({100 * tr['idle_share']:.1f}% idle), launches " \
+            f"{tr['launches']}"
+        log(f"[21c] {name}: {ms[name][0]:.1f}, {ms[name][1]:.1f} ms a step (the Trainer's loop, {GRAPH_TIMED} steps "
+            f"a run); under torch.profiler ({GRAPH_TRACED} steps after {GRAPH_TRACED}): wall "
+            f"{tr['wall_ms'] / GRAPH_TRACED:.1f} ms a step, host {tr['host_ms'] / GRAPH_TRACED:.1f}, {busy}")
+    log(f"[21c] capture: K = 1 {g1.capture_s:.2f} s, pool {g1.pool_bytes() / 2**20:.1f} MB; K = 4 {g4.capture_s:.2f} s, "
+        f"pool {g4.pool_bytes() / 2**20:.1f} MB; card {card}")
+    out["c"] = {"ms": ms, "traces": traces, "capture_s": [g1.capture_s, g4.capture_s],
+                "pool_mb": [g1.pool_bytes() / 2**20, g4.pool_bytes() / 2**20], "first_dispatch_s": [first1, first4]}
+    # the device's count of a graphed run's launches; the profiler has dropped an event of a window now and then
+    # (one of 56 in a run on an H100), so a count may be short by at most a step's launches
+    a_step = {"fps_kernel": 2, "group_fwd_kernel": 7, **{k: 7 for k in BWD_KERNELS}}
+    for name in ("graph K=1", "graph K=4"):
+        counted = traces[name]["launches"]
+        if counted is not None and any(not (GRAPH_TRACED - 1) * n <= counted[k] <= GRAPH_TRACED * n
+                                       for k, n in a_step.items()):
+            fail(f"[21c] {name}: the device ran {counted} in {GRAPH_TRACED} steps, not 2 + 7 + 3 x 7 a step")
+
+    # (d) a graphed bf16 step against the eager one from the asset's state
+    step16 = make_train_step(model_cfg, device=device, mixed_precision=True)
+    eager16 = make_train_step(model_cfg, device=device, mixed_precision=True, graph=False)
+    want16 = eager16(*fresh(), batches[0])
+    reset()
+    step16(model, opt, batches[5])
+    reset()
+    got16 = step16(model, opt, batches[0])
+    equal16 = {k: bool(torch.equal(got16[k], want16[k])) for k in LOSS_TERMS}
+    log(f"[21d] bf16 (MIXED_PRECISION) graph: a replay's loss {float(got16['loss']):.6f}, the eager bf16 step's "
+        f"{float(want16['loss']):.6f}, loss terms torch.equal {equal16}; capture "
+        f"{graph_entry(step16.steps).graph.capture_s:.2f} s")
+    if not all(np.isfinite(float(v)) for v in got16.values()):
+        fail("[21d] the graphed bf16 step is not finite")
+    out["d_bf16_equal"] = equal16
+    for steps in (step1.steps, multi4, step16.steps):
+        steps.close()
+    del model, opt, eager, witness, graphed, k4, k1, eager4, witness4, want16, got16, det_eager, det_graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a graphed ptt_waymo.yaml step at B = 48 (8192 / 2048 points), seeded init: peak memory against phase 14's
+    # eager step
+    wcfg = config_by_path("kitti_models/ptt_waymo.yaml")
+    wloader, wbatches = train_batches(dict(cfg["DATA_CONFIG"], SEARCH_INPUT_SIZE=8192, TEMPLATE_INPUT_SIZE=2048), 2)
+    wloader.close()
+    torch.manual_seed(SEED)
+    wmodel = build_network(wcfg["MODEL"], device=device, train=True)
+    wopt = Optimizer(wmodel.parameters(), optim_cfg, len(wloader))
+    wstep = make_train_step(wcfg["MODEL"], device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wlosses = [float(wstep(wmodel, wopt, b)["loss"]) for b in wbatches]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gw = graph_entry(wstep.steps).graph
+    log(f"[21d] ptt_waymo.yaml graph, B = {TRAIN_B}: losses {[f'{x:.4f}' for x in wlosses]} (the first dispatch, "
+        f"then a replay) in {wall:.1f} s, capture {gw.capture_s:.2f} s, pool {gw.pool_bytes() / 2**30:.2f} GiB, "
+        f"launches a replay {gw.launches}; peak device memory {peak / 2**30:.2f} GiB (phase 14's line gives its "
+        f"eager steps'); card {card}")
+    out["d_waymo"] = {"losses": wlosses, "peak_gib": peak / 2**30, "pool_gib": gw.pool_bytes() / 2**30,
+                      "capture_s": gw.capture_s}
+    if not all(np.isfinite(wlosses)) or gw.launches != (2, 0, 7, 7):
+        fail("[21d] the graphed ptt_waymo step is not finite or does not launch 2 FPS + 7 + 7 group a step")
+    wstep.steps.close()
+    del wmodel, wopt, wstep, gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (e) the Trainer at STEPS_PER_DISPATCH = 4 over 5 steps an epoch: one K = 4 dispatch and a tail of one;
+    # two epochs graphed and eager from one state on the same batches under
+    # deterministic algorithms (the second epoch replays both graphs), then a resumed third epoch
+    out_dir = os.path.join(REPO, "build", "chip_smoke_train_graph")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    small = dict(cfg["DATA_CONFIG"], NUM_TRACKLETS=10, FRAMES_PER_TRACKLET=6)  # 240 items: 5 steps of TRAIN_B = 48
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("chip_smoke.21e")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Lines())
+
+    class Scalars:
+        def __init__(self):
+            self.rows = []
+
+        def add_scalar(self, tag, value, step):
+            self.rows.append((tag, float(value), step))
+
+    def trainer(total_epochs, scalars, run, graph=True):
+        net = build_network(model_cfg, device=device, train=True)
+        net.load_state_dict(weights, strict=True)
+        small_loader = DataLoader(SyntheticTrackingDataset(small), TRAIN_B, shuffle=True, drop_last=True,
+                                  num_workers=2)
+        return Trainer(net, model_cfg, dict(optim_cfg, STEPS_PER_DISPATCH=4), small_loader,
+                       os.path.join(out_dir, run), logger, total_epochs=total_epochs, device=device,
+                       tb_writer=scalars, graph=graph)
+
+    def epoch_losses(scalars):
+        return [(step, value) for tag, value, step in scalars.rows if tag == "train/loss"]
+
+    first_scalars, eager_scalars, resumed_scalars = Scalars(), Scalars(), Scalars()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first = trainer(2, first_scalars, "graph").resume()
+        zero_counts()
+        first.train()
+        e_launches = dict(zip(("fps", "sa", "group_fwd", "group_bwd"), read_launches()))
+        ckpts = first.ckpt.epochs()
+        first.train_loader.close()
+        eager_run = trainer(2, eager_scalars, "eager", graph=False).resume()
+        eager_run.train()
+        eager_run.train_loader.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_equal = epoch_losses(first_scalars) == epoch_losses(eager_scalars) and all(
+        torch.equal(a, b) for a, b in zip(first.model.state_dict().values(), eager_run.model.state_dict().values()))
+    pool_mb = graph_entry(first.multi_step).graph.pool_bytes() / 2**20
+    resumed = trainer(3, resumed_scalars, "graph").resume()
+    same = all(torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                                 first.model.state_dict().values()))
+    at = (resumed.start_epoch, resumed.accumulated_iter)
+    resumed.train()
+    resumed.train_loader.close()
+    e12, e3 = epoch_losses(first_scalars), epoch_losses(resumed_scalars)
+    noted = [line for line in lines if "steps_per_dispatch=" in line or line.startswith("graph: ")]
+    log(f"[21e] Trainer, STEPS_PER_DISPATCH = 4, 5 steps an epoch, under deterministic algorithms: epochs 1-2 "
+        f"(step, loss) {[(s, round(v, 6)) for s, v in e12]}, accumulated_iter {first.accumulated_iter}, optimizer "
+        f"count {first.optimizer.count}, captures K = 4 {first.multi_step.graphs.captures} / K = 1 (the tails) "
+        f"{first.train_step.steps.graphs.captures}, the K = 4 graph's pool {pool_mb:.1f} MB, launches {e_launches}, "
+        f"checkpoints {ckpts}; the eager Trainer's losses and weights torch.equal {det_equal}; resumed at (epoch, "
+        f"step) {at}, weights equal {same}; epoch 3 {[(s, round(v, 6)) for s, v in e3]}, accumulated_iter "
+        f"{resumed.accumulated_iter}, optimizer count {resumed.optimizer.count}; logged {noted[:2]} and eager "
+        f"{noted[2:4]}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if [s for s, _ in e12] != list(range(1, 11)) or len({v for _, v in e12}) != 10 \
+            or not np.isfinite([v for _, v in e12]).all():
+        fail("[21e] epochs 1-2 did not log 10 finite losses, each its own step's")
+    if first.accumulated_iter != 10 or first.optimizer.count != 10 or ckpts != [1, 2]:
+        fail("[21e] the step count or the checkpoints of epochs 1-2 are wrong")
+    if (first.multi_step.graphs.captures, first.train_step.steps.graphs.captures) != (1, 1):
+        fail("[21e] the epochs did not run one K = 4 graph and the tails through the one-step graph")
+    if e_launches != {"fps": 20, "sa": 0, "group_fwd": 70, "group_bwd": 70}:
+        fail(f"[21e] launches over the two epochs {e_launches}, not 2 FPS + 7 + 7 group a step")
+    if not det_equal:
+        fail("[21e] under deterministic algorithms the graphed Trainer differs from the eager one")
+    if at != (2, 10) or not same or [s for s, _ in e3] != list(range(11, 16)) \
+            or not np.isfinite([v for _, v in e3]).all() or resumed.accumulated_iter != 15 \
+            or resumed.optimizer.count != 15:
+        fail("[21e] the resumed Trainer did not continue at step 10 for 5 finite steps")
+    if noted[:4] != ["graph: on", "steps_per_dispatch=4 (K-step CUDA graph per dispatch)",
+                     "graph: off (the eager step asked for)", "steps_per_dispatch=4 (K-step CUDA graph per dispatch)"]:
+        fail(f"[21e] the Trainers logged {noted[:4]}")
+    for t in (first, resumed):
+        t.train_step.steps.close()
+        t.multi_step.close()
+    del first, resumed, eager_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["e"] = {"epochs": e12, "epoch3": e3, "launches": e_launches, "eager_equal": det_equal, "pool_mb": pool_mb}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[21] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 OPTIMIZER_RUNS = ("adam", "adamw", "sgd", "adam_onecycle")
 
 
 def phase15_cli_jobs() -> dict:
-    """Phase 15's train CLI runs, name -> (arguments, --set pairs): 4 steps of
-    B = 48 each (8 tracklets x 6 frames); p2b_synth_strong.yaml as the file
+    """Phase 15's train CLI runs, name -> (arguments, --set pairs): 2 steps of
+    B = 48 each (4 tracklets x 6 frames); p2b_synth_strong.yaml as the file
     sets it (bf16), ptt_synth.yaml once per OPTIMIZER. WEIGHT_DECAY stays the
     file's integer 0 (``--set`` keeps a key's type, as the JAX package's does),
     so adamw steps as adam does here; the CPU lockstep covers weight decay."""
-    small = ["DATA_CONFIG.NUM_TRACKLETS", "8", "DATA_CONFIG.FRAMES_PER_TRACKLET", "6", "TRAIN.WITH_EVAL.ENABLE", "False"]
+    small = ["DATA_CONFIG.NUM_TRACKLETS", "4", "DATA_CONFIG.FRAMES_PER_TRACKLET", "6", "TRAIN.WITH_EVAL.ENABLE", "False"]
     jobs = {"p2b_synth_strong": (["--cfg_file", "tools/cfgs/synthetic_models/p2b_synth_strong.yaml"], small)}
     for name in OPTIMIZER_RUNS:
         jobs[name] = (["--cfg_file", "tools/cfgs/synthetic_models/ptt_synth.yaml"], small + ["OPTIMIZATION.OPTIMIZER", name])
@@ -2678,8 +3152,9 @@ def bf16_phase(device, card):
         set_use_kernels(model, use_kernels)
         return model, Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader))
 
-    step16 = make_train_step(cfg["MODEL"], device=device, mixed_precision=True)
-    step32 = make_train_step(cfg["MODEL"], device=device)
+    # eager, for FpsReplay (phase 21d takes a graphed bf16 step)
+    step16 = make_train_step(cfg["MODEL"], device=device, mixed_precision=True, graph=False)
+    step32 = make_train_step(cfg["MODEL"], device=device, graph=False)
     (mk, ok), (mp, op) = fresh(True), fresh(False)
     with FpsReplay(fps, point_ops) as replay:
         k = step16(mk, ok, batches[0])
@@ -2715,7 +3190,7 @@ def bf16_phase(device, card):
 
     with ThreadPoolExecutor(3) as pool:
         futures = {name: pool.submit(run_cli, "train_tracking", args + ["--pretrained_model", ASSET] * (name in OPTIMIZER_RUNS)
-                                     + ["--epochs", 1, "--workers", 4, "--extra_tag", f"chip_smoke_15_{name}", "--set",
+                                     + ["--epochs", 1, "--workers", 0, "--extra_tag", f"chip_smoke_15_{name}", "--set",
                                         *sets]) for name, (args, sets) in phase15_cli_jobs().items()}
         results = {name: fut.result() for name, fut in futures.items()}
     for name, (rec, wall, text) in results.items():
@@ -2994,28 +3469,34 @@ def point_phase(root, phase13b, card, tmp):
     train = (summaries(text) or [{}])[-1]
     losses = [float(line.split("  loss ", 1)[1].split()[0]) for line in text.splitlines() if "  loss " in line]
     noted = "POINT_SHARDING: training splits no point axis" in text
+    graph_lines = text.count(f"graph: off (process group of {POINT_RANKS} ranks on gloo)")
     seconds = time.perf_counter() - t_phase
     log(f"[20c] train CLI ptt_synth_ps.yaml as {POINT_RANKS} gloo ranks on cuda:0 from the asset, global B = {TRAIN_B}: "
         f"steps {train.get('steps')}, epoch loss {losses}, rank 0 launches {train.get('launches')}, world size "
-        f"{train.get('world_size')}, the training note logged {noted}; phase 20 took {seconds:.1f} s")
+        f"{train.get('world_size')}, the training note logged {noted}, the eager step's graph line logged "
+        f"{graph_lines} times (rank 0 logs); phase 20 took {seconds:.1f} s")
     if train.get("steps") != [0, 2] or train.get("world_size") != POINT_RANKS or not losses \
             or not all(np.isfinite(losses)) or not noted:
         fail("[20c] the train CLI on ptt_synth_ps.yaml did not train 2 finite data-parallel steps with its note")
+    if graph_lines != 1:
+        fail("[20c] the train CLI's rank 0 did not log once that the step runs eagerly under the process group")
     return {"ops": ranks[0]["rows"], "sa_split": split, "sa_launches": rec["launches"]["sa"],
             "fps_launches": rec["launches"]["fps"], "frames_per_s": rec["frames_per_s"], "ms_step": ms_step,
             "gathered_bytes_a_step": group["gathered_bytes"] / steps, "seconds": seconds}
 
 
-TOOL_RUNS = (("train_bench", ["--iters", 8, "--tracklets", 8]), ("demo_tracking", []))
+TOOL_RUNS = (("train_bench", ["--iters", 8, "--tracklets", 4]), ("demo_tracking", []))
 
 
 def tools_phase(card):
     """Phase 19: the training-side tools run as a user runs them, ``python3 -m
     ptt_tpu_torch.tools.train_bench`` (ptt.yaml and ptt_large.yaml at B = 48,
-    8 chained steps for the device step, 8 x 24 synthetic tracklets: 16
-    steps an epoch) and ``python3 -m
-    ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8): their output
-    printed, a non-zero exit fails the run."""
+    8 chained steps for the device step, 4 x 24 synthetic tracklets: 8
+    steps an epoch, pipelined, blocking, then 2 dispatches of K = 4; the
+    graphed step)
+    and ``python3 -m ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8):
+    their output printed, a non-zero exit, or a train_bench row without a
+    number in its K-dispatch column, fails the run."""
     for module, args in TOOL_RUNS:
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)], cwd=REPO,
@@ -3027,6 +3508,10 @@ def tools_phase(card):
         if out.returncode != 0:
             log(out.stderr[-4000:])
             fail(f"[19] {module} exited with {out.returncode}")
+        if module == "train_bench":
+            rows = [line.split(" | ") for line in out.stdout.splitlines() if line.startswith("| ptt")]
+            if len(rows) != 2 or not all(re.fullmatch(r"[0-9.]+", row[6]) for row in rows):
+                fail("[19] train_bench's table has no K-dispatch number for each configuration")
 
 
 def main() -> int:
@@ -3034,6 +3519,7 @@ def main() -> int:
         log("no CUDA device: chip_smoke.py runs on a GPU")
         return 1
     adopt_orphans()
+    faulthandler.enable()  # a crash in native code prints the Python stack of every thread
     sys.path.insert(0, REPO)
     from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
@@ -3130,8 +3616,11 @@ def main() -> int:
     # 6 and 7: the training path; 14: ptt_waymo training
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
     waymo_group_rows = waymo_train_phase(device, card)
-
     log(f"[time] phases 6, 7 and 14: {time.perf_counter() - t_start:.1f} s")
+    # 21: the train step as one CUDA graph, K = 1 and 4, against the eager step
+    phase21 = train_graph_phase(device, card)
+
+    log(f"[time] phase 21: {time.perf_counter() - t_start:.1f} s")
     # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
     check_sa_limit(device)
     large_rows, large_launches = config_phase("[8]", "ptt_large.yaml", ptt_large_config(), device, card, clock, 2,
@@ -3190,6 +3679,10 @@ def main() -> int:
             "p2b_synth.yaml tracker (benchmark batch)": p2b_launches[name],
             "ptt_waymo.yaml tracker (benchmark batch)": waymo_launches[name],
             "ptt_waymo.yaml test CLI, a point group of 2 (rank 0, 159 steps)": phase20[f"{name}_launches"]}
+        if name == "fps":
+            record["kernels"][-1]["launches_by_path"].update({
+                "ptt_synth.yaml train step graph, 5 replays (21a)": phase21["a_launches"]["fps"],
+                "Trainer, STEPS_PER_DISPATCH = 4, 2 epochs of 5 steps (21e)": phase21["e"]["launches"]["fps"]})
         if name == "sa":
             record["kernels"][-1]["split_launches_by_centers"] = phase20["sa_split"]
         record["kernels"][-1]["shapes"] = [
@@ -3211,6 +3704,10 @@ def main() -> int:
             "library_ms": sum(r["lib_ms"] for r in group_rows) if pre == "bwd" else None,
         })
         record["kernels"][-1]["device_ms"] = sum(r[f"{pre}_device_ms"] for r in group_rows)
+        record["kernels"][-1]["launches_by_path"] = {
+            "ptt_synth.yaml train step, 5 eager steps (7)": train_launches[name],
+            "ptt_synth.yaml train step graph, 5 replays (21a)": phase21["a_launches"][name],
+            "Trainer, STEPS_PER_DISPATCH = 4, 2 epochs of 5 steps (21e)": phase21["e"]["launches"][name]}
         record["kernels"][-1]["shapes"] = [
             {"config": config, "shape": r["shape"], "err": r[f"{pre}_err"], "ms": r[f"{pre}_ms"],
              "device_ms": r[f"{pre}_device_ms"], "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound"],
@@ -3219,6 +3716,7 @@ def main() -> int:
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log("data_parallel " + json.dumps(phase18))
     log("point_sharding " + json.dumps(phase20))
+    log("train_graph " + json.dumps(phase21))
     stop_children()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)

@@ -319,9 +319,10 @@ def check_ported(cfg: dict, training: bool) -> None:
 
 def steps_per_dispatch(optim_cfg: dict) -> int:
     """OPTIMIZATION.STEPS_PER_DISPATCH, K: an integer >= 1, else ValueError.
-    The JAX trainer scans K steps in one dispatch; the port runs them as K
-    single steps of the same math until ROADMAP.md Queue 1 item 4b (``train/
-    trainer.py`` logs it)."""
+    The JAX trainer scans K steps in one dispatch; the port's Trainer runs K
+    steps as one dispatch of one body (``train/train_step.py`` ``TrainStep``),
+    on the GPU one replay of its K-step CUDA graph, the same math as K single
+    steps."""
     k = optim_cfg.get("STEPS_PER_DISPATCH", 1)
     if isinstance(k, bool) or not isinstance(k, (int, float)) or k != int(k) or k < 1:
         raise ValueError(f"OPTIMIZATION.STEPS_PER_DISPATCH must be an integer >= 1, not {k!r}")

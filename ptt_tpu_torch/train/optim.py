@@ -22,6 +22,14 @@ clip); the moments are (1 - b) * g + b * m; Adam's update is m_hat /
 (sqrt(v_hat) + eps) with the bias corrections of the current b1 (which
 OneCycle moves); sgd's trace is g + momentum * trace; and update k uses the
 hyperparameters of the schedule at the pre-increment count k.
+
+An update reads the hyperparameters that move from step to step from a row of
+a float32 table on the parameters' device (``HYPER``: lr, b1, 1 - b1 and the
+two bias corrections), which the host fills from the schedules before the
+update runs (``hyper_rows``): so that a captured step (``train/train_step.py``)
+reads each step's values at every replay instead of the constants of its
+capture, and an eager step does the same arithmetic. Weight decay, the clip,
+b2, eps and sgd's momentum are fixed for a run and stay constants.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 OPTIMIZERS = ("adam", "adamw", "sgd", "adam_onecycle")
+HYPER = ("lr", "b1", "1 - b1", "1 - b1^(k + 1)", "1 - b2^(k + 1)")  # a row of the table of update k
 
 
 def step_lr_schedule(base_lr: float, step_size_epochs: int, gamma: float, iters_per_epoch: int):
@@ -119,22 +128,39 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
-    def _adam_direction(self, grads, b1: float):
+    def hyper_rows(self, k: int) -> torch.Tensor:
+        """The (k, 5) float32 table of updates count .. count + k - 1, one row
+        each in ``HYPER``'s order, on the host (page-locked where CUDA is, so
+        that its copy to the device does not wait for the device). Each entry
+        is the float32 of the value the update used as a Python float."""
+        rows = []
+        for c in range(self.count, self.count + k):
+            b1 = self.b1 if self.mom_schedule is None else self.mom_schedule(c)
+            rows.append((self.lr_schedule(c), b1, 1.0 - b1, 1.0 - b1 ** (c + 1), 1.0 - self.b2 ** (c + 1)))
+        table = torch.from_numpy(np.asarray(rows, np.float32))
+        return table.pin_memory() if torch.cuda.is_available() else table
+
+    def _adam_direction(self, grads, b1, one_minus_b1, corr1, corr2):
         """scale_by_adam: the moments move, and the bias-corrected direction."""
         b2 = self.b2
         torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, one_minus_b1))
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(self.nu, 1.0 - b2 ** (self.count + 1))
+        denom = torch._foreach_div(self.nu, corr2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(self.mu, 1.0 - b1 ** (self.count + 1))
+        update = torch._foreach_div(self.mu, corr1)
         torch._foreach_div_(update, denom)
         return update
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def update(self, hyper: torch.Tensor) -> torch.Tensor:
+        """One update from ``hyper``, a (5,) row of ``hyper_rows``'s table on the
+        parameters' device; the count does not move (the caller advances it by
+        the updates it ran). Reads nothing from the device on the host, so it
+        can be captured."""
+        lr, b1, one_minus_b1, corr1, corr2 = hyper.unbind()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
         if self.clip is not None:
@@ -148,11 +174,17 @@ class Optimizer:
             torch._foreach_add_(self.mu, grads)
             update = self.mu
         else:
-            b1 = self.b1 if self.mom_schedule is None else self.mom_schedule(self.count)
-            update = self._adam_direction(grads, b1)
+            update = self._adam_direction(grads, b1, one_minus_b1, corr1, corr2)
             if self.wd > 0 and not l2:  # decoupled: after the Adam scaling, before the lr
                 torch._foreach_add_(update, self.params, alpha=self.wd)
-        torch._foreach_add_(self.params, update, alpha=-self.lr_schedule(self.count))
+        torch._foreach_sub_(self.params, torch._foreach_mul(update, lr))
+        return norm
+
+    def step(self) -> torch.Tensor:
+        """The update at the current count, then count + 1. Returns the global
+        norm of the unclipped gradients as a 0-dim tensor on their device."""
+        device = self.params[0].device
+        norm = self.update(self.hyper_rows(1).to(device, non_blocking=True)[0])
         self.count += 1
         return norm
 

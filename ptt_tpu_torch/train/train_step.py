@@ -1,18 +1,31 @@
-"""The train step (the JAX package's ``train/train_state.py`` ``make_train_step``):
-upload the batch, forward in train mode, losses, backward, clip and the
-optimizer step.
+"""The train step (the JAX package's ``train/train_state.py`` ``make_train_step``
+and ``make_sharded_multi_step``): forward in train mode, losses, backward,
+clip and the optimizer step, K of them a dispatch.
 
-One device, one step per call. With ``mixed_precision`` (OPTIMIZATION.
-MIXED_PRECISION) the forward and backward run in bfloat16 as the JAX step runs
-them: the parameters and the batch's floats are cast to bf16 inside the
-differentiated function (``torch.func.functional_call`` on bf16 copies), so
-their gradients flow back into the float32 master parameters, which the
-optimizer and its state keep; the outputs are cast back to float32, the losses
-are computed in float32 on the float32 batch, and the BatchNorm running
-statistics stay float32. Each layer follows flax's type promotion, not
-autocast (``nn/layers.py``). The JAX package's K-step scan is not ported
-(ROADMAP.md Queue 1 item 4b): OPTIMIZATION.STEPS_PER_DISPATCH = K runs as K
-of these steps (``train/trainer.py``).
+``TrainStep`` is K steps as one body over static tensors: step j reads its
+batch from slice j of (K, B, ...) input tensors and the hyperparameters of
+its update from row j of the optimizer's table (``train/optim.py``
+``hyper_rows``), and the metrics of the K steps come out as one (K, n)
+tensor. On the GPU the body is captured as one CUDA graph per key
+(``utils/cuda_graph.py`` ``train_graph_key``: K, the batch's shapes and dtypes,
+mixed precision, the BatchNorm momentum, the model and the optimizer's
+moments) and every later dispatch of that key is one replay: the counterpart
+of the JAX step's single jitted dispatch and of its K-step ``lax.scan``. On
+the CPU, in a process group of more than one rank (whose collectives run from
+the host, ``graph_mode``), or when the caller asks for it (``graph=False``),
+the same body runs eagerly. ``make_train_step`` is the one-step form that
+takes a loader batch; ``make_multi_step`` the K-step form, fed by
+``stack_batches``. A capture that fails raises: on the GPU there is no eager
+fallback.
+
+With ``mixed_precision`` (OPTIMIZATION.MIXED_PRECISION) the forward and
+backward run in bfloat16 as the JAX step runs them: the parameters and the
+batch's floats are cast to bf16 inside the differentiated function
+(``torch.func.functional_call`` on bf16 copies), so their gradients flow back
+into the float32 master parameters, which the optimizer and its state keep;
+the outputs are cast back to float32, the losses are computed in float32 on
+the float32 batch, and the BatchNorm running statistics stay float32. Each
+layer follows flax's type promotion, not autocast (``nn/layers.py``).
 
 Data parallelism, the JAX package's ``make_sharded_train_step``: in a
 process group each rank steps on its shard of the global batch; BatchNorm and
@@ -32,6 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..nn.losses import compute_losses
+from ..utils import cuda_graph
 from ..utils.dist import all_reduce_mean_, get_dist_info
 from .bn_momentum import MODEL_BN_MOMENTUM, set_bn_momentum
 
@@ -117,30 +131,151 @@ def average_over_ranks(params, metrics: dict) -> dict:
     return dict(zip(metrics, values))
 
 
-def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = False):
-    """Returns ``step(model, optimizer, batch, bn_momentum=None) -> metrics``.
+def stack_batches(batches) -> dict:
+    """K batches of one shape (dicts of numpy arrays, or of tensors) as one
+    dict of (K, B, ...) arrays: the input of a K-step dispatch, the JAX
+    package's ``stack_shard_batches`` on one device."""
+    first = batches[0]
+    return {key: torch.stack([b[key] for b in batches]) if torch.is_tensor(first[key])
+            else np.stack([b[key] for b in batches]) for key in first}
 
-    ``model`` is the tracker on ``device`` (CUDA unless the caller asks for the
-    CPU), ``optimizer`` a ``train.optim.Optimizer`` over its parameters,
-    ``batch`` a loader batch, on the host or already on the device
-    (``BatchUploader``). ``bn_momentum``, the scheduled flax momentum,
-    replaces MODEL_BN_MOMENTUM in every BatchNorm for this step. ``metrics``
-    are the loss terms, ``loss`` and ``grad_norm`` (before clipping), 0-dim
-    tensors still on the device; in a process group, the global batch's."""
-    device = resolve_device(device)
+
+def graph_mode(device) -> str:
+    """How a train step runs on ``device``: "on" (a replay of its captured
+    CUDA graph), or "off" and why (the CPU, or a process group of more than
+    one rank, whose gradient all-reduce, BatchNorm moments and loss
+    denominators are collectives that gloo runs from the host; NCCL's are not
+    captured either, untested on a card a rank)."""
+    if torch.device(device).type != "cuda":
+        return "off (CPU: the eager step)"
+    world = get_dist_info()[1]
+    if world > 1:
+        import torch.distributed as dist
+
+        return f"off (process group of {world} ranks on {dist.get_backend()})"
+    return "on"
+
+
+class TrainStep:
+    """K train steps a dispatch, called as ``multi(model, optimizer, stacked,
+    bn_momentum=None) -> metrics``: ``stacked`` holds (K, B, ...) arrays
+    (``stack_batches``; on the host, or tensors already on the device,
+    ``BatchUploader``), ``model`` is the tracker on ``device`` and
+    ``optimizer`` a ``train.optim.Optimizer`` over its parameters, whose count
+    advances by K. ``bn_momentum``, the scheduled flax momentum, replaces
+    MODEL_BN_MOMENTUM in every BatchNorm for these steps. ``metrics`` is a
+    (K, len(names)) tensor on the device, this dispatch's own: the loss
+    terms, ``loss`` and ``grad_norm`` (before clipping) of each step, in a
+    process group the global batch's.
+
+    With ``graphed`` (the GPU, unless ``graph_mode`` says otherwise or the
+    caller passed ``graph=False``) each key's first dispatch is the eager run
+    that ``cuda_graph.StepGraph`` makes before it captures the body, so it
+    is this dispatch's real K steps; each later one copies its batches and
+    table rows into the key's static inputs on the compute stream, replays,
+    and copies the metrics out of the graph's output, which the next replay
+    rewrites. Each graph keeps a private memory pool of about one step's
+    activations (``close`` releases them). After a graphed dispatch the
+    parameters' ``.grad`` are None: the gradients live in the graph's pool,
+    and the optimizer has used them."""
+
+    def __init__(self, model_cfg: dict, k: int = 1, device="cuda", mixed_precision: bool = False,
+                 graph: bool = True):
+        self.model_cfg = model_cfg
+        self.k = int(k)
+        self.device = resolve_device(device)
+        self.mixed_precision = bool(mixed_precision)
+        self.mode = graph_mode(self.device) if graph else "off (the eager step asked for)"
+        self.graphed = self.mode == "on"
+        self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
+        self.names = None  # the metrics' names, the columns of the output
+
+    def body(self, model, optimizer, inputs: dict, hyper: torch.Tensor) -> torch.Tensor:
+        """The K steps on ``inputs`` ((K, B, ...) tensors on the device) with
+        the rows of ``hyper`` ((K, 5) on the device). Reads nothing from the
+        device on the host."""
+        rows = []
+        for j in range(self.k):
+            batch = {key: value[j] for key, value in inputs.items()}
+            out = forward(model, batch, self.mixed_precision)
+            loss, tb = compute_losses(self.model_cfg, out, batch)
+            optimizer.zero_grad()
+            loss.backward()
+            metrics = {key: value.detach() for key, value in tb.items()}
+            if get_dist_info()[1] > 1:
+                metrics = average_over_ranks(optimizer.params, metrics)
+            metrics["grad_norm"] = optimizer.update(hyper[j])
+            self.names = tuple(metrics)
+            rows.append(torch.stack(list(metrics.values())))
+        return torch.stack(rows)
+
+    def __call__(self, model, optimizer, stacked: dict, bn_momentum=None) -> torch.Tensor:
+        model.train()
+        momentum = MODEL_BN_MOMENTUM if bn_momentum is None else float(bn_momentum)
+        set_bn_momentum(model, momentum)
+        hyper = optimizer.hyper_rows(self.k)
+        if self.graphed:
+            out = self._replay(model, optimizer, stacked, hyper, momentum)
+        else:
+            out = self.body(model, optimizer, to_device(stacked, self.device),
+                            hyper.to(self.device, non_blocking=True))
+        optimizer.count += self.k
+        return out
+
+    def _replay(self, model, optimizer, stacked, hyper, momentum) -> torch.Tensor:
+        stacked = {key: torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
+                   for key, value in stacked.items()}
+        key = cuda_graph.train_graph_key(self.k, stacked, self.mixed_precision, momentum, model, optimizer)
+        entry = self.graphs.get(key)
+        if entry is None:
+            inputs = {name: torch.empty(value.shape, dtype=value.dtype, device=self.device)
+                      for name, value in stacked.items()}
+            table = torch.empty(hyper.shape, dtype=hyper.dtype, device=self.device)
+            entry = self.graphs.put(key, cuda_graph.GraphEntry((inputs, table)))
+        inputs, table = entry.state
+        for name, value in stacked.items():
+            inputs[name].copy_(value, non_blocking=True)
+        table.copy_(hyper, non_blocking=True)
+        if entry.graph is None:
+            entry.graph = cuda_graph.StepGraph(lambda: self.body(model, optimizer, inputs, table), self.device)
+            # the capture's gradients are tensors of its pool, which only a replay writes: nothing outside the
+            # graph keeps them, so that releasing the graph frees its whole pool
+            optimizer.zero_grad()
+            return entry.graph.first.clone()
+        entry.graph.replay()
+        return entry.graph.output.clone()
+
+    def metrics(self, out: torch.Tensor) -> list:
+        """The K rows of a dispatch's metrics as dicts of 0-dim tensors."""
+        return [dict(zip(self.names, row)) for row in out]
+
+    def close(self) -> None:
+        """Releases the captured graphs."""
+        self.graphs.clear()
+
+
+def make_multi_step(model_cfg: dict, k: int, device="cuda", mixed_precision: bool = False,
+                    graph: bool = True) -> TrainStep:
+    """K train steps a dispatch (``TrainStep``), the JAX package's
+    ``make_sharded_multi_step``; ``graph=False`` asks for the eager body on
+    the GPU too."""
+    return TrainStep(model_cfg, k, device, mixed_precision, graph)
+
+
+def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = False, graph: bool = True):
+    """Returns ``step(model, optimizer, batch, bn_momentum=None) -> metrics``,
+    one train step on a loader batch (on the host, or already on the device,
+    ``BatchUploader``): a ``TrainStep`` of K = 1, which is ``step.steps``.
+    ``metrics`` are the loss terms, ``loss`` and ``grad_norm`` (before
+    clipping), 0-dim tensors on the device, this step's own; in a process
+    group, the global batch's. ``model`` is the tracker on ``device`` (CUDA
+    unless the caller asks for the CPU). On the GPU the step is a replay of
+    its captured graph unless ``graph=False``."""
+    steps = TrainStep(model_cfg, 1, device, mixed_precision, graph)
 
     def step(model, optimizer, batch, bn_momentum=None):
-        model.train()
-        set_bn_momentum(model, MODEL_BN_MOMENTUM if bn_momentum is None else bn_momentum)
-        batch = to_device(batch, device)
-        out = forward(model, batch, mixed_precision)
-        loss, tb = compute_losses(model_cfg, out, batch)
-        optimizer.zero_grad()
-        loss.backward()
-        metrics = {k: v.detach() for k, v in tb.items()}
-        if get_dist_info()[1] > 1:
-            metrics = average_over_ranks(optimizer.params, metrics)
-        metrics["grad_norm"] = optimizer.step()
-        return metrics
+        out = steps(model, optimizer, {key: value[None] for key, value in batch.items()}, bn_momentum)
+        return steps.metrics(out)[0]
 
+    step.steps = steps
     return step

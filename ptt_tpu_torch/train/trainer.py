@@ -5,13 +5,17 @@ optional ``eval_fn`` hook after each epoch that keeps the best-Success model in
 ``ckpt_best.npz``. Scalars go to ``tb_writer`` only if one is passed.
 
 Inside an epoch nothing waits for the device (``pipelined_steps``, the JAX
-trainer's hot loop): step k is launched, then batch k+1 is taken from the
-loader and its upload enqueued (``BatchUploader``: from pinned memory on a side
-stream, which step k+1 waits for), so that the loader's workers and the upload
-run while step k runs on the device; the metrics of each step stay on the
-device until the epoch ends. OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 runs as K
-single steps of the same math, and says so once (the K-step CUDA graph is
-ROADMAP.md Queue 1 item 4b).
+trainer's hot loop): dispatch d is launched, then the batches of dispatch d+1
+are taken from the loader and their upload enqueued (``BatchUploader``: from
+pinned memory on a side stream, which dispatch d+1 waits for), so that the
+loader's workers and the upload run while dispatch d runs on the device; the
+metrics of each step stay on the device until the epoch ends. On the GPU a
+dispatch is one replay of the train step's CUDA graph (``train/train_step.py``
+``TrainStep``; ``graph=False`` asks for the eager step), and the Trainer logs
+the graph mode once. OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 stacks K batches
+into one dispatch of K steps, one graph, as the JAX trainer scans K steps in
+one dispatch; the epoch's tail (fewer than K batches) takes the one-step
+graph, as the JAX trainer's takes its single step.
 
 In a process group (data parallelism, ``train/train_step.py``) every rank
 starts from rank 0's parameters and buffers, broadcast at construction and
@@ -33,19 +37,51 @@ from ..utils.dist import broadcast_module, get_dist_info
 from .bn_momentum import bn_momentum_for_epoch
 from .checkpoint import CheckpointManager, save_variables_npz
 from .optim import Optimizer
-from .train_step import BatchUploader, make_train_step
+from .train_step import BatchUploader, make_multi_step, make_train_step, stack_batches
 
 
-def pipelined_steps(step, model, optimizer, batches, uploader: BatchUploader, bn_momentum=None) -> list:
-    """One pass of ``step`` over ``batches``: step k is launched, then batch
-    k+1 is fetched and its upload enqueued while step k runs. Nothing waits on
-    the device. Returns each step's metrics, still on the device."""
-    batches = iter(batches)
+def _groups(batches, k: int):
+    """``batches`` in lists of ``k``, the last one shorter if k does not
+    divide their count."""
+    group = []
+    for batch in batches:
+        group.append(batch)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def pipelined_steps(step, model, optimizer, batches, uploader: BatchUploader, bn_momentum=None,
+                    multi_step=None) -> list:
+    """One pass over ``batches``. Without ``multi_step`` a dispatch is one
+    ``step`` (``make_train_step``) on one batch; with it (a ``TrainStep`` of K)
+    a dispatch is K batches stacked into one upload and one call of
+    ``multi_step``, and a last group of fewer than K goes through ``step``
+    one batch at a time. Dispatch d is launched, then the batches of d+1 are
+    fetched and their upload enqueued while d runs. Nothing waits on the
+    device. Returns each step's metrics (dicts of 0-dim tensors on the device,
+    each step's own)."""
+    k = 1 if multi_step is None else multi_step.k
+    groups = _groups(batches, k)
     history = []
-    pending = uploader.put(next(batches, None))
+
+    def put():
+        group = next(groups, None)
+        return None if group is None else (len(group), uploader.put(stack_batches(group)))
+
+    pending = put()
     while pending is not None:
-        history.append(step(model, optimizer, uploader.take(pending), bn_momentum))
-        pending = uploader.put(next(batches, None))
+        n, uploaded = pending
+        stacked = uploader.take(uploaded)
+        if n == k and multi_step is not None:
+            history.extend(multi_step.metrics(multi_step(model, optimizer, stacked, bn_momentum)))
+        else:
+            for j in range(n):
+                history.append(step(model, optimizer, {key: value[j] for key, value in stacked.items()},
+                                    bn_momentum))
+        pending = put()
     return history
 
 
@@ -53,11 +89,13 @@ class Trainer:
     """Trains ``model`` (moved to ``device``, CUDA unless the caller asks for
     the CPU) on ``train_loader`` with the optimizer of ``optim_cfg``.
     ``eval_fn(model, epoch) -> dict`` runs with the model in eval mode; a
-    ``succ`` entry selects the best model."""
+    ``succ`` entry selects the best model. On the GPU the train step is a
+    replay of its captured CUDA graph; ``graph=False`` asks for the eager
+    step."""
 
     def __init__(self, model, model_cfg: dict, optim_cfg: dict, train_loader, output_dir, logger,
                  total_epochs: int | None = None, max_ckpt_save_num: int = 30,
-                 ckpt_save_interval: int = 1, tb_writer=None, eval_fn=None, device="cuda"):
+                 ckpt_save_interval: int = 1, tb_writer=None, eval_fn=None, device="cuda", graph: bool = True):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         broadcast_module(self.model)
@@ -76,13 +114,17 @@ class Trainer:
         self.logger.info("mixed_precision=%s (%s; set OPTIMIZATION.MIXED_PRECISION: %s to flip)"
                          % ("bf16" if mixed_precision else "f32",
                             "default" if "MIXED_PRECISION" not in optim_cfg else "from config", not mixed_precision))
-        self.train_step = make_train_step(model_cfg, device=self.device, mixed_precision=mixed_precision)
+        self.train_step = make_train_step(model_cfg, device=self.device, mixed_precision=mixed_precision,
+                                          graph=graph)
+        self.logger.info(f"graph: {self.train_step.steps.mode}")
         self.uploader = BatchUploader(self.device)
         k = steps_per_dispatch(optim_cfg)
+        self.multi_step = None
         if k > 1:
-            # the JAX trainer logs steps_per_dispatch=K and scans K steps a dispatch
-            self.logger.info(f"steps_per_dispatch={k}: runs as {k} single steps of the same math "
-                             "(the K-step CUDA graph is ROADMAP.md Queue 1 item 4b)")
+            # the JAX trainer's line; the epoch's tail takes the one-step graph
+            self.logger.info(f"steps_per_dispatch={k} (K-step CUDA graph per dispatch)")
+            self.multi_step = make_multi_step(model_cfg, k, device=self.device, mixed_precision=mixed_precision,
+                                              graph=graph)
         self.bn_sched_cfg = optim_cfg.get("BN_SCHEDULER")
         self.output_dir = Path(output_dir)
         self.ckpt = CheckpointManager(self.output_dir / "ckpt", max_to_keep=max_ckpt_save_num)
@@ -122,7 +164,7 @@ class Trainer:
             bn_m = self._bn_momentum(epoch)
             t0 = time.perf_counter()
             history = pipelined_steps(self.train_step, self.model, self.optimizer, self.train_loader, self.uploader,
-                                      bn_m)
+                                      bn_m, self.multi_step)
             self.accumulated_iter += len(history)
             if not history:
                 raise RuntimeError("the train loader gave no batch")

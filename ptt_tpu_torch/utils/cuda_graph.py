@@ -1,20 +1,26 @@
 """CUDA graphs of the port's step bodies: the counterpart of the JAX package's
-jitted programs (``jax.jit`` of the tracker's ``lax.scan`` and of the host
-evaluator's ``track_step``).
+jitted programs (``jax.jit`` of the tracker's ``lax.scan``, of the host
+evaluator's ``track_step`` and of the train step and its K-step scan).
 
 A body is a function of static tensors: it reads its inputs from tensors the
 caller keeps and writes its results into them (or returns tensors that the
 graph keeps). ``StepGraph`` runs it once eagerly on a side stream, which
 builds every kernel its launches build (``ops/_build.py`` runs ``nvcc`` on
 first use) and sets up cuBLAS for that stream, then captures it into a private
-memory pool; that first run is real work, the caller's first step. Every later
-step is one ``replay``: one launch of the whole body from the host.
+memory pool; that first run is real work, the caller's first step (for the
+train step, the dispatch's real K steps). Between the two the allocator's
+cached free blocks are given back (``empty_cache``), so that the capture's
+pool can take the memory the eager run held: a train step near the card's
+memory, as ``ptt_waymo.yaml``'s, would not fit twice, and processes that
+share the card would each keep a step's worth. Every later step is one
+``replay``: one launch of the whole body from the host.
 
 Parameters are read by address, so weights loaded in place
 (``load_state_dict``) show in the next replay; ``model_signature`` is what a
 graph's key must hold besides the input shapes, so that a model whose
 parameters moved, or whose kernels were switched off (``set_use_kernels``), is
-captured anew rather than replayed stale.
+captured anew rather than replayed stale; ``train_graph_key`` adds what a
+train step depends on.
 
 A replay runs no Python wrapper, so the kernels' launch counters
 (``ops/fps.py`` ``launches`` and the others) are advanced by what the capture
@@ -55,6 +61,18 @@ def model_signature(model) -> tuple:
     return switches, model.training, addresses
 
 
+def train_graph_key(k: int, stacked: dict, mixed_precision: bool, bn_momentum: float, model, optimizer) -> tuple:
+    """What a captured train dispatch (``train/train_step.py`` ``TrainStep``)
+    is keyed by: K, the (K, B, ...) inputs' shapes and dtypes, mixed
+    precision, the flax BatchNorm momentum (a constant of the body: the
+    update's 1 - m rounds as today's step rounds it), ``model_signature`` and
+    the addresses of the optimizer's moments, which the body updates in
+    place."""
+    shapes = tuple((name, tuple(value.shape), value.dtype) for name, value in stacked.items())
+    moments = tuple(t.data_ptr() for t in optimizer.mu + optimizer.nu)
+    return int(k), shapes, bool(mixed_precision), float(bn_momentum), model_signature(model), moments
+
+
 class StepGraph:
     """``body`` (no arguments) run once eagerly on a side stream of ``device``,
     then captured as one CUDA graph in a private memory pool. ``first`` is what
@@ -71,6 +89,8 @@ class StepGraph:
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             self.first = body()
+        stream.synchronize()
+        torch.cuda.empty_cache()  # the eager run's cached blocks, which the capture's pool cannot take
         before = read_launches()
         t0 = time.perf_counter()
         try:

@@ -299,9 +299,9 @@ def _summary(text):
 @pytest.mark.parametrize("k", [4, 0, 2.5])
 def test_steps_per_dispatch_runs_as_single_steps_or_is_refused(narrow, cli_root, k):
     """OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 (the JAX trainer's K-step scan)
-    runs as K single steps, and the train CLI logs one line that says so and
-    names ROADMAP.md Queue 1 item 4b; K < 1 and a K that is not an integer are
-    refused before training."""
+    runs K steps a dispatch, and the train CLI logs the JAX trainer's line for
+    it once, and once how the step runs (on the CPU, eagerly); K < 1 and a K
+    that is not an integer are refused before training."""
     if k == 2.5:  # --set keeps a key's type, so a float K comes from a config file
         with pytest.raises(ValueError, match="STEPS_PER_DISPATCH must be an integer >= 1, not 2.5"):
             steps_per_dispatch({"STEPS_PER_DISPATCH": k})
@@ -317,11 +317,30 @@ def test_steps_per_dispatch_runs_as_single_steps_or_is_refused(narrow, cli_root,
     assert train_tracking.main(flags) == 0
     text = _log(run, "log_train_*.txt")
     lines = [line for line in text.splitlines() if "steps_per_dispatch=" in line]
-    assert len(lines) == 1 and lines[0].endswith(
-        "steps_per_dispatch=4: runs as 4 single steps of the same math (the K-step CUDA graph is ROADMAP.md "
-        "Queue 1 item 4b)")
+    assert len(lines) == 1 and lines[0].endswith("steps_per_dispatch=4 (K-step CUDA graph per dispatch)")
+    graph = [line for line in text.splitlines() if "graph: " in line]
+    assert len(graph) == 1 and graph[0].endswith("graph: off (CPU: the eager step)")
     summary = _summary(text)
     assert summary["steps"] == [0, 6] and summary["checkpoints"] == [1]  # 6 frames x 4 candidates / 4
+
+
+def test_steps_per_dispatch_over_an_odd_step_count(narrow, cli_root):
+    """The train CLI at STEPS_PER_DISPATCH = 2 over 3 steps (one dispatch of 2,
+    the tail through the one-step body) counts 3 steps and saves the
+    checkpoint of the same run at K = 1 bit for bit."""
+    states = {}
+    for k in (2, 1):
+        sets = narrow["sets"] + ["DATA_CONFIG.DATA_SPLIT", "train:all", "OPTIMIZATION.STEPS_PER_DISPATCH", str(k)]
+        assert train_tracking.main(["--device", "cpu", "--batch_size", "8", "--workers", "0", "--epochs", "1",
+                                    "--pretrained_model", str(narrow["tmp"] / "init.npz"), "--extra_tag", f"k{k}",
+                                    "--set", *sets]) == 0
+        run = cli_root / "kitti_models" / "ptt" / f"k{k}"
+        summary = _summary(_log(run, "log_train_*.txt"))
+        assert summary["steps"] == [0, 3] and summary["checkpoints"] == [1]  # 24 items / 8
+        states[k] = torch.load(run / "ckpt" / "checkpoint_epoch_1.pth", weights_only=False)
+    assert states[2]["optimizer"]["count"] == states[1]["optimizer"]["count"] == 3
+    model_a, model_b = states[2]["model"], states[1]["model"]
+    assert set(model_a) == set(model_b) and all(torch.equal(model_a[k], model_b[k]) for k in model_a)
 
 
 def test_ptt_synth_ps_evaluates_on_one_device(narrow, cli_root):
