@@ -70,7 +70,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   12. the KITTI loader on a scene of 4 cars x 60 such sweeps in this process
      (one item's ms, a batch by threads and by processes, the Trainer's loop
      fed by it against one pre-made batch, alternated); the train CLI at B =
-     48 on that scene from the trained asset, two epochs in one process (the
+     48 on a scene of 4 cars x 30 sweeps from the trained asset, two epochs in one process (the
      second's loop on warm workers), then resumed for a third, each scored by
      TRAIN.WITH_EVAL on a shorter test scene; ms a step with the KITTI loader,
      2 FPS + 7 + 7 group launches a step; ``--eval_all`` over the three
@@ -122,7 +122,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      K = 4 dispatch ms/it over the loader, samples/s, GFLOP a step and mfu for
      ptt.yaml and ptt_large.yaml at B = 48) and ``python3 -m
      ptt_tpu_torch.tools.demo_tracking`` (parameter counts, FLOPs per module
-     and per layer, a train step); their output printed; (19b) the
+     and per layer, a train step; run with phase 22's side tools, beside
+     phase 16); their output printed; (19b) the
      ptt.yaml forward's matrix products by (M, K, N) with their device time,
      each beside the layers of that product.
   20. (run after 13b) POINT_SHARDING, two gloo ranks on the one card as one
@@ -158,7 +159,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      phases 18a and 20c) under a process group the step stays eager and says
      so. Phases 7, 12, 14, 15 and 18a's one process take the eager step
      (``graph=False``) as before; the Trainer (7, 21e), the CLIs and
-     ``train_bench`` take the graphed one.
+     ``train_bench`` take the graphed one. The phase runs in a process of its
+     own (``chip_smoke.py --phase21``): in this one, after phases 1-14, 21c's
+     graph replays under torch.profiler die of a segmentation fault inside
+     ``cudaGraphLaunch``, with the native library never loaded too, and pass
+     there without the profiler (``chip_probe21.py``; PERF.md §7 q. 7).
+  22. (run after 19) the JAX package's last modules: (a) at ptt.yaml's
+     stage-0 shapes ``square_distance(exact=True)`` and ``group_all``
+     torch.equal to the CPU's, ``uniform_resample_idx``'s counts equal, its
+     fronts the sorted unique members; (b) CosineSimAug with MLP.BN False at
+     full width within 1e-4 of the CPU; the tools as a user runs them: (c)
+     ``fused_ab`` (kernels against plain within 1.0), (d)
+     ``parity_decomposition --device cuda`` (the deployed row within 2.0 of
+     the asset's host numbers), (f) ``warmup --train`` and ``warmup
+     --seed-out`` (refused), side by side with phase 19's ``demo_tracking``
+     beside phase 16 (their checks are results, not times), then
+     (e) ``compile_diag`` cold and warm and (g) ``train_ablate --iters 4``
+     one at a time.
 The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
 device's launch counts must equal the wrappers' and replays' counts. Phases 14
 and 21 run right after phase 7 (late in a long process the profiler can miss
@@ -883,8 +900,8 @@ def graph_vs_eager(tag, name, cfg, model, bench, device, card, n_fps):
     host_ms["enqueue_behind_sleep"] = behind_ms
     for drv in ("eager", "graph"):
         p = prof[drv]
-        log(f"{tag} {name} {drv} loop: {', '.join(f'{r:.1f}' for r in rates[drv])} frames/s (2 pipelined batches a "
-            f"run, alternated), one profiled batch: wall {p['wall_ms']:.1f} ms, host enqueue {p['enqueue_ms']:.1f} ms, "
+        log(f"{tag} {name} {drv} loop: {', '.join(f'{r:.1f}' for r in rates[drv])} frames/s "
+            f"(2 pipelined batches a run, alternated), one profiled batch: wall {p['wall_ms']:.1f} ms, host enqueue {p['enqueue_ms']:.1f} ms, "
             f"device busy {p['busy_ms']:.1f} ms ({p['idle_pct']:.1f}% idle), {p['device_ops']} device operations; "
             f"first batch {first_s[drv] * 1e3:.1f} ms; card {card}")
     log(f"{tag} {name}: graphed boxes bit-equal to the eager loop's {same}; capture {g['capture_ms']} ms, "
@@ -905,11 +922,12 @@ def graph_vs_eager(tag, name, cfg, model, bench, device, card, n_fps):
 
 def bench_tracklets():
     """The benchmark workload: 8 synthetic tracklets of 64 frames (600 object,
-    400 clutter and 120 pole points a frame), the JAX ``bench.py`` workload."""
-    from ptt_tpu_torch.data.synthetic import make_tracklets
+    400 clutter and 120 pole points a frame), the JAX ``bench.py`` workload,
+    as ``tools/bench_setup.py`` ``bench_tracklets`` makes it (no model)."""
+    from ptt_tpu_torch.config import cli_config
+    from ptt_tpu_torch.tools import bench_setup
 
-    return make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 64, "POINTS_PER_FRAME": 600,
-                           "CLUTTER_POINTS": 400})
+    return bench_setup.bench_tracklets(cli_config(bench_setup.BENCH_CFG)["DATA_CONFIG"])
 
 
 def first_frames(tracklets, n):
@@ -1011,11 +1029,11 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, g
         fail(f"{tag} {name} tracker: launches {launches}, expected {n_fps} and 7 per frame step over {steps} steps")
     if not np.isfinite(centers).all():
         fail(f"{tag} {name} tracker: non-finite boxes")
-    rates = [bench_rate(ev, bench, 4) for _ in range(3)]
+    rates = [bench_rate(ev, bench, 2) for _ in range(3)]
     set_use_kernels(model, False)
     plain_rate = bench_rate(ev, first_frames(bench, 32), 1)
     set_use_kernels(model, True)
-    log(f"{tag} {name} throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
+    log(f"{tag} {name} throughput, 8 x 64-frame tracklets, 2 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); plain path "
         f"{plain_rate:.1f} frames/s (one batch cut to 32 frames, graphed, its capture included); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
@@ -1221,15 +1239,16 @@ def relerr(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
 
 
-def train_batches(data_cfg, n, seed=0):
+def train_batches(data_cfg, n, seed=0, workers=LOADER_WORKERS):
     """The first ``n`` batches of TRAIN_B synthetic train items of an epoch,
-    built by the port's loader (LOADER_WORKERS processes, which stay up until
-    the caller closes the loader it gets back)."""
+    built by the port's loader (``workers`` processes, which stay up until
+    the caller closes the loader it gets back; 0 builds them in this process,
+    the same batches)."""
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
 
     loader = DataLoader(SyntheticTrackingDataset(data_cfg), TRAIN_B, shuffle=True, drop_last=True,
-                        seed=seed, num_workers=LOADER_WORKERS)
+                        seed=seed, num_workers=workers)
     out = []
     for batch in loader:  # leaves the epoch early: the workers stay up for the next one
         out.append(batch)
@@ -1871,11 +1890,11 @@ def train_phase(cfg, device, card):
 
     # time per step: one pre-made batch, each step waited for (as before); then the Trainer's loop on one
     # pre-made batch against the loader, alternated
-    premade_ms = median_step_ms(step, model, opt, [batches[0]] * 20)
-    premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 10, card)
+    premade_ms = median_step_ms(step, model, opt, [batches[0]] * 10)
+    premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 6, card)
     plain_ms = median_step_ms(step, plain_model, plain_opt, [batches[0]] * 3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[7] train step at B = {TRAIN_B}, median of 20 after warm-up, each waited for: {premade_ms:.1f} ms on one "
+    log(f"[7] train step at B = {TRAIN_B}, median of 10 after warm-up, each waited for: {premade_ms:.1f} ms on one "
         f"pre-made batch; plain path {plain_ms:.1f} ms; peak device memory {peak:.1f} GiB; card {card}")
     profile_train(step, model, opt, batches[0])
     del plain_model, plain_opt
@@ -2088,10 +2107,27 @@ def run_cli(module: str, args, timeout: float = 600, device_launches: bool = Fal
     the CLI fails. With ``device_launches`` the CLI runs under torch.profiler,
     and the record's ``device_launches`` holds the device's count of each
     tracker kernel's launches; the wrappers' counts (``launches``) must equal it."""
+    return finish_cli(module, args, start_cli(module, args, device_launches), timeout, device_launches)
+
+
+def start_cli(module: str, args, device_launches: bool = False):
+    """Start ``run_cli``'s process; returns (the process, its start time)."""
     target = f"ptt_tpu_torch.tools.{module}"
     cmd = [sys.executable, *(["-c", PROFILED_CLI] if device_launches else ["-m"]), target, *map(str, args)]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), \
+        time.perf_counter()
+
+
+def finish_cli(module: str, args, started, timeout: float = 600, device_launches: bool = False):
+    """Wait for a process of ``start_cli``; returns what ``run_cli`` returns."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{module}: no exit within {timeout} s")
+    out = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
     wall = time.perf_counter() - t0
     text = out.stdout + out.stderr
     if out.returncode != 0:
@@ -2177,14 +2213,17 @@ def kitti_test_phase(agreement, phase10, model, device, card, tmp):
         base = ["--ckpt", ASSET, "--max_points", 1024, "--extra_tag", "chip_smoke_11a"]
         sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "DATA_CONFIG.DATA_SPLIT", "test:all"]
         got = {}
-        for path, flags in (("device", ["--eval_tag", "device"]), ("host", ["--host_loop", "--eval_tag", "host"])):
-            rec, wall, _ = run_cli("test_tracking", base + flags + sets, device_launches=True)
+        jobs = {path: base + flags + sets for path, flags in (("device", ["--eval_tag", "device"]),
+                                                             ("host", ["--host_loop", "--eval_tag", "host"]))}
+        started = {path: start_cli("test_tracking", args, device_launches=True) for path, args in jobs.items()}
+        for path, args in jobs.items():  # side by side: their checks are results, not times
+            rec, wall, _ = finish_cli("test_tracking", args, started[path], device_launches=True)
             got[path] = rec
             (ref_s, ref_p), lines = phase10[path], line_count(result_file("chip_smoke_11a", path))
             log(f"[11a] test CLI ({path} path) on the agreement tracklets as KITTI scenes 0000-0007: Success "
                 f"{rec['success']:.2f} Precision {rec['precision']:.2f}, phase 10 {ref_s:.2f}/{ref_p:.2f} (delta "
                 f"{rec['success'] - ref_s:+.2f}/{rec['precision'] - ref_p:+.2f}); {lines} lines of track_result.txt; "
-                f"launches {rec['launches']}; CLI wall {wall:.1f} s; card {card}")
+                f"launches {rec['launches']}; CLI wall {wall:.1f} s (both paths side by side); card {card}")
             if not (abs(rec["success"] - ref_s) <= 1.0 and abs(rec["precision"] - ref_p) <= 1.0):
                 fail(f"[11a] the test CLI's {path} path is not within 1.0 of phase 10's")
             if lines != frames:
@@ -2261,22 +2300,26 @@ def kitti_loader_phase(root, device, card):
     one_item = item_ms(dataset)
     by_threads = thread_batches_ms(loader, 4)
     beside_threads, beside_step = thread_batches_ms(loader, 4, lambda: median_step_ms(step, model, opt, [batch]))
-    by_processes = loader_batch_ms(loader, 12, warm=8)
+    by_processes = loader_batch_ms(loader, 6, warm=8)
     log(f"[12] the KITTI loader in this process ({len(dataset)} train items, {len(loader)} batches an epoch, built in "
         f"{built:.1f} s): one train item {one_item:.2f} ms in one thread (median of {TRAIN_B}); a batch by "
         f"{LOADER_WORKERS} threads {by_threads:.1f} ms alone, {beside_threads:.1f} ms beside train steps, which took "
         f"{beside_step:.1f} ms a step meanwhile; by the loader's {LOADER_WORKERS} processes {by_processes:.1f} ms a "
         f"batch alone")
-    premade_vs_loader("[12]", step, model, opt, batch, loader, 12, card, warm=8)
+    premade_vs_loader("[12]", step, model, opt, batch, loader, 6, card, warm=8)
     loader.close()
     del model, opt
     torch.cuda.empty_cache()
 
 
+KITTI_TRAIN_FRAMES = 30  # the train CLI's scene 0000 in phase 12: 4 cars in each of its 30 sweeps
+KITTI_TRAIN_STEPS = 10  # steps an epoch of it at B = 48 (4 items a car and frame)
+
+
 def kitti_train_phase(model, batch, device, card):
-    """Phase 12: the KITTI loader in this process (``kitti_loader_phase``);
-    the train CLI at B = 48 on scene 0000 (4 cars x 60 frames of 120,000
-    points) from the trained asset, two epochs and then a resumed third,
+    """Phase 12: the KITTI loader in this process (``kitti_loader_phase``, on
+    a scene 0000 of 4 cars x 60 frames of 120,000 points); the train CLI at B
+    = 48 on a scene 0000 of 4 cars x 30 such frames from the trained asset, two epochs and then a resumed third,
     TRAIN.WITH_EVAL on a shorter scene 0019; ``--eval_all`` over the three
     checkpoints; and a reference-layout .pth loaded with ``--ckpt``'s loader,
     against the asset loaded from the .npz."""
@@ -2290,11 +2333,12 @@ def kitti_train_phase(model, batch, device, card):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     run_dir = os.path.join(REPO, "output", "kitti_models", "ptt", "chip_smoke_12")
     try:
-        root = os.path.join(tmp, "train")
+        root, loader_root = os.path.join(tmp, "train"), os.path.join(tmp, "loader")
         rng = np.random.default_rng(12)
-        write_kitti_scene(root, "0000", *sweep_scene(rng, 60, [60, 60, 60, 60]))
+        write_kitti_scene(root, "0000", *sweep_scene(rng, KITTI_TRAIN_FRAMES, [KITTI_TRAIN_FRAMES] * 4))
         write_kitti_scene(root, "0019", *sweep_scene(rng, 40, [30, 40]))
-        kitti_loader_phase(root, device, card)
+        write_kitti_scene(loader_root, "0000", *sweep_scene(rng, 60, [60, 60, 60, 60]))
+        kitti_loader_phase(loader_root, device, card)
         sets = ["--set", "DATA_CONFIG.DATA_PATH", root, "TRAIN.WITH_EVAL.ENABLE", "True",
                 "TRAIN.WITH_EVAL.START_EPOCH", "0"]
         runs = []
@@ -2317,8 +2361,9 @@ def kitti_train_phase(model, batch, device, card):
             if rec["epochs"] != [first, epochs] or rec["checkpoints"] != list(range(1, epochs + 1)):
                 fail(f"[12] --epochs {epochs}: epochs {rec['epochs']}, checkpoints {rec['checkpoints']}")
             if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n} or \
-                    n != 20 * (epochs - first):
-                fail(f"[12] {n} steps with launches {rec['launches']}, not 20 steps an epoch of 2 FPS + 7 + 7 group")
+                    n != KITTI_TRAIN_STEPS * (epochs - first):
+                fail(f"[12] {n} steps with launches {rec['launches']}, not {KITTI_TRAIN_STEPS} steps an epoch of "
+                     f"2 FPS + 7 + 7 group")
             if any(not v for v in ev.values()):
                 fail(f"[12] TRAIN.WITH_EVAL did not score every epoch of {rec['epochs']}")
         if runs[1]["steps"][0] != runs[0]["steps"][1]:
@@ -2352,7 +2397,7 @@ def kitti_train_phase(model, batch, device, card):
 
 DIST_RANKS = 2  # ranks that share the one card, on the gloo backend (NCCL refuses two ranks on one device)
 DIST_STEPS = 3
-DIST_TIMED = 5  # steps timed after the compared ones
+DIST_TIMED = 3  # steps timed after the compared ones
 DIST_TIMEOUT = 600  # seconds a torchrun of the ranks may take
 DIST_STEP0_RTOL = 1e-4  # step 0 against one process: PERF.md section 2's step-0 band
 DIST_FAULT_RTOL = 5e-2  # steps 1-2: FPS picks may flip with the summation order; beyond this, a fault
@@ -2654,7 +2699,7 @@ def waymo_train_phase(device, card):
     peak = torch.cuda.max_memory_allocated()
     log(f"[14] the loader at 8192 / 2048 points: one train item {item_ms(loader.dataset):.2f} ms in one thread "
         f"(median of {TRAIN_B}), {loader_batch_ms(loader, 8):.1f} ms a batch by its {LOADER_WORKERS} processes alone")
-    premade_vs_loader("[14]", step, model, opt, batches[0], loader, 5, card, warm=LOADER_WORKERS)
+    premade_vs_loader("[14]", step, model, opt, batches[0], loader, 3, card, warm=LOADER_WORKERS)
     loader.close()
     log(f"[14] ptt_waymo train steps at B = {TRAIN_B}: losses {[f'{x:.4f}' for x in losses]}; launches {launches} "
         f"over 3 steps; {ms:.1f} ms a step on one pre-made batch (median of 5); peak device memory {peak} bytes "
@@ -2676,7 +2721,7 @@ TRAIN_KERNELS = ("fps_kernel", "group_fwd_kernel") + BWD_KERNELS
 # differ by (torch.gather's backward scatters with atomics), and by at least this relative floor
 WITNESS_FACTOR = 10
 WITNESS_FLOOR = 1e-6
-GRAPH_TIMED = 8  # steps a timed run of phase 21c, 2 dispatches of K = 4
+GRAPH_TIMED = 4  # steps a timed run of phase 21c, 1 dispatch of K = 4
 GRAPH_TRACED = 4  # steps phase 21c profiles, one dispatch of K = 4, after as many
 
 
@@ -2812,7 +2857,7 @@ def train_graph_phase(device, card):
     t_phase = time.perf_counter()
     cfg = ptt_synth_config()
     model_cfg, optim_cfg = cfg["MODEL"], cfg["OPTIMIZATION"]
-    loader, batches = train_batches(cfg["DATA_CONFIG"], 6, seed=21)
+    loader, batches = train_batches(cfg["DATA_CONFIG"], 6, seed=21, workers=0)  # no fork server in its process
     n_iters = len(loader)
     loader.close()
     weights = state_dict_from_npz(ASSET)
@@ -3028,7 +3073,7 @@ def train_graph_phase(device, card):
         net = build_network(model_cfg, device=device, train=True)
         net.load_state_dict(weights, strict=True)
         small_loader = DataLoader(SyntheticTrackingDataset(small), TRAIN_B, shuffle=True, drop_last=True,
-                                  num_workers=2)
+                                  num_workers=0)  # the same batches; no fork server in phase 21's process
         return Trainer(net, model_cfg, dict(optim_cfg, STEPS_PER_DISPATCH=4), small_loader,
                        os.path.join(out_dir, run), logger, total_epochs=total_epochs, device=device,
                        tb_writer=scalars, graph=graph)
@@ -3181,8 +3226,8 @@ def bf16_phase(device, card):
     times = {"f32": [], "bf16": []}
     for name in ("f32", "bf16", "bf16", "f32"):
         model, opt, step = (m32, o32, step32) if name == "f32" else (mk, ok, step16)
-        times[name].append(median_step_ms(step, model, opt, [batches[0]] * 10))
-    log(f"[15] train step at B = {TRAIN_B} on one pre-made batch, medians of 10, alternated f32, bf16, bf16, f32: "
+        times[name].append(median_step_ms(step, model, opt, [batches[0]] * 5))
+    log(f"[15] train step at B = {TRAIN_B} on one pre-made batch, medians of 5, alternated f32, bf16, bf16, f32: "
         f"f32 {', '.join(f'{t:.1f}' for t in times['f32'])} ms, bf16 {', '.join(f'{t:.1f}' for t in times['bf16'])} ms; "
         f"card {card}")
     del mk, ok, mp, op, m32, o32
@@ -3210,10 +3255,10 @@ def bf16_phase(device, card):
         shutil.rmtree(os.path.join(REPO, "output", "synthetic_models", tag), ignore_errors=True)
 
 
-def nuscenes_phase(agreement, phase10, card):
+def nuscenes_phase(agreement, phase10, card, beside=""):
     """Phase 16: the agreement tracklets as a nuScenes release, scored by the
     test CLI on nuscenes_models/ptt.yaml with the trained asset; within 1.0 of
-    phase 10's device numbers."""
+    phase 10's device numbers. ``beside`` names what ran beside it."""
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
@@ -3227,7 +3272,8 @@ def nuscenes_phase(agreement, phase10, card):
         log(f"[16] test CLI nuscenes_models/ptt.yaml on the agreement tracklets as a nuScenes release (8 val "
             f"scenes, class trailer): Success {rec['success']:.2f} Precision {rec['precision']:.2f}, phase 10 "
             f"{ref_s:.2f}/{ref_p:.2f} (delta {rec['success'] - ref_s:+.2f}/{rec['precision'] - ref_p:+.2f}); "
-            f"dataset {rec['dataset_seconds']:.1f} s; launches {rec['launches']}; CLI wall {wall:.1f} s; card {card}")
+            f"dataset {rec['dataset_seconds']:.1f} s; launches {rec['launches']}; CLI wall {wall:.1f} s{beside}; "
+            f"card {card}")
         if not (abs(rec["success"] - ref_s) <= 1.0 and abs(rec["precision"] - ref_p) <= 1.0):
             fail("[16] the nuScenes test CLI is not within 1.0 of phase 10's")
         if rec["launches"]["fps"] != 2 * steps or rec["launches"]["sa"] != 7 * steps:
@@ -3485,18 +3531,18 @@ def point_phase(root, phase13b, card, tmp):
             "gathered_bytes_a_step": group["gathered_bytes"] / steps, "seconds": seconds}
 
 
-TOOL_RUNS = (("train_bench", ["--iters", 8, "--tracklets", 4]), ("demo_tracking", []))
+TOOL_RUNS = (("train_bench", ["--iters", 4, "--tracklets", 4]),)  # demo_tracking: a side tool (phase 22)
 
 
 def tools_phase(card):
     """Phase 19: the training-side tools run as a user runs them, ``python3 -m
     ptt_tpu_torch.tools.train_bench`` (ptt.yaml and ptt_large.yaml at B = 48,
-    8 chained steps for the device step, 4 x 24 synthetic tracklets: 8
+    4 chained steps for the device step, 4 x 24 synthetic tracklets: 8
     steps an epoch, pipelined, blocking, then 2 dispatches of K = 4; the
-    graphed step)
-    and ``python3 -m ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8):
-    their output printed, a non-zero exit, or a train_bench row without a
-    number in its K-dispatch column, fails the run."""
+    graphed step): its output printed, a non-zero exit, or a row without a
+    number in its K-dispatch column, fails the run. ``python3 -m
+    ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8) runs with the
+    side tools (``start_side_tools``), the same checks."""
     for module, args in TOOL_RUNS:
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)], cwd=REPO,
@@ -3514,6 +3560,240 @@ def tools_phase(card):
                 fail("[19] train_bench's table has no K-dispatch number for each configuration")
 
 
+PHASE21_TIMEOUT = 600  # seconds phase 21's process may take
+
+
+def phase21_process() -> dict:
+    """Phase 21 in a process of its own (``chip_smoke.py --phase21``), its
+    output logged here and its numbers returned; the checks are the same
+    either way. Run in this process after phases 1-14, 21c's graph replays
+    under torch.profiler die of a segmentation fault inside
+    ``cudaGraphLaunch`` (also with the numpy scorer, the native library never
+    loaded), and the same replays without the profiler pass
+    (``chip_probe21.py``); alone in a fresh process the profiled replays
+    have always passed."""
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, which the phase's graph pools need
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase21"], cwd=REPO, capture_output=True,
+                             text=True, timeout=PHASE21_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        log((e.stdout or "")[-8000:] if isinstance(e.stdout, str) else "")
+        fail(f"[21] no exit within {PHASE21_TIMEOUT} s")
+    records = []
+    for line in out.stdout.splitlines():
+        if line.startswith("phase21 {"):
+            records.append(json.loads(line.split(" ", 1)[1]))
+        else:
+            log(line)
+    if out.returncode != 0 or not records:
+        log(out.stderr[-8000:])
+        fail(f"[21] its process exited with {out.returncode}")
+    log(f"[21] its process: {time.perf_counter() - t0:.1f} s")
+    return records[-1]
+
+
+def phase21_only() -> int:
+    """``python3 chip_smoke.py --phase21``: phase 21 alone, its numbers on the
+    last line as ``phase21 {json}``; ``main`` runs it so."""
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke.py runs on a GPU")
+        return 1
+    adopt_orphans()
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    from ptt_tpu_torch.ops import _build
+
+    _build.build()
+    out = train_graph_phase(torch.device("cuda"), gpu_line())
+    stop_children()
+    print("phase21 " + json.dumps(out), flush=True)
+    return 0
+
+
+PORT_TOOL_TIMEOUT = 300  # seconds a tool of phase 22 may take
+SIM_RTOL = 1e-4  # CosineSimAug without BatchNorm, card against CPU, relative to the largest output
+
+
+def tool_cmd(module: str, *args) -> list:
+    return [sys.executable, "-m", f"ptt_tpu_torch.tools.{module}", *map(str, args)]
+
+
+def finish_tool(tag, name, proc, t0, expect_rc=0):
+    """Wait for a tool's process, log its output and seconds; fail on an exit
+    code other than ``expect_rc`` (None: any non-zero one). Returns (stdout, stderr)."""
+    try:
+        out, err = proc.communicate(timeout=PORT_TOOL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{tag} {name}: no exit within {PORT_TOOL_TIMEOUT} s")
+    log(f"{tag} {name}: exit {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    for line in out.splitlines():
+        log(f"  {line}")
+    bad = proc.returncode == 0 if expect_rc is None else proc.returncode != expect_rc
+    if bad:
+        log(err[-4000:])
+        fail(f"{tag} {name} exited with {proc.returncode}")
+    return out, err
+
+
+def table_cells(text: str, first: str) -> list:
+    """The cells of the markdown row whose first cell starts with ``first``."""
+    rows = [[c.strip() for c in line.strip().strip("|").split("|")] for line in text.splitlines()
+            if line.startswith("| " + first)]
+    if not rows:
+        fail(f"no table row '{first}' in:\n{text}")
+    return rows[0]
+
+
+def point_ops_check(points, device):
+    """22a: the point ops of the JAX package no path of the tracker reaches, at
+    ptt.yaml's stage-0 shapes (B = 8, 1024 points, 512 centers, r = 0.3, ns =
+    32), on the card against the CPU."""
+    from ptt_tpu_torch.ops import point_ops
+
+    xyz = points[..., :3].float().contiguous()
+    centers = xyz[:, :512].contiguous()
+    cpu_xyz, cpu_centers = xyz.cpu(), centers.cpu()
+    d2 = point_ops.square_distance(centers, xyz, exact=True)
+    if not torch.equal(d2.cpu(), point_ops.square_distance(cpu_centers, cpu_xyz, exact=True)):
+        fail("[22a] square_distance(exact=True): the card's differs from the CPU's")
+    feats = torch.randn(xyz.shape[0], xyz.shape[1], 16, device=device)
+    for got, ref in zip(point_ops.group_all(xyz, feats), point_ops.group_all(cpu_xyz, feats.cpu())):
+        if not torch.equal(got.cpu(), ref):
+            fail("[22a] group_all: the card's differs from the CPU's")
+    idx = point_ops.ball_query(0.3, 32, xyz, centers)
+    out, cnt = point_ops.uniform_resample_idx(idx, torch.Generator(device=device).manual_seed(0))
+    _, cpu_cnt = point_ops.uniform_resample_idx(idx.cpu(), torch.Generator().manual_seed(0))
+    if not torch.equal(cnt.cpu(), cpu_cnt):
+        fail("[22a] uniform_resample_idx: the unique counts differ from the CPU's")
+    srt = torch.sort(idx.long(), dim=-1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    unique = torch.where(first, srt, torch.iinfo(torch.int64).max).sort(dim=-1).values
+    slots = torch.arange(32, device=device)
+    front = slots < cnt[..., None].long()
+    members = (out.long()[..., :, None] == srt[..., None, :]).any(-1)
+    if not (torch.where(front, out.long() == unique, True).all() and members.all()):
+        fail("[22a] uniform_resample_idx: a row's front is not its sorted unique members, or a slot is not a member")
+    log(f"[22a] point ops at (8, 1024) x 512 centers, r = 0.3, ns = 32: square_distance(exact=True) and group_all "
+        f"torch.equal to the CPU's; uniform_resample_idx counts equal ({int(cnt.sum())} unique members in "
+        f"{cnt.numel()} rows), fronts sorted unique, every slot a member")
+
+
+def sim_no_bn_check(device):
+    """22b: CosineSimAug with MLP.BN False at ptt.yaml's width, card against CPU."""
+    from ptt_tpu_torch.config import ptt_config
+    from ptt_tpu_torch.nn.similarity import CosineSimAug
+
+    cfg = ptt_config()["MODEL"]["SIMILARITY_MODULE"]
+    cfg["MLP"]["BN"] = False
+    torch.manual_seed(SEED)
+    module = CosineSimAug(cfg).eval()
+    gen = torch.Generator().manual_seed(SEED)
+    batch = {"search_feats": torch.randn(8, 128, 256, generator=gen),
+             "template_feats": torch.randn(8, 64, 256, generator=gen),
+             "template_seeds": torch.randn(8, 64, 3, generator=gen)}
+    with torch.no_grad():
+        ref = module(dict(batch))["cosine_feats"]
+        got = module.to(device)({k: v.to(device) for k, v in batch.items()})["cosine_feats"].cpu()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    log(f"[22b] CosineSimAug, MLP {cfg['MLP']['CHANNELS']} without BatchNorm (biases), B = 8, 64 x 128 seeds: "
+        f"card against CPU, max error {err:.3g} of the largest output (limit {SIM_RTOL})")
+    if not err <= SIM_RTOL:
+        fail(f"[22b] CosineSimAug without BatchNorm: {err:.3g} > {SIM_RTOL}")
+
+
+SIDE_TOOLS = (("fused_ab", ("fused_ab",)),
+              ("parity_decomposition --device cuda", ("parity_decomposition", "--device", "cuda")),
+              ("warmup --seed-out", ("warmup", "--seed-out", "cache_seeds")),
+              ("warmup --train", ("warmup", "--train")),
+              ("demo_tracking --workers 0", ("demo_tracking", "--workers", 0)))
+
+
+def start_side_tools(card) -> tuple:
+    """The tool runs whose checks are results, not times, started side by
+    side: phase 22's (c), (d), (f) and phase 19's ``demo_tracking``. ``main``
+    starts them before phase 16, whose checks are results too, and
+    ``finish_side_tools`` waits for them; the seconds and ms they print are
+    taken beside that work. Returns (t0, {name: process})."""
+    log(f"[22] started beside what follows: {', '.join(name for name, _ in SIDE_TOOLS)}; card {card}")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    return time.perf_counter(), {name: subprocess.Popen(tool_cmd(*cmd), cwd=REPO, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.PIPE, text=True, env=env)
+                                 for name, cmd in SIDE_TOOLS}
+
+
+def finish_side_tools(meta, started) -> None:
+    """Phase 22's (c) ``fused_ab`` (trained asset: kernels against plain within
+    1.0 in Success and Precision), (d) ``parity_decomposition --device cuda``
+    (the deployed row within 2.0 of the asset's host numbers), (f)
+    ``warmup --train`` and ``warmup --seed-out`` (refused with its reason),
+    and phase 19's ``demo_tracking``: waits for the processes
+    ``start_side_tools`` started and checks their output."""
+    t0, side = started
+    out, _ = finish_tool("[22c]", "fused_ab", side["fused_ab"], t0)
+    for row in ("eval Success", "eval Precision"):
+        delta = float(table_cells(out, row)[3])
+        if not delta <= 1.0:
+            fail(f"[22c] fused_ab: |delta {row.split()[1]}| {delta} > 1.0")
+    out, _ = finish_tool("[22d]", "parity_decomposition --device cuda", side["parity_decomposition --device cuda"], t0)
+    cells = table_cells(out, "deployed")
+    host = [float(x) for x in cells[1].split("/")]
+    dev = [float(x) for x in cells[2].split("/")]
+    recorded = (meta["host_success"], meta["host_precision"])
+    if not all(abs(x - r) <= 2.0 for pair in (host, dev) for x, r in zip(pair, recorded)):
+        fail(f"[22d] deployed row host {host}, device {dev}: more than 2.0 from the asset's host {recorded}")
+    _, err = finish_tool("[22f]", "warmup --seed-out cache_seeds", side["warmup --seed-out"], t0, expect_rc=None)
+    if "no counterpart" not in err:
+        fail("[22f] warmup --seed-out was refused without its reason")
+    log(f"  refused: {err.strip()}")
+    finish_tool("[22f]", "warmup --train (beside phase 16 and the other side tools)", side["warmup --train"], t0)
+    finish_tool("[19]", "demo_tracking --workers 0 (beside phase 16 and the other side tools)",
+                side["demo_tracking --workers 0"], t0)
+
+
+def ported_modules_phase(points, card):
+    """Phase 22: the JAX package's last modules in the port, the
+    side tools aside (``finish_side_tools``). (a) and (b) in this process;
+    then the tools as a user runs them, ``python3 -m
+    ptt_tpu_torch.tools.<name>``, one at a time, as they time the card: (e)
+    ``compile_diag`` cold into a fresh build directory and warm from
+    ``build/``, (g) ``train_ablate --iters 4`` (six finite rows)."""
+    device = points.device
+    t_phase = time.perf_counter()
+    log(f"[22] the JAX package's last modules in the port; card {card}")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    point_ops_check(points, device)
+    sim_no_bn_check(device)
+    cold = tempfile.mkdtemp(prefix="chip_smoke_build_")
+    try:
+        for tag, args in (("cold", ("--build-dir", cold)), ("warm", ())):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(tool_cmd("compile_diag", *args), cwd=REPO, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=env)
+            finish_tool(f"[22e] {tag}", f"compile_diag {' '.join(args)}".strip(), proc, t0)
+    finally:
+        shutil.rmtree(cold, ignore_errors=True)
+    t0 = time.perf_counter()
+    out, _ = finish_tool("[22g]", "train_ablate --iters 4",
+                         subprocess.Popen(tool_cmd("train_ablate", "--iters", 4), cwd=REPO, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), t0)
+    from ptt_tpu_torch.tools.train_ablate import ROWS
+
+    for name, *_ in ROWS:
+        cells = table_cells(out, name)
+        try:
+            values = [float(cells[i].rstrip("%")) for i in range(1, 9)]
+        except (IndexError, ValueError):
+            values = [float("nan")]
+        if not np.isfinite(values).all():
+            fail(f"[22g] train_ablate: row '{name}' is missing a number: {cells}")
+    log(f"[22] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on a GPU")
@@ -3521,12 +3801,11 @@ def main() -> int:
     adopt_orphans()
     faulthandler.enable()  # a crash in native code prints the Python stack of every thread
     sys.path.insert(0, REPO)
-    from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_config, ptt_large_config, ptt_synth_config
-    from ptt_tpu_torch.convert import npz_metadata, state_dict_from_npz
-    from ptt_tpu_torch.data.synthetic import make_tracklets
+    from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
-    from ptt_tpu_torch.nn import build_network, set_use_kernels
+    from ptt_tpu_torch.nn import set_use_kernels
     from ptt_tpu_torch.ops import _build, fps, sa
+    from ptt_tpu_torch.tools.bench_setup import agreement_setup
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
@@ -3543,11 +3822,7 @@ def main() -> int:
         info = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}.cu ({sec:.1f} s): " + " | ".join(info))
 
-    cfg = ptt_config()
-    model = build_network(cfg["MODEL"], device=device)
-    model.load_state_dict(state_dict_from_npz(ASSET), strict=True)
-    meta = npz_metadata(ASSET)
-    agreement = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 24, "SYNTH_SEED": 11})
+    cfg, model, agreement, meta = agreement_setup(device)
 
     # 2. kernels against plain versions at the forward's shapes
     batch = first_step_batch(agreement, cfg, device)
@@ -3597,11 +3872,11 @@ def main() -> int:
     ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
     n_frames = sum(len(t[0]) for t in bench)
     bench_rate(ev, bench, 1)  # warm-up
-    rates = [bench_rate(ev, bench, 4) for _ in range(3)]
+    rates = [bench_rate(ev, bench, 2) for _ in range(3)]
     set_use_kernels(model, False)
     plain_rate = bench_rate(ev, first_frames(bench, 32), 1)
     set_use_kernels(model, True)
-    log(f"[4] throughput, 8 x 64-frame tracklets, 4 pipelined batches per run: "
+    log(f"[4] throughput, 8 x 64-frame tracklets, 2 pipelined batches per run: "
         f"{', '.join(f'{r:.1f}' for r in rates)} frames/s (median {sorted(rates)[1]:.1f}); "
         f"plain path {plain_rate:.1f} frames/s (one batch cut to 32 frames, graphed, its capture included); "
         f"card {card}")
@@ -3617,8 +3892,8 @@ def main() -> int:
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
     waymo_group_rows = waymo_train_phase(device, card)
     log(f"[time] phases 6, 7 and 14: {time.perf_counter() - t_start:.1f} s")
-    # 21: the train step as one CUDA graph, K = 1 and 4, against the eager step
-    phase21 = train_graph_phase(device, card)
+    # 21: the train step as one CUDA graph, K = 1 and 4, against the eager step, in a fresh process
+    phase21 = phase21_process()
 
     log(f"[time] phase 21: {time.perf_counter() - t_start:.1f} s")
     # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
@@ -3653,12 +3928,17 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[time] phases 11, 12, 18, 13, 20: {time.perf_counter() - t_start:.1f} s")
     bf16_phase(device, card)
-    nuscenes_phase(agreement, phase10, card)
-    log(f"[time] phases 15 and 16: {time.perf_counter() - t_start:.1f} s")
+    side_tools = start_side_tools(card)  # results, not times: beside phase 16, checked before phase 19
+    nuscenes_phase(agreement, phase10, card, beside=" (beside the side tools of phase 22)")
+    finish_side_tools(meta, side_tools)
+    log(f"[time] phases 15, 16 and the side tools beside 16: {time.perf_counter() - t_start:.1f} s")
     # 19. train_bench and demo_tracking
     torch.cuda.empty_cache()
     tools_phase(card)
     gemm_layers(cfg, batch, device, card)
+    # 22. the JAX package's last modules: the point ops, CosineSimAug without BatchNorm, the six tools
+    ported_modules_phase(batch["search_points"], card)
+    log(f"[time] phases 19 and 22: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": []}
     for name, src, replaces in (("fps", "ptt_tpu_torch/csrc/fps.cu", "ptt_tpu/ops/pallas_fps.py:37"),
@@ -3765,4 +4045,6 @@ if __name__ == "__main__":
         sys.exit(point_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--loader-start"]:
         sys.exit(loader_start())
+    if sys.argv[1:2] == ["--phase21"]:  # phase 21's process, started by main
+        sys.exit(phase21_only())
     sys.exit(main())

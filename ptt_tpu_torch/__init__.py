@@ -41,3 +41,11 @@ def resolve_device(device="cuda") -> torch.device:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
     return device
+
+
+def __getattr__(name):
+    if name == "__version__":  # on first use: git runs in a subprocess (version.py)
+        from .version import version
+
+        return version()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -208,7 +208,7 @@ def _reference_key_of_flax(collection: str, segs: list) -> str:
             out.append("mlp" if top == "similarity_module" else "mlp_module")
             sub, leaf = segs[i + 1], segs[i + 2]
             j = sub.split("_")[-1]
-            out.append(f"layer{j}.conv.weight" if sub.startswith("Dense")
+            out.append(f"layer{j}.conv.{'weight' if leaf == 'kernel' else 'bias'}" if sub.startswith("Dense")
                        else f"layer{j}.normlayer.bn.{_reference_bn_leaf(collection, leaf)}")
             return ".".join(out)
         elif seg.startswith("ConvStack"):

@@ -48,7 +48,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..core import geometry as geo
 from ..ops import mesh_ctx
 from ..utils import cuda_graph
@@ -316,13 +316,16 @@ def tracker_graph_key(pcs, has_gt: bool, model) -> tuple:
 
 class DeviceTrackingEvaluator:
     """Pads tracklets to (B, T, N) batches, runs the device tracker, and scores
-    Success/Precision on the host with the numpy metrics.
+    Success/Precision on the host: with the native library's batched float32
+    scorer (``native.box_iou3d_batch``) in lidar coordinates, as the JAX
+    evaluator scores, else (REF_COOR camera) with the numpy metrics.
 
     ``cfg`` holds the ``DATA_CONFIG`` and ``TEST`` sections (``config.ptt_config()``).
     ``model`` is the tracker, already on ``device``. Clouds go up as int16 on the
-    QUANT_SCALE grid. Frames with more than ``max_points`` points are subsampled
-    once on the host; tracklet lengths are padded to a multiple of FRAME_BUCKET
-    and the batch to ``batch_size`` (last tracklet repeated, not scored). The GT
+    QUANT_SCALE grid, or as float32 with ``quantize=False``. Frames with more
+    than ``max_points`` points are subsampled once on the host; tracklet
+    lengths are padded to a multiple of FRAME_BUCKET and the batch to
+    ``batch_size`` (last tracklet repeated, not scored). The GT
     REF_BOX modes also upload the (B, T, 4) ground truth, padded frames with the
     last box. With ``output_dir``, every scored frame is a line of
     ``<output_dir>/final_result/data/<result_file_name()>``, as the host evaluator
@@ -337,9 +340,10 @@ class DeviceTrackingEvaluator:
     """
 
     def __init__(self, cfg: dict, model, max_points: int = 16384, batch_size: int = 8,
-                 seed: int = 1, device="cuda", output_dir=None):
+                 seed: int = 1, device="cuda", output_dir=None, quantize: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.quantize = bool(quantize)
         self.max_points = int(max_points)
         self.batch_size = int(batch_size)
         self.seed = seed
@@ -349,6 +353,8 @@ class DeviceTrackingEvaluator:
         self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
         self.generator = torch.Generator(device=self.device)  # reseeded at every dispatch
         self.evaluator = Evaluator(ref_coord=str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")))
+        # the C++ scorer takes the lidar BEV footprint
+        self._native_score = str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")).lower() == "lidar"
         self._fp = None
         self._tracklet_num = 0
         if output_dir is not None:
@@ -373,13 +379,13 @@ class DeviceTrackingEvaluator:
 
     def _pad_tracklet(self, pcs, T_pad, n_pad):
         rng = np.random.default_rng(self.seed)
-        out = np.zeros((T_pad, n_pad, 3), np.int16)
+        out = np.zeros((T_pad, n_pad, 3), np.int16 if self.quantize else np.float32)
         counts = np.zeros((T_pad,), np.int32)
         for t, pc in enumerate(pcs):
             pc = np.asarray(pc, np.float32)
             if pc.shape[0] > n_pad:
                 pc = pc[rng.choice(pc.shape[0], n_pad, replace=False)]
-            out[t, : pc.shape[0]] = np.clip(np.round(pc / QUANT_SCALE), -32768, 32767)
+            out[t, : pc.shape[0]] = np.clip(np.round(pc / QUANT_SCALE), -32768, 32767) if self.quantize else pc
             counts[t] = pc.shape[0]
         return out, counts
 
@@ -408,8 +414,9 @@ class DeviceTrackingEvaluator:
         return boxes, done, tracklets
 
     def _pack(self, tracklets) -> dict:
-        """The batch as host tensors: pcs (B, T_pad, n_pad, 3) int16, counts,
-        init_boxes, wlhs and, for the GT REF_BOX modes, gt_boxes. For a GPU they
+        """The batch as host tensors: pcs (B, T_pad, n_pad, 3) int16 (float32
+        without ``quantize``), counts, init_boxes, wlhs and, for the GT REF_BOX
+        modes, gt_boxes. For a GPU they
         are pinned, so that their copies to the device are asynchronous: PyTorch's
         host allocator hands a pinned block out again only once the copies that
         read it have run, so the next batch's packing never overwrites this
@@ -425,7 +432,8 @@ class DeviceTrackingEvaluator:
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
-        batch = {"pcs": zeros(B, T_pad, n_pad, 3, dtype=torch.int16), "counts": zeros(B, T_pad, dtype=torch.int32),
+        pcs_dtype = torch.int16 if self.quantize else torch.float32
+        batch = {"pcs": zeros(B, T_pad, n_pad, 3, dtype=pcs_dtype), "counts": zeros(B, T_pad, dtype=torch.int32),
                  "init_boxes": zeros(B, 4), "wlhs": zeros(B, 3),
                  "gt_boxes": zeros(B, T_pad, 4) if self.needs_gt else None}
         pcs_arr, counts, init_boxes, wlhs = (batch[k].numpy() for k in ("pcs", "counts", "init_boxes", "wlhs"))
@@ -526,8 +534,11 @@ class DeviceTrackingEvaluator:
                 for t in range(len(pcs))
             ]
             with self.evaluator:
-                for gt, pred in zip(gt_boxes, results):
-                    self.evaluator.update_iou(gt, pred)
+                if self._native_score:
+                    self._score_native(boxes_out[b, : len(pcs)], gt_boxes)
+                else:
+                    for gt, pred in zip(gt_boxes, results):
+                        self.evaluator.update_iou(gt, pred)
             # 1-based tracklet numbers, counted before writing, as the host
             # evaluator's, so the two loops' result files line up row by row
             self._tracklet_num += 1
@@ -541,6 +552,21 @@ class DeviceTrackingEvaluator:
                 self._fp.flush()
             all_results.append(results)
         return all_results
+
+    def _score_native(self, boxes, gt_boxes) -> None:
+        """One tracklet's (T, 4) predicted boxes against its ground truth by
+        the batched C++ scorer: [x, y, z, w, l, h, yaw] rows in float32, the
+        first box's size for every prediction, as the JAX evaluator scores."""
+        gt7 = np.stack([np.concatenate([self.box_to_vec(g)[:3], np.asarray(g.wlh, np.float32),
+                                        self.box_to_vec(g)[3:]]) for g in gt_boxes])
+        wlh = np.broadcast_to(np.asarray(gt_boxes[0].wlh, np.float32), (len(boxes), 3))
+        pred7 = np.concatenate([boxes[:, :3], wlh, boxes[:, 3:4]], axis=1).astype(np.float32)
+        ious, dists = native.box_iou3d_batch(gt7, pred7)
+        for overlap, dist in zip(ious, dists):
+            for acc in (self.evaluator.Success_main, self.evaluator.Success_batch):
+                acc.add_overlap(float(overlap))
+            for acc in (self.evaluator.Precision_main, self.evaluator.Precision_batch):
+                acc.add_accuracy(float(dist))
 
     def summary(self) -> dict:
         return {

@@ -5,9 +5,10 @@ Per tracklet: frame 0 is the given box; every later frame crops the search
 region around the reference box (TEST.REF_BOX), fuses the template from the
 frames TEST.SHAPE_AGGREGATION names around their predicted boxes, runs the
 network and decodes the best proposal back to the world frame
-(``get_box_by_offset``). The crops and resamples are the numpy code of
-``core/geometry.py`` with its reseeded RNG, so they are the JAX host loop's
-exactly; the forward and the argmax over the proposals run on the device, as
+(``get_box_by_offset``). The search crop is the native library's
+``crop_canonical`` (``native/``), the template crops and the resamples the
+numpy code of ``core/geometry.py`` with its reseeded RNG, as in the JAX host
+loop; the forward and the argmax over the proposals run on the device, as
 one replay of a captured CUDA graph on the GPU (``TrackStep``, the JAX
 package's jitted ``track_step``; the forward itself under a point group, whose
 gathers run from the host), and 5 floats come back a frame. Under a point
@@ -24,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..core import geometry as geo
 from ..ops import mesh_ctx
 from ..utils import cuda_graph, timer
@@ -162,11 +163,17 @@ class TrackingEvaluator:
     def _prepare_search(self, this_pc, this_box, results, gt_boxes, frame_id):
         ref_box = {"PREVIOUS_RESULT": results[-1], "PREVIOUS_GT": gt_boxes[frame_id - 1],
                    "CURRENT_GT": this_box}[self.ref_mode]
-        # crop_center_pc with the gt box, as the reference evaluator calls it:
-        # the tight crop gets the gt branch's 0.6 * length of slack
-        pts, _, _ = geo.crop_center_pc(this_pc, ref_box, gt_box=this_box,
-                                       offset=float(self.data_cfg.get("SEARCH_BB_OFFSET", 0.0)),
-                                       scale=float(self.data_cfg.get("SEARCH_BB_SCALE", 1.25)))
+        # crop_center_pc with the gt box, as the reference evaluator calls it,
+        # by the native library as the JAX host loop crops: the loose
+        # world-frame pre-crop (2 * offset, 4 * scale), then the canonical crop
+        # with the gt branch's 0.6 * length of slack. The slack can reach past
+        # the pre-crop for long, low boxes, so the pre-crop bounds membership.
+        offset = float(self.data_cfg.get("SEARCH_BB_OFFSET", 0.0))
+        scale = float(self.data_cfg.get("SEARCH_BB_SCALE", 1.25))
+        pre = geo.crop_pc(this_pc, ref_box, offset=2 * offset, scale=4 * scale)
+        yaw = np.arctan2(ref_box.rotation_matrix[1, 0], ref_box.rotation_matrix[0, 0])
+        pts, _ = native.crop_canonical(pre, np.array([*ref_box.center, yaw], np.float32), ref_box.wlh,
+                                       offset + 0.6 * float(np.asarray(this_box.wlh)[1]), scale)
         return ref_box, geo.regularize_pc(pts, int(self.data_cfg["SEARCH_INPUT_SIZE"]), istrain=False)
 
     def _prepare_template(self, pcs, results, frame_id):

@@ -1,7 +1,8 @@
 """P2B cosine-similarity feature augmentation (the JAX package's
 ``nn/similarity.py``): for every (template seed i, search seed j) pair the
 descriptor [cos(f_i, f_j) | template_xyz_i | template_feats_i] goes through a
-shared MLP, is max-pooled over the template axis and projected.
+shared MLP, is max-pooled over the template axis and projected. With
+``MLP.BN: False`` the MLP's layers carry biases.
 """
 
 from __future__ import annotations
@@ -15,9 +16,7 @@ from .layers import ConvStack, SharedMLP, matmul
 class CosineSimAug(nn.Module):
     def __init__(self, model_cfg: dict):
         super().__init__()
-        if not model_cfg["MLP"]["BN"]:
-            raise NotImplementedError("CosineSimAug without BatchNorm is not ported yet")
-        self.mlp = SharedMLP(model_cfg["MLP"]["CHANNELS"], bn=True)
+        self.mlp = SharedMLP(model_cfg["MLP"]["CHANNELS"], bn=bool(model_cfg["MLP"]["BN"]))
         self.conv = ConvStack(model_cfg["CONV"]["CHANNELS"], bn=model_cfg["CONV"]["BN"])
 
     def forward(self, batch: dict) -> dict:
@@ -38,7 +37,16 @@ class CosineSimAug(nn.Module):
             proj_t = matmul(torch.cat([template_xyz, template_feats], dim=-1), kernel[1:])
             return sim[..., None] * kernel[0] + proj_t[:, :, None, :]
 
-        fused = self.mlp(None, first_linear_apply=first_linear)
+        if self.mlp.bn:
+            fused = self.mlp(None, first_linear_apply=first_linear)
+        else:
+            # layer 0's bias is not in the decomposed form: the reference's
+            # concat path, the same function without the saving
+            B, n1, C = template_feats.shape
+            n2 = search_feats.shape[1]
+            fused = self.mlp(torch.cat([sim[..., None],
+                                        template_xyz[:, :, None, :].expand(B, n1, n2, 3),
+                                        template_feats[:, :, None, :].expand(B, n1, n2, C)], dim=-1))
         fused = fused.amax(dim=1)  # max over the template axis -> (B, n2, C')
         out["cosine_feats"] = self.conv(fused)
         return out

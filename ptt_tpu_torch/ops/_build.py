@@ -5,9 +5,10 @@ into a shared library, all of them started together, then loaded with ctypes;
 pointers and the stream are passed as integers. (No source includes PyTorch's
 headers: a file that does takes minutes to compile, these take seconds.)
 
-Libraries go to ``build/ptt_tpu_torch/`` beside the package, named by a hash of
-source, the shared headers (``csrc/*.cuh``) and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+Libraries go to ``build/ptt_tpu_torch/`` beside the package (``set_build_dir``
+names another directory), named by a hash of source, the shared headers
+(``csrc/*.cuh``) and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. The native host library (``native/``) is built there too.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ _FUNCTIONS = {
     "group_csr_ranges": ("group", [_i, ctypes.POINTER(_i)]),
 }
 
-_loaded: dict = {}
+_loaded: dict = {}  # entry point -> its ctypes function; "native" -> the host library
 build_log: dict = {}  # name -> (seconds, nvcc output) of the builds this process ran
 
 
@@ -67,6 +68,16 @@ def _nvcc() -> str:
     if not nvcc.exists():
         raise RuntimeError(f"nvcc not found at {nvcc}; the CUDA kernels cannot be built")
     return str(nvcc)
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (an empty directory gives a
+    cold build). Raises once this process has loaded a library, whose
+    functions would otherwise come from the old directory."""
+    global BUILD_DIR
+    if _loaded:
+        raise RuntimeError(f"set_build_dir({str(path)!r}): libraries are already loaded from {BUILD_DIR}")
+    BUILD_DIR = Path(path)
 
 
 def _target(name: str) -> Path:

@@ -57,22 +57,32 @@ def _sq_norm(p: torch.Tensor) -> torch.Tensor:
     return (x * x + y * y) + z * z
 
 
-def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+def square_distance(src: torch.Tensor, dst: torch.Tensor, exact: bool = False) -> torch.Tensor:
     """Pairwise squared distance in the matmul form |a|^2 + |b|^2 - 2ab, clamped
     at 0, in float32: (B, N, C) x (B, M, C) -> (B, N, M). For points (C = 3)
     every sum is spelled out in the fixed order above; wider rows (the 'ffps'
     feature space) use a float32 matrix product, as the JAX package does.
-    Under a point group the ``src`` rows split (for C = 3 bit-equal; a matrix
-    product of fewer rows may take another kernel on the GPU)."""
+    ``exact``: the reference's elementwise ``sum((a - b) ** 2)`` instead, the
+    channels summed left to right, ``((d0*d0 + d1*d1) + d2*d2)`` for points.
+    Under a point group the ``src`` rows split (for C = 3 and the exact form
+    bit-equal; a matrix product of fewer rows may take another kernel on the
+    GPU)."""
+    fn = functools.partial(_square_distance_raw, exact=exact)
     group = _point_group_for(src.shape[1])
     if group is not None:
-        return mesh_ctx.shard_pointwise(_square_distance_raw, group, 1, 1)(src, dst)
-    return _square_distance_raw(src, dst)
+        return mesh_ctx.shard_pointwise(fn, group, 1, 1)(src, dst)
+    return fn(src, dst)
 
 
-def _square_distance_raw(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+def _square_distance_raw(src: torch.Tensor, dst: torch.Tensor, exact: bool = False) -> torch.Tensor:
     src = src.float()
     dst = dst.float()
+    if exact:
+        d = src[:, :, None, :] - dst[:, None, :, :]
+        d2 = d[..., 0] * d[..., 0]
+        for c in range(1, d.shape[-1]):
+            d2 = d2 + d[..., c] * d[..., c]
+        return d2
     if src.shape[-1] != 3:
         cross = torch.matmul(src, dst.transpose(1, 2))
         d2 = ((src * src).sum(-1)[:, :, None] + (dst * dst).sum(-1)[:, None, :]) - 2.0 * cross
@@ -181,14 +191,54 @@ def _ball_query_raw(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: tor
     return idx.int()
 
 
+def uniform_resample_idx(idx: torch.Tensor, generator: torch.Generator | None = None):
+    """Each ball-query row refilled from its unique members (the reference's
+    QueryAndGroup(sample_uniformly=True), the JAX package's
+    ``uniform_resample_idx``): the row's sorted unique indices first, every
+    later slot one of them drawn uniformly from ``generator``, which lives on
+    ``idx``'s device. One sort, a stable compaction and one draw for all rows.
+    (B, M, ns) int -> (idx (B, M, ns) int32, unique_cnt (B, M) float32)."""
+    ns = idx.shape[-1]
+    srt = torch.sort(idx.long(), dim=-1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    cnt = first.sum(dim=-1)
+    # the unique values to the front: a stable sort on their rank among the
+    # first occurrences, ns (past the end) for the repeats
+    rank = torch.where(first, torch.cumsum(first, dim=-1) - 1, ns)
+    unique = torch.gather(srt, -1, torch.argsort(rank, dim=-1, stable=True))
+    u = torch.rand(idx.shape, generator=generator, device=idx.device)
+    r = (u * cnt[..., None]).long().clamp_max(cnt[..., None] - 1)
+    fill = torch.gather(unique, -1, r)
+    slots = torch.arange(ns, device=idx.device)
+    out = torch.where(slots < cnt[..., None], unique, fill)
+    return out.int(), cnt.float()
+
+
 def query_and_group(radius, nsample, xyz, new_xyz, features=None, use_xyz=True,
-                    normalize_xyz=False):
+                    normalize_xyz=False, sample_uniformly=False, ret_unique_cnt=False, generator=None):
     """Ball query + grouping. Returns (grouped (B, M, ns, [3+]C), grouped_xyz
-    (B, M, ns, 3) relative to the centers, idx (B, M, ns))."""
+    (B, M, ns, 3) relative to the centers, idx (B, M, ns)), and with
+    ``ret_unique_cnt`` each row's unique count (B, M) after them.
+    ``sample_uniformly`` refills the rows (``uniform_resample_idx``) from
+    ``generator``; ``ret_unique_cnt`` needs it, as the reference asserts."""
+    if ret_unique_cnt:
+        assert sample_uniformly, "ret_unique_cnt requires sample_uniformly"
     idx = ball_query(radius, nsample, xyz, new_xyz)
+    unique_cnt = None
+    if sample_uniformly:
+        assert generator is not None, "sample_uniformly needs a torch.Generator"
+        idx, unique_cnt = uniform_resample_idx(idx, generator)
+    grouped = _grouped(radius, xyz, new_xyz, features, use_xyz, normalize_xyz, idx)
+    return (*grouped, unique_cnt) if ret_unique_cnt else grouped
+
+
+def _grouped(radius, xyz, new_xyz, features, use_xyz, normalize_xyz, idx):
     grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
-    if normalize_xyz:  # bf16 points (mixed precision): by the radius rounded to bf16, as jnp takes a Python float
-        grouped_xyz = grouped_xyz / (radius if grouped_xyz.dtype == torch.float32 else grouped_xyz.new_tensor(radius))
+    if normalize_xyz:  # bf16 points (mixed precision): by the radius rounded to bf16, as jnp takes a Python float;
+        # filled on the device, so that a CUDA graph can capture it (a host copy cannot be captured)
+        grouped_xyz = grouped_xyz / (radius if grouped_xyz.dtype == torch.float32 else
+                                     torch.full((), radius, dtype=grouped_xyz.dtype, device=grouped_xyz.device))
     if features is None:
         if not use_xyz:
             raise ValueError("cannot group with neither features nor xyz")
@@ -197,6 +247,19 @@ def query_and_group(radius, nsample, xyz, new_xyz, features=None, use_xyz=True,
     if use_xyz:
         return torch.cat([grouped_xyz, grouped_feats], dim=-1), grouped_xyz, idx
     return grouped_feats, grouped_xyz, idx
+
+
+def group_all(xyz: torch.Tensor, features: torch.Tensor | None = None, use_xyz: bool = True):
+    """The whole cloud as one region (the reference's GroupAll, the SA stage
+    with npoint None), channel-last: (grouped (B, 1, N, [3+]C),
+    grouped_xyz (B, 1, N, 3)), the coordinates raw, not centered."""
+    grouped_xyz = xyz[:, None]
+    if features is None:
+        return grouped_xyz, grouped_xyz
+    grouped_feats = features[:, None]
+    if use_xyz:
+        return torch.cat([grouped_xyz, grouped_feats], dim=-1), grouped_xyz
+    return grouped_feats, grouped_xyz
 
 
 def knn(k: int, query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,12 @@ and run on the GPU unless ``--device cpu`` is given. Each CLI logs, as its last
 line, ``summary`` and a JSON object of its results and the kernel launches it
 made. With ``--launcher pytorch`` each is one rank of the processes ``torchrun``
 started (``launch``).
+
+The JAX package's other tools are modules here too, each with ``main(argv)``
+and ``--device`` (default cuda): ``train_bench``, ``demo_tracking``,
+``convert_checkpoint``, ``fused_ab``, ``parity_decomposition``,
+``compile_diag``, ``warmup`` and ``train_ablate``; ``bench_setup`` holds the
+workloads they share.
 """
 
 from __future__ import annotations

@@ -156,12 +156,13 @@ def test_eval_one_epoch_and_device_files_line_up(trained, tmp_path):
 def test_host_evaluator_reproduces_the_asset(trained):
     """On the 8 x 24 agreement tracklets the host evaluator reproduces the
     asset's recorded host Success/Precision (57.94/84.43, the JAX host loop
-    with its C++ crop) within 0.5. That is float noise here: a box that moves
-    by ~1e-6 can move a point across the crop's edge, the crop's size changes,
-    and the reseeded resample then picks other points. The JAX host loop with
-    its own numpy crop, which computes the same crop, reads 58.20/84.64 on the
-    same frames; the port on the CPU 57.66/84.32, apart from the JAX run in 2
-    of the 8 tracklets from one such frame on."""
+    with its C++ crop) within 0.5. Both packages now crop the search region
+    with the same C++ library (``native.crop_canonical`` after the numpy
+    pre-crop); the forwards still differ by float noise, and a box that moves
+    by ~1e-6 can move a point across the crop's edge, the crop's size
+    changes, and the reseeded resample then picks other points. The port on
+    the CPU reads 58.10/84.45 (57.66/84.32 with the numpy crop it used
+    before); the JAX host loop with its own numpy crop reads 58.20/84.64."""
     model = trained[3]
     meta = npz_metadata(ASSET)
     tracklets = make_tracklets({"NUM_TRACKLETS": 8, "FRAMES_PER_TRACKLET": 24, "SYNTH_SEED": 11})

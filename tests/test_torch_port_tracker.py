@@ -1,6 +1,7 @@
 """The port's device tracker (``ptt_tpu_torch.eval.device_loop``), synthetic data
 and metrics, held against the JAX package on the CPU."""
 
+import functools
 from pathlib import Path
 
 import jax
@@ -182,7 +183,11 @@ def _yaw(box):
     return np.arctan2(box.rotation_matrix[1, 0], box.rotation_matrix[0, 0])
 
 
-def test_tracker_loop_matches_jax_with_const_model():
+@functools.lru_cache(maxsize=1)
+def _const_model_runs():
+    """The JAX and the port's device evaluators over the same 2 x 8 synthetic
+    frames with the constant-offset model: (JAX tracklets, JAX evaluator, its
+    boxes, the port's tracklets, evaluator and boxes)."""
     jcfg = cfg_from_yaml_file("tools/cfgs/kitti_models/ptt.yaml")
     data_cfg = {"NUM_TRACKLETS": 2, "FRAMES_PER_TRACKLET": 8}
     ds = SyntheticTrackingDataset(dict(data_cfg), training=False)
@@ -192,23 +197,36 @@ def test_tracker_loop_matches_jax_with_const_model():
     jev = jdl.DeviceTrackingEvaluator(jcfg, JaxConstOffsetModel(), {}, max_points=2048, batch_size=2)
     tev = tdl.DeviceTrackingEvaluator(ptt_config(), TorchConstOffsetModel(), max_points=2048,
                                       batch_size=2, device="cpu")
-    jres = jev.track_batch(jtracklets)
-    tres = tev.track_batch(tracklets)
+    return jtracklets, jev, jev.track_batch(jtracklets), tracklets, tev, tev.track_batch(tracklets)
+
+
+def test_tracker_loop_matches_jax_with_const_model():
+    """Both evaluators score with their float32 C++ scorer (``native``), the
+    same code: the boxes agree to 1e-5 and the summaries to 1e-6."""
+    _, jev, jres, _, tev, tres = _const_model_runs()
     for jt, tt in zip(jres, tres):
         assert len(jt) == len(tt) == 8
         for jb, tb in zip(jt, tt):
             np.testing.assert_allclose(tb.center, jb.center, rtol=0, atol=1e-5)
             assert abs((_yaw(tb) - _yaw(jb) + np.pi) % (2 * np.pi) - np.pi) < 1e-5
-    # the JAX evaluator scores with its float32 C++ scorer where built; score its
-    # boxes with the numpy metrics the port copies, as the port does
-    ref = jmetrics.Evaluator(ref_coord="lidar")
-    for (_, gts, _), jt in zip(jtracklets, jres):
-        for gt, jb in zip(gts, jt):
-            ref.update_iou(gt, jb)
-    ts = tev.summary()
-    assert ts["frames"] == ref.Success_main.count == 16
-    assert ts["success"] == pytest.approx(ref.Success_main.average, abs=1e-6)
-    assert ts["precision"] == pytest.approx(ref.Precision_main.average, abs=1e-6)
+    ts, js = tev.summary(), jev.summary()
+    assert ts["frames"] == js["frames"] == 16
+    assert ts["success"] == pytest.approx(js["success"], abs=1e-6)
+    assert ts["precision"] == pytest.approx(js["precision"], abs=1e-6)
+
+
+def test_tracker_loop_numpy_scores_match_jax():
+    """The numpy metrics (the scorer for REF_COOR camera) on each package's
+    boxes agree to 1e-6."""
+    jtracklets, _, jres, tracklets, _, tres = _const_model_runs()
+    ref, got = jmetrics.Evaluator(ref_coord="lidar"), tmetrics.Evaluator(ref_coord="lidar")
+    for (_, jgts, _), jt, (_, gts, _), tt in zip(jtracklets, jres, tracklets, tres):
+        for jgt, jb, gt, tb in zip(jgts, jt, gts, tt):
+            ref.update_iou(jgt, jb)
+            got.update_iou(gt, tb)
+    assert got.Success_main.count == ref.Success_main.count == 16
+    assert got.Success_main.average == pytest.approx(ref.Success_main.average, abs=1e-6)
+    assert got.Precision_main.average == pytest.approx(ref.Precision_main.average, abs=1e-6)
 
 
 def test_other_modes_raise():
