@@ -145,7 +145,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      parameters after 1, 4 and 5 steps within 10 x what the eager steps again
      differ by (``torch.gather``'s backward scatters with atomics), 5 distinct
      losses, 2 FPS + 7 + 7 group launches a replay; (b) one replay of the K =
-     4 graph against 4 replays of the one-step graph and 4 eager steps, its
+     4 graph (in the one-step graph's pool) against 4 replays of the one-step
+     graph and 4 eager steps, its
      table of hyperparameters equal to the optimizer's schedules; (c) ms a
      step of the Trainer's loop over pre-made batches, eager and graphed, K =
      1 and 4, alternated, each under torch.profiler (device idle share, the
@@ -155,9 +156,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      (one K = 4 dispatch, the tail through the one-step graph), two epochs
      torch.equal to the eager Trainer's under
      deterministic algorithms, exact counts and each step's own loss,
-     checkpoints and a resumed epoch; (f, with
-     phases 18a and 20c) under a process group the step stays eager and says
-     so. Phases 7, 12, 14, 15 and 18a's one process take the eager step
+     checkpoints and a resumed epoch; (f) one pool for all of a Trainer's
+     train graphs (``utils/cuda_graph.py`` ``CaptureContext``): ptt_large.yaml
+     at STEPS_PER_DISPATCH = 4 with a tail of 2, two epochs, bit-equal to the
+     eager Trainer under deterministic algorithms, its peak reserved memory
+     within 1.15 x a K = 1 graph's; ptt_waymo.yaml at K = 2 with a tail of 1,
+     finite, 2 FPS + 7 + 7 group launches a step, step 0 equal to the eager
+     Trainer's and later steps within the witness, its peak within 1.15 x
+     21d's; ptt_synth.yaml under a BatchNorm schedule that moves every epoch,
+     one capture per ``TrainStep``, bit-equal to eager; every graph of a
+     Trainer in one pool. With phases 18a and 20c: under a process group the
+     step stays eager and says so. Phases 7, 12, 14, 15 and 18a's one process take the eager step
      (``graph=False``) as before; the Trainer (7, 21e), the CLIs and
      ``train_bench`` take the graphed one. The phase runs in a process of its
      own (``chip_smoke.py --phase21``): in this one, after phases 1-14, 21c's
@@ -1890,11 +1899,11 @@ def train_phase(cfg, device, card):
 
     # time per step: one pre-made batch, each step waited for (as before); then the Trainer's loop on one
     # pre-made batch against the loader, alternated
-    premade_ms = median_step_ms(step, model, opt, [batches[0]] * 10)
+    premade_ms = median_step_ms(step, model, opt, [batches[0]] * 6)
     premade, fed = premade_vs_loader("[7]", step, model, opt, batches[0], loader, 6, card)
     plain_ms = median_step_ms(step, plain_model, plain_opt, [batches[0]] * 3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[7] train step at B = {TRAIN_B}, median of 10 after warm-up, each waited for: {premade_ms:.1f} ms on one "
+    log(f"[7] train step at B = {TRAIN_B}, median of 6 after warm-up, each waited for: {premade_ms:.1f} ms on one "
         f"pre-made batch; plain path {plain_ms:.1f} ms; peak device memory {peak:.1f} GiB; card {card}")
     profile_train(step, model, opt, batches[0])
     del plain_model, plain_opt
@@ -2819,6 +2828,16 @@ def traced_run(fn, prelude) -> dict:
     return out
 
 
+class Scalars:
+    """A tensorboard writer that keeps the scalars it is given."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, step):
+        self.rows.append((tag, float(value), step))
+
+
 def graph_entry(steps):
     """The one captured graph of a ``TrainStep``."""
     entries = steps.graphs.values()
@@ -2833,7 +2852,8 @@ def train_graph_phase(device, card):
     kernels. (a) 5 replays of the one-step graph against 5 eager steps from
     one state on the same batches, beside the eager steps again (the
     witness); launches a replay, by the wrappers' counts and by the device;
-    (b) one replay of the K = 4 graph against 4 replays of the one-step graph
+    (b) one replay of the K = 4 graph (captured in the one-step graph's
+    pool, as a Trainer's are) against 4 replays of the one-step graph
     and 4 eager steps, and its table of hyperparameters against the
     optimizer's schedules; (c) ms a step of the Trainer's loop over pre-made
     batches, eager and graphed, K = 1 and 4, alternated, each also under
@@ -2841,7 +2861,8 @@ def train_graph_phase(device, card):
     bf16 step against an eager one, and a graphed ptt_waymo.yaml step with
     its peak memory; (e) the Trainer at STEPS_PER_DISPATCH = 4 over 5 steps an
     epoch (4 and a tail of 1), two epochs graphed and eager under
-    deterministic algorithms, checkpoints and a resumed epoch. Returns the
+    deterministic algorithms, checkpoints and a resumed epoch; (f)
+    ``shared_pool_phase``. Returns the
     numbers."""
     from ptt_tpu_torch.config import config_by_path, ptt_synth_config
     from ptt_tpu_torch.convert import state_dict_from_npz
@@ -2852,7 +2873,7 @@ def train_graph_phase(device, card):
     from ptt_tpu_torch.train.optim import Optimizer
     from ptt_tpu_torch.train.train_step import BatchUploader, make_multi_step, make_train_step, stack_batches
     from ptt_tpu_torch.train.trainer import Trainer, pipelined_steps
-    from ptt_tpu_torch.utils.cuda_graph import read_launches
+    from ptt_tpu_torch.utils.cuda_graph import CaptureContext, read_launches
 
     t_phase = time.perf_counter()
     cfg = ptt_synth_config()
@@ -2883,7 +2904,8 @@ def train_graph_phase(device, card):
     eager_step = make_train_step(model_cfg, device=device, graph=False)
     eager = train_runs(eager_step, *fresh(), batches[:5])
     witness = [train_runs(eager_step, *fresh(), batches[:5]) for _ in range(2)]
-    step1 = make_train_step(model_cfg, device=device)
+    context = CaptureContext(device)  # one pool and stream for step1 and multi4, as a Trainer's two steps
+    step1 = make_train_step(model_cfg, device=device, context=context)
     if step1.steps.mode != "on":
         fail(f"[21a] the train step's graph mode is {step1.steps.mode!r} on one GPU")
     t0 = time.perf_counter()
@@ -2924,8 +2946,9 @@ def train_graph_phase(device, card):
         fail("[21a] under deterministic algorithms the graphed steps differ from the eager ones")
     det_step.steps.close()
 
-    # (b) one K = 4 dispatch against 4 replays of the one-step graph and 4 eager steps
-    multi4 = make_multi_step(model_cfg, 4, device=device)
+    # (b) one K = 4 dispatch against 4 replays of the one-step graph and 4 eager steps; the K = 4 graph is the
+    # context's second: its first dispatch is its capture and a replay, no eager run
+    multi4 = make_multi_step(model_cfg, 4, device=device, context=context)
     reset()
     t0 = time.perf_counter()
     multi4(model, opt, stack_batches([batches[5]] * 4))
@@ -2944,13 +2967,16 @@ def train_graph_phase(device, card):
     k1 = train_runs(step1, model, opt, batches[:4], marks=(4,))
     eager4 = (eager[0][:4], {4: eager[1][4]})
     witness4 = [(w[0][:4], {4: w[1][4]}) for w in witness]
-    log(f"[21b] the K = 4 graph: first dispatch {first4:.2f} s (capture {g4.capture_s:.2f} s), pool "
-        f"{g4.pool_bytes() / 2**20:.1f} MB, launches a replay {g4.launches}; its table of updates 0-3 (lr, b1, 1 - b1, "
+    log(f"[21b] the K = 4 graph: first dispatch {first4:.2f} s (capture {g4.capture_s:.2f} s, then a replay), pool "
+        f"{g4.pool_bytes() / 2**20:.1f} MB shared with the one-step graph (one pool {tuple(g4.pool) == tuple(g1.pool)}), "
+        f"launches a replay {g4.launches}; its table of updates 0-3 (lr, b1, 1 - b1, "
         f"corrections) {table.tolist()}, equal to the optimizer's schedules {torch.equal(table, want)}")
     out["b_vs_eager"] = witness_check("[21b] one K = 4 replay against 4 eager steps:", k4, eager4, witness4)
     out["b_vs_k1"] = witness_check("[21b] one K = 4 replay against 4 replays of the one-step graph:", k4, k1, witness4)
     if not torch.equal(table, want):
         fail("[21b] the K = 4 graph's table is not the optimizer's schedules")
+    if tuple(g4.pool) != tuple(g1.pool):
+        fail("[21b] the K = 4 graph is not in the one-step graph's pool")
     if g4.launches != (8, 0, 28, 28):
         fail(f"[21b] launches a K = 4 replay {g4.launches}, not 4 x (2 FPS + 7 + 7 group)")
 
@@ -3030,14 +3056,14 @@ def train_graph_phase(device, card):
     t0 = time.perf_counter()
     wlosses = [float(wstep(wmodel, wopt, b)["loss"]) for b in wbatches]
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     gw = graph_entry(wstep.steps).graph
     log(f"[21d] ptt_waymo.yaml graph, B = {TRAIN_B}: losses {[f'{x:.4f}' for x in wlosses]} (the first dispatch, "
         f"then a replay) in {wall:.1f} s, capture {gw.capture_s:.2f} s, pool {gw.pool_bytes() / 2**30:.2f} GiB, "
-        f"launches a replay {gw.launches}; peak device memory {peak / 2**30:.2f} GiB (phase 14's line gives its "
-        f"eager steps'); card {card}")
-    out["d_waymo"] = {"losses": wlosses, "peak_gib": peak / 2**30, "pool_gib": gw.pool_bytes() / 2**30,
-                      "capture_s": gw.capture_s}
+        f"launches a replay {gw.launches}; peak device memory {peak / 2**30:.2f} GiB allocated, "
+        f"{peak_reserved / 2**30:.2f} GiB reserved (phase 14's line gives its eager steps'); card {card}")
+    out["d_waymo"] = {"losses": wlosses, "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+                      "pool_gib": gw.pool_bytes() / 2**30, "capture_s": gw.capture_s}
     if not all(np.isfinite(wlosses)) or gw.launches != (2, 0, 7, 7):
         fail("[21d] the graphed ptt_waymo step is not finite or does not launch 2 FPS + 7 + 7 group a step")
     wstep.steps.close()
@@ -3061,13 +3087,6 @@ def train_graph_phase(device, card):
     logger = logging.getLogger("chip_smoke.21e")
     logger.setLevel(logging.INFO)
     logger.addHandler(Lines())
-
-    class Scalars:
-        def __init__(self):
-            self.rows = []
-
-        def add_scalar(self, tag, value, step):
-            self.rows.append((tag, float(value), step))
 
     def trainer(total_epochs, scalars, run, graph=True):
         net = build_network(model_cfg, device=device, train=True)
@@ -3140,8 +3159,214 @@ def train_graph_phase(device, card):
     gc.collect()
     torch.cuda.empty_cache()
     out["e"] = {"epochs": e12, "epoch3": e3, "launches": e_launches, "eager_equal": det_equal, "pool_mb": pool_mb}
+    out["f"] = shared_pool_phase(device, card, weights, out["d_waymo"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[21] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+POOL_PEAK_RATIO = 1.15  # a Trainer's graphs at K > 1 with the epoch tail, against one graph's peak reserved memory
+
+
+def shared_pool_phase(device, card, weights, waymo_ref) -> dict:
+    """Phase 21f: every train graph of a Trainer in one ``CaptureContext``
+    (one pool, one stream). (1) ptt_large.yaml at B = 48, seeded init,
+    STEPS_PER_DISPATCH = 4 over 6 steps an epoch (a K = 4 dispatch and a tail
+    of 2), two epochs, graphed and eager under deterministic algorithms: every
+    step's metrics, the parameters, the BatchNorm statistics and Adam's
+    moments torch.equal; its peak reserved memory beside a K = 1 graph's in
+    this call, at most POOL_PEAK_RATIO x. (2) ptt_waymo.yaml at B = 48 (8192 /
+    2048 points), seeded init, K = 2 over 3 steps (a tail of 1), graphed: no
+    out-of-memory error, finite, 2 FPS + 0 SA + 7 + 7 group launches a step,
+    step 0's metrics equal to the eager Trainer's, the last step's grad_norm
+    and the parameters within WITNESS_FACTOR x the eager Trainer run again;
+    its peak at most POOL_PEAK_RATIO x 21d's one graph's. (3) ptt_synth.yaml
+    from the asset under a BatchNorm schedule with DECAY_STEP 1, K = 2 over 3
+    steps, 3 epochs: one capture per ``TrainStep``, torch.equal to the eager
+    Trainer under deterministic algorithms. Each Trainer's graphs report one
+    pool id."""
+    from ptt_tpu_torch.config import config_by_path, ptt_synth_config
+    from ptt_tpu_torch.data.loader import DataLoader
+    from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.ops import fps, group, sa
+    from ptt_tpu_torch.train.trainer import Trainer
+    from ptt_tpu_torch.utils.cuda_graph import read_launches
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_shared_pool")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    synth = ptt_synth_config()
+    logger = logging.getLogger("chip_smoke.21f")
+    logger.setLevel(logging.WARNING)
+    names = ("fps", "sa", "group_fwd", "group_bwd")
+
+    def steps_of(scalars) -> list:
+        """Each step's logged metrics, by step: {name: value}."""
+        by_step = {}
+        for tag, value, step in scalars.rows:
+            if tag.startswith("train/"):
+                by_step.setdefault(step, {})[tag[len("train/"):]] = value
+        return [by_step[k] for k in sorted(by_step)]
+
+    def run(cfg, init, data, optim, epochs, graph, name):
+        """A Trainer from ``init`` over ``data`` for ``epochs`` epochs: its
+        steps' metrics, its final state (parameters and buffers, Adam's
+        moments), the pool ids of its graphs and the captures of each
+        TrainStep, the launches; then its graphs released."""
+        net = build_network(cfg["MODEL"], device=device, train=True)
+        net.load_state_dict(init, strict=True)
+        loader = DataLoader(SyntheticTrackingDataset(data), TRAIN_B, shuffle=True, drop_last=True, num_workers=0)
+        scalars = Scalars()
+        trainer = Trainer(net, cfg["MODEL"], dict(cfg["OPTIMIZATION"], **optim), loader, os.path.join(out_dir, name),
+                          logger, total_epochs=epochs, device=device, tb_writer=scalars, graph=graph)
+        fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+        try:
+            trainer.train()
+        finally:
+            loader.close()
+        launches = dict(zip(names, read_launches()))
+        steps = [trainer.train_step.steps] + ([trainer.multi_step] if trainer.multi_step is not None else [])
+        graphs = [(s.k, e.graph) for s in steps for e in s.graphs.values() if e.graph is not None]
+        result = {"steps": steps_of(scalars), "captures": [s.graphs.captures for s in steps],
+                  "pools": sorted({tuple(g.pool) for _, g in graphs}),
+                  "graph_launches": {k: g.launches for k, g in graphs}, "launches": launches,
+                  "state": [t.detach().clone() for t in net.state_dict().values()],
+                  "moments": [t.clone() for t in trainer.optimizer.mu + trainer.optimizer.nu],
+                  "params": [p.detach().clone() for p in net.parameters()],
+                  "count": trainer.optimizer.count, "momenta": [trainer._bn_momentum(e) for e in range(epochs)]}
+        for s in steps:
+            s.close()
+        del trainer, net
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result
+
+    def peak():
+        return {"reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+                "allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def fresh_peak():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def bit_equal(a, b) -> bool:
+        return a["steps"] == b["steps"] and all(torch.equal(x, y) for x, y in zip(a["state"], b["state"])) \
+            and all(torch.equal(x, y) for x, y in zip(a["moments"], b["moments"]))
+
+    out = {}
+    # (1) ptt_large.yaml, K = 4 with a tail of 2, against a K = 1 graph's memory; seeded init
+    lcfg = config_by_path("kitti_models/ptt_large.yaml")
+    ldata = dict(synth["DATA_CONFIG"], SEARCH_INPUT_SIZE=lcfg["DATA_CONFIG"]["SEARCH_INPUT_SIZE"],
+                 TEMPLATE_INPUT_SIZE=lcfg["DATA_CONFIG"]["TEMPLATE_INPUT_SIZE"], FRAMES_PER_TRACKLET=6)
+    torch.manual_seed(SEED)
+    linit = {k: v.clone() for k, v in build_network(lcfg["MODEL"], device=device, train=True).state_dict().items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fresh_peak()
+        k1 = run(lcfg, linit, dict(ldata, NUM_TRACKLETS=4), {}, 1, True, "large_k1")  # 2 steps
+        k1_peak = peak()
+        fresh_peak()
+        k4 = run(lcfg, linit, dict(ldata, NUM_TRACKLETS=12), {"STEPS_PER_DISPATCH": 4}, 2, True, "large_k4")
+        k4_peak = peak()
+        k4_eager = run(lcfg, linit, dict(ldata, NUM_TRACKLETS=12), {"STEPS_PER_DISPATCH": 4}, 2, False,
+                       "large_k4_eager")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ratio = k4_peak["reserved_gib"] / k1_peak["reserved_gib"]
+    equal = bit_equal(k4, k4_eager)
+    losses = [round(m["loss"], 6) for m in k4["steps"]]
+    log(f"[21f] ptt_large.yaml, B = {TRAIN_B}, STEPS_PER_DISPATCH = 4 over 6 steps an epoch (K = 4 and a tail of 2), "
+        f"2 epochs, under deterministic algorithms: losses {losses}; captures (K = 1, K = 4) {k4['captures']}, pool ids "
+        f"{k4['pools']}, launches {k4['launches']}; the eager Trainer's metrics, parameters, BatchNorm statistics and "
+        f"Adam moments torch.equal {equal}; peak reserved {k4_peak['reserved_gib']:.2f} GiB (allocated "
+        f"{k4_peak['allocated_gib']:.2f}) against a K = 1 graph's {k1_peak['reserved_gib']:.2f} GiB ("
+        f"{k1_peak['allocated_gib']:.2f}) in this call: {ratio:.3f} x; card {card}")
+    out["large"] = {"losses": losses, "captures": k4["captures"], "pools": len(k4["pools"]),
+                    "launches": k4["launches"], "eager_equal": equal, "peak": k4_peak, "k1_peak": k1_peak,
+                    "ratio": ratio}
+    if len(k4["steps"]) != 12 or not np.isfinite([m["loss"] for m in k4["steps"]]).all() or k4["count"] != 12:
+        fail("[21f] ptt_large: not 12 finite steps")
+    if k4["captures"] != [1, 1] or len(k4["pools"]) != 1 or len(k1["pools"]) != 1:
+        fail(f"[21f] ptt_large: captures {k4['captures']}, pools {k4['pools']}: not one graph a TrainStep in one pool")
+    if k4["launches"] != {"fps": 24, "sa": 0, "group_fwd": 84, "group_bwd": 84}:
+        fail(f"[21f] ptt_large: launches {k4['launches']}, not 2 FPS + 7 + 7 group in each of 12 steps")
+    if not equal:
+        fail("[21f] ptt_large: the graphed Trainer differs from the eager one under deterministic algorithms")
+    if ratio > POOL_PEAK_RATIO:
+        fail(f"[21f] ptt_large: peak reserved {ratio:.3f} x the K = 1 graph's, above {POOL_PEAK_RATIO}")
+    del k1, k4, k4_eager, linit
+
+    # (2) ptt_waymo.yaml, K = 2 with a tail of 1, one epoch; seeded init
+    wcfg = config_by_path("kitti_models/ptt_waymo.yaml")
+    wdata = dict(synth["DATA_CONFIG"], SEARCH_INPUT_SIZE=8192, TEMPLATE_INPUT_SIZE=2048, NUM_TRACKLETS=6,
+                 FRAMES_PER_TRACKLET=6)  # 144 items: 3 steps
+    torch.manual_seed(SEED)
+    winit = {k: v.clone() for k, v in build_network(wcfg["MODEL"], device=device, train=True).state_dict().items()}
+    k2 = {"STEPS_PER_DISPATCH": 2}
+    eager = [run(wcfg, winit, wdata, k2, 1, False, f"waymo_eager{i}") for i in range(2)]
+    fresh_peak()
+    graphed = run(wcfg, winit, wdata, k2, 1, True, "waymo_k2")
+    w_peak = peak()
+    w_ratio = w_peak["reserved_gib"] / waymo_ref["peak_reserved_gib"]
+    last = len(graphed["steps"]) - 1
+    step0 = {k: graphed["steps"][0][k] == eager[0]["steps"][0][k] for k in LOSS_TERMS}
+    norms = [r["steps"][last]["grad_norm"] for r in (graphed, eager[1], eager[0])]
+    rows = {"last grad_norm": tuple(abs(x - norms[2]) / max(abs(norms[2]), 1e-12) for x in norms[:2]),
+            "params": (params_err(graphed["params"], eager[0]["params"]),
+                       params_err(eager[1]["params"], eager[0]["params"]))}
+    log(f"[21f] ptt_waymo.yaml, B = {TRAIN_B}, STEPS_PER_DISPATCH = 2 over 3 steps (K = 2 and a tail of 1): losses "
+        f"{[round(m['loss'], 4) for m in graphed['steps']]} (eager {[round(m['loss'], 4) for m in eager[0]['steps']]})"
+        f"; captures (K = 1, K = 2) {graphed['captures']}, pool ids {graphed['pools']}, launches a dispatch by K "
+        f"{graphed['graph_launches']}, over the epoch {graphed['launches']}; step 0's loss terms equal to eager "
+        f"{step0}; rel diff (graph, eager again) "
+        + ", ".join(f"{k} ({d:.1e}, {w:.1e})" for k, (d, w) in rows.items())
+        + f"; peak reserved {w_peak['reserved_gib']:.2f} GiB (allocated {w_peak['allocated_gib']:.2f}) against 21d's "
+        f"one graph {waymo_ref['peak_reserved_gib']:.2f} GiB ({waymo_ref['peak_gib']:.2f}): {w_ratio:.3f} x; card {card}")
+    out["waymo"] = {"losses": [m["loss"] for m in graphed["steps"]], "captures": graphed["captures"],
+                    "pools": len(graphed["pools"]), "launches": graphed["launches"], "step0_equal": step0,
+                    "witness": {k: list(v) for k, v in rows.items()}, "peak": w_peak, "ratio": w_ratio}
+    if len(graphed["steps"]) != 3 or not np.isfinite([m["loss"] for m in graphed["steps"]]).all():
+        fail("[21f] ptt_waymo: not 3 finite steps")
+    if graphed["captures"] != [1, 1] or len(graphed["pools"]) != 1:
+        fail(f"[21f] ptt_waymo: captures {graphed['captures']}, pools {graphed['pools']}")
+    if graphed["graph_launches"] != {1: (2, 0, 7, 7), 2: (4, 0, 14, 14)} or \
+            graphed["launches"] != {"fps": 6, "sa": 0, "group_fwd": 21, "group_bwd": 21}:
+        fail(f"[21f] ptt_waymo: launches {graphed['graph_launches']}, {graphed['launches']}: not 2, 0, 7, 7 a step")
+    if not all(step0.values()):
+        fail("[21f] ptt_waymo: step 0's loss terms differ from the eager Trainer's")
+    bad = [k for k, (d, w) in rows.items() if d > WITNESS_FACTOR * max(w, WITNESS_FLOOR)]
+    if bad:
+        fail(f"[21f] ptt_waymo: beyond {WITNESS_FACTOR} x the witness: {bad}")
+    if w_ratio > POOL_PEAK_RATIO:
+        fail(f"[21f] ptt_waymo: peak reserved {w_ratio:.3f} x 21d's one graph's, above {POOL_PEAK_RATIO}")
+    del eager, graphed, winit
+
+    # (3) ptt_synth.yaml from the asset, a BatchNorm schedule that moves every epoch, K = 2 with a tail of 1
+    sched = {"STEPS_PER_DISPATCH": 2,
+             "BN_SCHEDULER": {"BN_INIT": 0.5, "BN_DECAY": 0.5, "DECAY_STEP": 1, "BN_CLIP": 0.01}}
+    sdata = dict(synth["DATA_CONFIG"], NUM_TRACKLETS=6, FRAMES_PER_TRACKLET=6)  # 3 steps an epoch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sg = run(synth, weights, sdata, sched, 3, True, "bn_graph")
+        se = run(synth, weights, sdata, sched, 3, False, "bn_eager")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    s_equal = bit_equal(sg, se)
+    log(f"[21f] ptt_synth.yaml, BN_SCHEDULER with DECAY_STEP 1, STEPS_PER_DISPATCH = 2 over 3 steps, 3 epochs, "
+        f"under deterministic algorithms: flax momenta {sg['momenta']}, captures (K = 1, K = 2) {sg['captures']}, pool "
+        f"ids {sg['pools']}; the eager Trainer's metrics, parameters, BatchNorm statistics and Adam moments "
+        f"torch.equal {s_equal}")
+    out["bn_schedule"] = {"momenta": sg["momenta"], "captures": sg["captures"], "pools": len(sg["pools"]),
+                          "eager_equal": s_equal}
+    if len(set(sg["momenta"])) != 3 or sg["captures"] != [1, 1] or len(sg["pools"]) != 1:
+        fail(f"[21f] BN schedule: momenta {sg['momenta']}, captures {sg['captures']}, pools {sg['pools']}")
+    if not s_equal or len(sg["steps"]) != 9:
+        fail("[21f] BN schedule: the graphed Trainer differs from the eager one under deterministic algorithms")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[21f] took {out['seconds']:.1f} s")
     return out
 
 
@@ -3226,8 +3451,8 @@ def bf16_phase(device, card):
     times = {"f32": [], "bf16": []}
     for name in ("f32", "bf16", "bf16", "f32"):
         model, opt, step = (m32, o32, step32) if name == "f32" else (mk, ok, step16)
-        times[name].append(median_step_ms(step, model, opt, [batches[0]] * 5))
-    log(f"[15] train step at B = {TRAIN_B} on one pre-made batch, medians of 5, alternated f32, bf16, bf16, f32: "
+        times[name].append(median_step_ms(step, model, opt, [batches[0]] * 3))
+    log(f"[15] train step at B = {TRAIN_B} on one pre-made batch, medians of 3, alternated f32, bf16, bf16, f32: "
         f"f32 {', '.join(f'{t:.1f}' for t in times['f32'])} ms, bf16 {', '.join(f'{t:.1f}' for t in times['bf16'])} ms; "
         f"card {card}")
     del mk, ok, mp, op, m32, o32
@@ -3346,7 +3571,7 @@ POINT_RANKS = 2  # one point group of two gloo ranks sharing the card (NCCL refu
 POINT_B = 8  # ptt_waymo's tracker batch
 # (points, centers) of ptt_waymo's stage 0: the search branch, then the template branch
 POINT_SHAPES = ((8192, 2048), (2048, 1024))
-POINT_TIMED = 20
+POINT_TIMED = 10
 
 
 def point_rank(job_dir) -> int:
@@ -3531,14 +3756,15 @@ def point_phase(root, phase13b, card, tmp):
             "gathered_bytes_a_step": group["gathered_bytes"] / steps, "seconds": seconds}
 
 
-TOOL_RUNS = (("train_bench", ["--iters", 4, "--tracklets", 4]),)  # demo_tracking: a side tool (phase 22)
+TOOL_RUNS = (("train_bench", ["--iters", 4, "--tracklets", 2]),)  # demo_tracking: a side tool (phase 22)
 
 
 def tools_phase(card):
     """Phase 19: the training-side tools run as a user runs them, ``python3 -m
     ptt_tpu_torch.tools.train_bench`` (ptt.yaml and ptt_large.yaml at B = 48,
-    4 chained steps for the device step, 4 x 24 synthetic tracklets: 8
-    steps an epoch, pipelined, blocking, then 2 dispatches of K = 4; the
+    4 chained steps for the device step, 2 x 24 synthetic tracklets: 4
+    steps an epoch, pipelined, blocking, then 1 dispatch of K = 4 with the
+    one-step graph live in the same pool; the
     graphed step): its output printed, a non-zero exit, or a row without a
     number in its K-dispatch column, fails the run. ``python3 -m
     ptt_tpu_torch.tools.demo_tracking`` (ptt.yaml, batch 8) runs with the
@@ -3890,6 +4116,7 @@ def main() -> int:
     log(f"[time] phases 1-5 and 17 of ptt.yaml: {time.perf_counter() - t_start:.1f} s")
     # 6 and 7: the training path; 14: ptt_waymo training
     train_launches, group_rows = train_phase(ptt_synth_config(), device, card)
+    log(f"[time] phases 6 and 7: {time.perf_counter() - t_start:.1f} s")
     waymo_group_rows = waymo_train_phase(device, card)
     log(f"[time] phases 6, 7 and 14: {time.perf_counter() - t_start:.1f} s")
     # 21: the train step as one CUDA graph, K = 1 and 4, against the eager step, in a fresh process
@@ -3902,9 +4129,11 @@ def main() -> int:
                                               agreement, bench, graph_rows)
     p2b_rows, p2b_launches = config_phase("[9]", "p2b_synth.yaml (P2B)", p2b_synth_config(), device, card, clock, 1,
                                           agreement, bench, graph_rows)
+    log(f"[time] phases 8 and 9: {time.perf_counter() - t_start:.1f} s")
 
     # 10. every tracking mode and the host evaluator on the trained weights
     phase10 = modes_phase(cfg, model, meta, agreement, device)
+    log(f"[time] phase 10: {time.perf_counter() - t_start:.1f} s")
     # 17. the captured frame step against the eager loop (the benchmark batches ran with phases 4, 8, 9, 13)
     phase17 = graph_phase(cfg, model, agreement, device)
 
@@ -3913,21 +4142,26 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     try:
         phase11a = kitti_test_phase(agreement, phase10, model, device, card, tmp)
+        log(f"[time] phase 11: {time.perf_counter() - t_start:.1f} s")
         kitti_train_phase(model, batch, device, card)
+        log(f"[time] phase 12: {time.perf_counter() - t_start:.1f} s")
         # 18. data parallelism: two ranks on the one card against one process
         phase18 = {"train": dist_train_phase(device, card, tmp),
                    "test": dist_test_phase(os.path.join(tmp, "agreement"), phase11a, model, device, card, tmp)}
+        log(f"[time] phase 18: {time.perf_counter() - t_start:.1f} s")
         del model
         torch.cuda.empty_cache()
         waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
                                                   device, card, clock, 2, agreement, bench, graph_rows)
         phase13b = waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
+        log(f"[time] phases 13 and 13b: {time.perf_counter() - t_start:.1f} s")
         # 20. POINT_SHARDING: two ranks on the one card as one point group
         phase20 = point_phase(os.path.join(tmp, "sweeps"), phase13b, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[time] phases 11, 12, 18, 13, 20: {time.perf_counter() - t_start:.1f} s")
     bf16_phase(device, card)
+    log(f"[time] phase 15: {time.perf_counter() - t_start:.1f} s")
     side_tools = start_side_tools(card)  # results, not times: beside phase 16, checked before phase 19
     nuscenes_phase(agreement, phase10, card, beside=" (beside the side tools of phase 22)")
     finish_side_tools(meta, side_tools)
@@ -3936,6 +4170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools_phase(card)
     gemm_layers(cfg, batch, device, card)
+    log(f"[time] phases 19 and 19b: {time.perf_counter() - t_start:.1f} s")
     # 22. the JAX package's last modules: the point ops, CosineSimAug without BatchNorm, the six tools
     ported_modules_phase(batch["search_points"], card)
     log(f"[time] phases 19 and 22: {time.perf_counter() - t_start:.1f} s")

@@ -94,7 +94,16 @@ def _global_moments(flat: torch.Tensor):
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis of a channel-last tensor: flax's train rule
     (batch statistics, over every rank's batch in a process group; running-stat
-    update in place) when ``training``, the running statistics otherwise."""
+    update in place) when ``training``, the running statistics otherwise.
+
+    The update reads its factors from ``factors``, a (2,) float32 tensor on
+    the input's device that the train step fills before each dispatch
+    (``train/bn_momentum.py`` ``set_bn_factors``), so that a captured step
+    follows a momentum schedule; without one, from ``momentum`` as Python
+    floats, which a float32 tensor times a float rounds to those factors
+    (``flax_bn_factors``)."""
+
+    factors = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
@@ -105,9 +114,13 @@ class BatchNorm(nn.BatchNorm1d):
         else:
             var, mean = torch.var_mean(flat.float(), dim=0, unbiased=False)
         with torch.no_grad():
-            keep = 1.0 - self.momentum  # flax momentum: the weight of the old statistics
-            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+            if self.factors is None:  # Python floats: a capture outside the train step keeps them as they are
+                keep = 1.0 - self.momentum
+                rest = 1.0 - keep
+            else:
+                keep, rest = self.factors.unbind()
+            self.running_mean.copy_(keep * self.running_mean + rest * mean)
+            self.running_var.copy_(keep * self.running_var + rest * var)
         y = torch.addcmul(self.bias, x - mean, torch.rsqrt(var + self.eps) * self.weight)
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 

@@ -16,9 +16,9 @@ JAX tool takes it), from the port's seeded init:
   blocking (each batch uploaded inside its step, the loss read after it);
   and K-dispatch, the Trainer's loop at OPTIMIZATION.STEPS_PER_DISPATCH = K
   (``--steps_per_dispatch``): K batches a dispatch, one replay of the K-step
-  graph (captured before the epoch, once the one-step graph is released;
-  an epoch's tail would take the one-step graph); the graphs' pools are
-  printed;
+  graph (captured before the epoch beside the live one-step graph, in the
+  one pool and stream the two share, as the Trainer's do; an epoch's tail
+  takes the one-step graph); the pool is printed after each column;
 - samples/s: B over the pipelined ms/it;
 - GFLOP a step: forward, losses and backward as ``FlopCounterMode`` counts
   them (``utils/profiling.py`` ``train_step_flops``);
@@ -81,6 +81,7 @@ def bench_config(cfg_file, batch_size, iters, device, set_cfgs=None, workers=8, 
     from ..train.optim import Optimizer
     from ..train.train_step import BatchUploader, make_multi_step, make_train_step, stack_batches, to_device
     from ..train.trainer import pipelined_steps
+    from ..utils.cuda_graph import CaptureContext
     from ..utils.profiling import train_step_flops
 
     cfg = cli_config(cfg_file, set_cfgs)
@@ -91,8 +92,9 @@ def bench_config(cfg_file, batch_size, iters, device, set_cfgs=None, workers=8, 
     torch.manual_seed(0)
     model = build_network(cfg["MODEL"], device=device, train=True)
     opt = Optimizer(model.parameters(), cfg["OPTIMIZATION"], len(loader), 60)
-    step = make_train_step(cfg["MODEL"], device=device, mixed_precision=mixed)
-    multi = make_multi_step(cfg["MODEL"], k, device=device, mixed_precision=mixed)
+    context = CaptureContext(device)  # the Trainer's: one pool and stream for both steps' graphs
+    step = make_train_step(cfg["MODEL"], device=device, mixed_precision=mixed, context=context)
+    multi = make_multi_step(cfg["MODEL"], k, device=device, mixed_precision=mixed, context=context)
     try:
         batch = to_device(next(iter(loader)), device)
         flops = train_step_flops(cfg["MODEL"], model, batch, mixed)
@@ -107,9 +109,7 @@ def bench_config(cfg_file, batch_size, iters, device, set_cfgs=None, workers=8, 
         # 1. device step: steps on one device batch chained without a sync
         step_ms = device_ms(lambda: [step(model, opt, batch) for _ in range(iters)], device) / iters
 
-        # 2. an epoch of the loader: pipelined (the Trainer's loop), blocking, then K steps a dispatch; a
-        # graph's pool holds about a step's activations, so the one-step graph is released before the K-step
-        # one is captured (ptt_large's two would not fit the card together)
+        # 2. an epoch of the loader: pipelined (the Trainer's loop), blocking, then K steps a dispatch
         def epoch(number, blocking=False, multi_step=None):
             loader.set_epoch(number)
             _sync(device)
@@ -127,9 +127,7 @@ def bench_config(cfg_file, batch_size, iters, device, set_cfgs=None, workers=8, 
         pipelined_ms = epoch(1)
         blocking_ms = epoch(2, blocking=True)
         pool_mb = [pool_megabytes(step.steps)]
-        step.steps.close()
-        opt.zero_grad()  # the released graph's gradients
-        multi(model, opt, stack_batches([batch] * k))
+        multi(model, opt, stack_batches([batch] * k))  # the K-step graph's capture, beside the one-step graph
         k_dispatch_ms = epoch(3, multi_step=multi)
         pool_mb.append(pool_megabytes(multi))
     finally:
@@ -146,9 +144,10 @@ def bench_config(cfg_file, batch_size, iters, device, set_cfgs=None, workers=8, 
 
 
 def pool_megabytes(steps):
-    """MB reserved by the private pools of a TrainStep's captured graphs (None on the CPU)."""
+    """MB reserved by the pool of a TrainStep's captured graphs, which its
+    context shares (None on the CPU)."""
     graphs = [entry.graph for entry in steps.graphs.values() if entry.graph is not None]
-    return sum(g.pool_bytes() for g in graphs) / 2**20 if graphs else None
+    return graphs[0].pool_bytes() / 2**20 if graphs else None
 
 
 def format_rows(rows) -> str:
@@ -189,7 +188,8 @@ def main(argv=None) -> int:
                          args.frames, args.steps_per_dispatch) for c in args.configs]
     for r in rows:
         pools = "" if r["pool_mb"][0] is None else \
-            f"; graph pools: one-step {r['pool_mb'][0]:.0f} MB, {r['k']}-step {r['pool_mb'][1]:.0f} MB"
+            f"; the graphs' pool: {r['pool_mb'][0]:.0f} MB with the one-step graph, {r['pool_mb'][1]:.0f} MB " \
+            f"with the {r['k']}-step graph beside it"
         print(f"{r['cfg']}: first step {r['first_step_s']:.1f} s (kernels built on the first call, then the "
               f"capture){pools}", flush=True)
     print(format_rows(rows), flush=True)

@@ -6,11 +6,15 @@ clip and the optimizer step, K of them a dispatch.
 batch from slice j of (K, B, ...) input tensors and the hyperparameters of
 its update from row j of the optimizer's table (``train/optim.py``
 ``hyper_rows``), and the metrics of the K steps come out as one (K, n)
-tensor. On the GPU the body is captured as one CUDA graph per key
-(``utils/cuda_graph.py`` ``train_graph_key``: K, the batch's shapes and dtypes,
-mixed precision, the BatchNorm momentum, the model and the optimizer's
-moments) and every later dispatch of that key is one replay: the counterpart
-of the JAX step's single jitted dispatch and of its K-step ``lax.scan``. On
+tensor. The scheduled BatchNorm momentum comes from a (2,) device tensor of
+its own (``train/bn_momentum.py`` ``flax_bn_factors``), as the JAX step takes
+it as a traced argument. On the GPU the body is captured as one CUDA graph per
+key (``utils/cuda_graph.py`` ``train_graph_key``: K, the batch's shapes and
+dtypes, mixed precision, the model and the optimizer's moments) and every
+later dispatch of that key is one replay: the counterpart of the JAX step's
+single jitted dispatch and of its K-step ``lax.scan``. The graphs of one
+``TrainStep``, and of the ``TrainStep``s that share a ``CaptureContext``
+(the Trainer's K-step and one-step forms), share one memory pool. On
 the CPU, in a process group of more than one rank (whose collectives run from
 the host, ``graph_mode``), or when the caller asks for it (``graph=False``),
 the same body runs eagerly. ``make_train_step`` is the one-step form that
@@ -47,7 +51,7 @@ from .. import resolve_device
 from ..nn.losses import compute_losses
 from ..utils import cuda_graph
 from ..utils.dist import all_reduce_mean_, get_dist_info
-from .bn_momentum import MODEL_BN_MOMENTUM, set_bn_momentum
+from .bn_momentum import MODEL_BN_MOMENTUM, flax_bn_factors, set_bn_factors
 
 
 def to_device(batch: dict, device) -> dict:
@@ -169,77 +173,91 @@ class TrainStep:
     process group the global batch's.
 
     With ``graphed`` (the GPU, unless ``graph_mode`` says otherwise or the
-    caller passed ``graph=False``) each key's first dispatch is the eager run
-    that ``cuda_graph.StepGraph`` makes before it captures the body, so it
-    is this dispatch's real K steps; each later one copies its batches and
-    table rows into the key's static inputs on the compute stream, replays,
-    and copies the metrics out of the graph's output, which the next replay
-    rewrites. Each graph keeps a private memory pool of about one step's
-    activations (``close`` releases them). After a graphed dispatch the
-    parameters' ``.grad`` are None: the gradients live in the graph's pool,
-    and the optimizer has used them."""
+    caller passed ``graph=False``) each key's first dispatch makes its graph
+    (``cuda_graph.StepGraph`` in ``context``, a ``CaptureContext``, by default
+    one of this step's own): the context's first graph runs the eager K steps
+    before it captures, a later one captures and replays, so either way the
+    dispatch's real K steps. Each later dispatch copies its batches, table
+    rows and BatchNorm factors into the key's static inputs on the compute
+    stream, replays, and copies the metrics out of the pool, which the next
+    replay of any graph of the context may rewrite. The graphs of a context
+    keep one memory pool of about one step's activations (``close``
+    releases this step's graphs). After a graphed dispatch the parameters'
+    ``.grad`` are None: the gradients live in the pool, and the optimizer has
+    used them."""
 
     def __init__(self, model_cfg: dict, k: int = 1, device="cuda", mixed_precision: bool = False,
-                 graph: bool = True):
+                 graph: bool = True, context=None):
         self.model_cfg = model_cfg
         self.k = int(k)
         self.device = resolve_device(device)
         self.mixed_precision = bool(mixed_precision)
         self.mode = graph_mode(self.device) if graph else "off (the eager step asked for)"
         self.graphed = self.mode == "on"
+        self.context = cuda_graph.CaptureContext(self.device) if context is None else context
         self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
         self.names = None  # the metrics' names, the columns of the output
 
-    def body(self, model, optimizer, inputs: dict, hyper: torch.Tensor) -> torch.Tensor:
+    def body(self, model, optimizer, inputs: dict, hyper: torch.Tensor, bn: torch.Tensor) -> torch.Tensor:
         """The K steps on ``inputs`` ((K, B, ...) tensors on the device) with
-        the rows of ``hyper`` ((K, 5) on the device). Reads nothing from the
-        device on the host."""
+        the rows of ``hyper`` ((K, 5) on the device) and the BatchNorm factors
+        ``bn`` ((2,) on the device). Reads nothing from the device on the
+        host."""
         rows = []
-        for j in range(self.k):
-            batch = {key: value[j] for key, value in inputs.items()}
-            out = forward(model, batch, self.mixed_precision)
-            loss, tb = compute_losses(self.model_cfg, out, batch)
-            optimizer.zero_grad()
-            loss.backward()
-            metrics = {key: value.detach() for key, value in tb.items()}
-            if get_dist_info()[1] > 1:
-                metrics = average_over_ranks(optimizer.params, metrics)
-            metrics["grad_norm"] = optimizer.update(hyper[j])
-            self.names = tuple(metrics)
-            rows.append(torch.stack(list(metrics.values())))
+        set_bn_factors(model, bn)
+        try:
+            for j in range(self.k):
+                batch = {key: value[j] for key, value in inputs.items()}
+                out = forward(model, batch, self.mixed_precision)
+                loss, tb = compute_losses(self.model_cfg, out, batch)
+                optimizer.zero_grad()
+                loss.backward()
+                metrics = {key: value.detach() for key, value in tb.items()}
+                if get_dist_info()[1] > 1:
+                    metrics = average_over_ranks(optimizer.params, metrics)
+                metrics["grad_norm"] = optimizer.update(hyper[j])
+                self.names = tuple(metrics)
+                rows.append(torch.stack(list(metrics.values())))
+        finally:
+            set_bn_factors(model, None)
         return torch.stack(rows)
 
     def __call__(self, model, optimizer, stacked: dict, bn_momentum=None) -> torch.Tensor:
         model.train()
-        momentum = MODEL_BN_MOMENTUM if bn_momentum is None else float(bn_momentum)
-        set_bn_momentum(model, momentum)
+        bn = flax_bn_factors(MODEL_BN_MOMENTUM if bn_momentum is None else bn_momentum)
         hyper = optimizer.hyper_rows(self.k)
+        if self.device.type == "cuda":
+            bn = bn.pin_memory()  # so that its copy to the device does not wait for the device
         if self.graphed:
-            out = self._replay(model, optimizer, stacked, hyper, momentum)
+            out = self._replay(model, optimizer, stacked, hyper, bn)
         else:
             out = self.body(model, optimizer, to_device(stacked, self.device),
-                            hyper.to(self.device, non_blocking=True))
+                            hyper.to(self.device, non_blocking=True), bn.to(self.device, non_blocking=True))
         optimizer.count += self.k
         return out
 
-    def _replay(self, model, optimizer, stacked, hyper, momentum) -> torch.Tensor:
+    def _replay(self, model, optimizer, stacked, hyper, bn) -> torch.Tensor:
         stacked = {key: torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
                    for key, value in stacked.items()}
-        key = cuda_graph.train_graph_key(self.k, stacked, self.mixed_precision, momentum, model, optimizer)
+        key = cuda_graph.train_graph_key(self.k, stacked, self.mixed_precision, model, optimizer)
         entry = self.graphs.get(key)
         if entry is None:
+            # the static inputs, outside the pool: allocated before the capture
             inputs = {name: torch.empty(value.shape, dtype=value.dtype, device=self.device)
                       for name, value in stacked.items()}
             table = torch.empty(hyper.shape, dtype=hyper.dtype, device=self.device)
-            entry = self.graphs.put(key, cuda_graph.GraphEntry((inputs, table)))
-        inputs, table = entry.state
+            factors = torch.empty(bn.shape, dtype=bn.dtype, device=self.device)
+            entry = self.graphs.put(key, cuda_graph.GraphEntry((inputs, table, factors)))
+        inputs, table, factors = entry.state
         for name, value in stacked.items():
             inputs[name].copy_(value, non_blocking=True)
         table.copy_(hyper, non_blocking=True)
+        factors.copy_(bn, non_blocking=True)
         if entry.graph is None:
-            entry.graph = cuda_graph.StepGraph(lambda: self.body(model, optimizer, inputs, table), self.device)
-            # the capture's gradients are tensors of its pool, which only a replay writes: nothing outside the
-            # graph keeps them, so that releasing the graph frees its whole pool
+            entry.graph = cuda_graph.StepGraph(lambda: self.body(model, optimizer, inputs, table, factors),
+                                               self.device, self.context)
+            # the capture's gradients are tensors of the pool, which only a replay writes: nothing outside the
+            # graphs keeps them, so that releasing the graphs frees the whole pool
             optimizer.zero_grad()
             return entry.graph.first.clone()
         entry.graph.replay()
@@ -255,14 +273,16 @@ class TrainStep:
 
 
 def make_multi_step(model_cfg: dict, k: int, device="cuda", mixed_precision: bool = False,
-                    graph: bool = True) -> TrainStep:
+                    graph: bool = True, context=None) -> TrainStep:
     """K train steps a dispatch (``TrainStep``), the JAX package's
     ``make_sharded_multi_step``; ``graph=False`` asks for the eager body on
-    the GPU too."""
-    return TrainStep(model_cfg, k, device, mixed_precision, graph)
+    the GPU too, ``context`` (a ``cuda_graph.CaptureContext``) shares the
+    graphs' pool and stream with other train steps of the model."""
+    return TrainStep(model_cfg, k, device, mixed_precision, graph, context)
 
 
-def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = False, graph: bool = True):
+def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = False, graph: bool = True,
+                    context=None):
     """Returns ``step(model, optimizer, batch, bn_momentum=None) -> metrics``,
     one train step on a loader batch (on the host, or already on the device,
     ``BatchUploader``): a ``TrainStep`` of K = 1, which is ``step.steps``.
@@ -270,8 +290,9 @@ def make_train_step(model_cfg: dict, device="cuda", mixed_precision: bool = Fals
     clipping), 0-dim tensors on the device, this step's own; in a process
     group, the global batch's. ``model`` is the tracker on ``device`` (CUDA
     unless the caller asks for the CPU). On the GPU the step is a replay of
-    its captured graph unless ``graph=False``."""
-    steps = TrainStep(model_cfg, 1, device, mixed_precision, graph)
+    its captured graph unless ``graph=False``; ``context`` as
+    ``make_multi_step``'s."""
+    steps = TrainStep(model_cfg, 1, device, mixed_precision, graph, context)
 
     def step(model, optimizer, batch, bn_momentum=None):
         out = steps(model, optimizer, {key: value[None] for key, value in batch.items()}, bn_momentum)

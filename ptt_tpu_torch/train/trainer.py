@@ -15,7 +15,12 @@ dispatch is one replay of the train step's CUDA graph (``train/train_step.py``
 the graph mode once. OPTIMIZATION.STEPS_PER_DISPATCH = K > 1 stacks K batches
 into one dispatch of K steps, one graph, as the JAX trainer scans K steps in
 one dispatch; the epoch's tail (fewer than K batches) takes the one-step
-graph, as the JAX trainer's takes its single step.
+graph, as the JAX trainer's takes its single step. Both graphs are captured
+in one ``utils/cuda_graph.py`` ``CaptureContext``: one memory pool and one
+stream, so that they hold about one step's activations together, which is
+what lets K > 1 train ``ptt_large.yaml`` and ``ptt_waymo.yaml`` on one card.
+The BatchNorm momentum of a schedule is read from the device, so each graph
+serves every epoch.
 
 In a process group (data parallelism, ``train/train_step.py``) every rank
 starts from rank 0's parameters and buffers, broadcast at construction and
@@ -33,6 +38,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..config import steps_per_dispatch
+from ..utils.cuda_graph import CaptureContext
 from ..utils.dist import broadcast_module, get_dist_info
 from .bn_momentum import bn_momentum_for_epoch
 from .checkpoint import CheckpointManager, save_variables_npz
@@ -114,8 +120,9 @@ class Trainer:
         self.logger.info("mixed_precision=%s (%s; set OPTIMIZATION.MIXED_PRECISION: %s to flip)"
                          % ("bf16" if mixed_precision else "f32",
                             "default" if "MIXED_PRECISION" not in optim_cfg else "from config", not mixed_precision))
+        self.graph_context = CaptureContext(self.device)  # one pool and stream for the train graphs below
         self.train_step = make_train_step(model_cfg, device=self.device, mixed_precision=mixed_precision,
-                                          graph=graph)
+                                          graph=graph, context=self.graph_context)
         self.logger.info(f"graph: {self.train_step.steps.mode}")
         self.uploader = BatchUploader(self.device)
         k = steps_per_dispatch(optim_cfg)
@@ -124,7 +131,7 @@ class Trainer:
             # the JAX trainer's line; the epoch's tail takes the one-step graph
             self.logger.info(f"steps_per_dispatch={k} (K-step CUDA graph per dispatch)")
             self.multi_step = make_multi_step(model_cfg, k, device=self.device, mixed_precision=mixed_precision,
-                                              graph=graph)
+                                              graph=graph, context=self.graph_context)
         self.bn_sched_cfg = optim_cfg.get("BN_SCHEDULER")
         self.output_dir = Path(output_dir)
         self.ckpt = CheckpointManager(self.output_dir / "ckpt", max_to_keep=max_ckpt_save_num)

@@ -6,7 +6,7 @@ A body is a function of static tensors: it reads its inputs from tensors the
 caller keeps and writes its results into them (or returns tensors that the
 graph keeps). ``StepGraph`` runs it once eagerly on a side stream, which
 builds every kernel its launches build (``ops/_build.py`` runs ``nvcc`` on
-first use) and sets up cuBLAS for that stream, then captures it into a private
+first use) and sets up cuBLAS for that stream, then captures it into a
 memory pool; that first run is real work, the caller's first step (for the
 train step, the dispatch's real K steps). Between the two the allocator's
 cached free blocks are given back (``empty_cache``), so that the capture's
@@ -14,6 +14,14 @@ pool can take the memory the eager run held: a train step near the card's
 memory, as ``ptt_waymo.yaml``'s, would not fit twice, and processes that
 share the card would each keep a step's worth. Every later step is one
 ``replay``: one launch of the whole body from the host.
+
+By default a graph has a pool and a stream of its own, as the tracker's frame
+step has (a few hundred MB a shape). Graphs that never run at the same time
+and whose pools would each hold a step's activations, a Trainer's train
+graphs, share one ``CaptureContext``: one pool and one stream. Only the
+context's first graph runs its body eagerly; every later one captures on the
+warmed stream into the shared pool and replays at once, so the graphs of a
+context hold about one step's memory between them, not one each.
 
 Parameters are read by address, so weights loaded in place
 (``load_state_dict``) show in the next replay; ``model_signature`` is what a
@@ -61,36 +69,82 @@ def model_signature(model) -> tuple:
     return switches, model.training, addresses
 
 
-def train_graph_key(k: int, stacked: dict, mixed_precision: bool, bn_momentum: float, model, optimizer) -> tuple:
+def train_graph_key(k: int, stacked: dict, mixed_precision: bool, model, optimizer) -> tuple:
     """What a captured train dispatch (``train/train_step.py`` ``TrainStep``)
     is keyed by: K, the (K, B, ...) inputs' shapes and dtypes, mixed
-    precision, the flax BatchNorm momentum (a constant of the body: the
-    update's 1 - m rounds as today's step rounds it), ``model_signature`` and
-    the addresses of the optimizer's moments, which the body updates in
-    place."""
+    precision, ``model_signature`` and the addresses of the optimizer's
+    moments, which the body updates in place. Not the BatchNorm momentum: the
+    body reads it from a device tensor, so one graph serves every epoch of a
+    schedule."""
     shapes = tuple((name, tuple(value.shape), value.dtype) for name, value in stacked.items())
     moments = tuple(t.data_ptr() for t in optimizer.mu + optimizer.nu)
-    return int(k), shapes, bool(mixed_precision), float(bn_momentum), model_signature(model), moments
+    return int(k), shapes, bool(mixed_precision), model_signature(model), moments
+
+
+class CaptureContext:
+    """One memory pool and one capture stream on ``device``, shared by graphs
+    that never run at the same time (every train graph of a Trainer: the
+    K-step graph and the epoch tail's one-step graph, each key of either).
+
+    The first graph of a context runs its body eagerly on the stream, then
+    captures (``StepGraph``'s rule); every later graph runs no eager body: it
+    captures into the shared pool on the already warmed stream, then replays,
+    and that replay's output is its first result. Once every graph of the
+    context is released, the next graph is a first graph again, in a new
+    pool.
+
+    The lifetime rule of graphs that share a pool, PyTorch's: a graph's
+    output tensors hold its result only until another graph of the pool
+    replays, because memory that one graph freed during its capture (its
+    intermediates, the gradients dropped after the capture) is scratch that
+    another graph's capture may hand out, and every replay writes its scratch
+    again. So a caller copies each output out of the pool before the next
+    replay, and keeps its static inputs outside the pool. The pool and the
+    stream are made at the first capture, so a context can be made on a host
+    without CUDA."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = self.stream = None
+        self.live = 0  # graphs captured into the pool and not released
+
+    def begin(self) -> bool:
+        """Whether the graph about to be captured is the context's first: if
+        so, a new pool (and at the first time, the stream)."""
+        import torch
+
+        first = self.live == 0
+        if first:
+            self.pool = torch.cuda.graph_pool_handle()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        return first
 
 
 class StepGraph:
-    """``body`` (no arguments) run once eagerly on a side stream of ``device``,
-    then captured as one CUDA graph in a private memory pool. ``first`` is what
-    the eager run returned, ``output`` what the captured one returns (tensors of
-    the pool, rewritten by every replay). Capture failure raises."""
+    """``body`` (no arguments) captured as one CUDA graph on ``device``, in a
+    pool and on a stream of its own or of ``context`` (``CaptureContext``).
+    The first graph of a pool runs ``body`` once eagerly on the stream before
+    the capture, and ``first`` is what that run returned; a later graph of a
+    shared context captures and replays, and ``first`` is its ``output``.
+    ``output`` is what the captured body returns (tensors of the pool,
+    rewritten by every replay of the pool's graphs). Capture failure
+    raises."""
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, context=None):
         import torch
 
+        self.context = CaptureContext(device) if context is None else context
+        eager = self.context.begin()
         self.graph = torch.cuda.CUDAGraph()
-        self.pool = torch.cuda.graph_pool_handle()
-        stream = torch.cuda.Stream(device)
+        self.pool, stream = self.context.pool, self.context.stream
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self.first = body()
-        stream.synchronize()
-        torch.cuda.empty_cache()  # the eager run's cached blocks, which the capture's pool cannot take
+        if eager:
+            with torch.cuda.stream(stream):
+                self.first = body()
+            stream.synchronize()
+            torch.cuda.empty_cache()  # the eager run's cached blocks, which the capture's pool cannot take
         before = read_launches()
         t0 = time.perf_counter()
         try:
@@ -99,16 +153,21 @@ class StepGraph:
         finally:
             counted = read_launches()
             _set_launches(before)
+        self.context.live += 1
         self.capture_s = time.perf_counter() - t0
         self.launches = tuple(a - b for a, b in zip(counted, before))
         current.wait_stream(stream)
+        if not eager:
+            self.replay()
+            self.first = self.output
 
     def replay(self) -> None:
         self.graph.replay()
         _set_launches(tuple(a + b for a, b in zip(read_launches(), self.launches)))
 
     def pool_bytes(self) -> int:
-        """Device memory reserved by the graph's private pool."""
+        """Device memory reserved by the graph's pool (shared with the other
+        graphs of its context)."""
         import torch
 
         pool = tuple(self.pool)
@@ -116,10 +175,12 @@ class StepGraph:
                    if tuple(s.get("segment_pool_id", ())) == pool)
 
     def release(self) -> None:
-        """Frees the graph; its pool goes back to the allocator once no tensor
-        of it is held."""
-        self.graph.reset()
-        self.first = self.output = None
+        """Frees the graph; its pool goes back to the allocator once no graph
+        of its context and no tensor of it is held."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.context.live -= 1
+        self.graph = self.first = self.output = None
 
 
 class GraphEntry:
