@@ -20,7 +20,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      of its captured CUDA graph) on 8 x 24 synthetic tracklets with the trained
      weights: Success/Precision, launch counts (by the wrappers' counters, which
      a replay advances by what its capture counted, then by the device under
-     torch.profiler in a batch of replays), then frames/s over pipelined
+     the profiler in a batch of replays), then frames/s over pipelined
      batches of the benchmark workload (8 x 64 frames);
   5. a profile of one tracker batch: device busy and idle shares, top kernels,
      the device's launch counts;
@@ -149,8 +149,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      graph and 4 eager steps, its
      table of hyperparameters equal to the optimizer's schedules; (c) ms a
      step of the Trainer's loop over pre-made batches, eager and graphed, K =
-     1 and 4, alternated, each under torch.profiler (device idle share, the
-     device's launches), capture seconds and pool MB; (d) a graphed bf16 step
+     1 and 4, alternated, each also traced (device idle share, the device's
+     launches, exactly 2 FPS + 7 + 3 x 7 group kernels a step), capture
+     seconds and pool MB; (d) a graphed bf16 step
      against the eager one, and a graphed ptt_waymo.yaml step with its peak
      memory; (e) ``Trainer`` at STEPS_PER_DISPATCH = 4 over 5 steps an epoch
      (one K = 4 dispatch, the tail through the one-step graph), two epochs
@@ -169,10 +170,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      step stays eager and says so. Phases 7, 12, 14, 15 and 18a's one process take the eager step
      (``graph=False``) as before; the Trainer (7, 21e), the CLIs and
      ``train_bench`` take the graphed one. The phase runs in a process of its
-     own (``chip_smoke.py --phase21``): in this one, after phases 1-14, 21c's
-     graph replays under torch.profiler die of a segmentation fault inside
-     ``cudaGraphLaunch``, with the native library never loaded too, and pass
-     there without the profiler (``chip_probe21.py``; PERF.md §7 q. 7).
+     own (``chip_smoke.py --phase21``), whose first trace comes after 21a-b's
+     captures: in this one, where the phases before set CUPTI up, a trace of
+     replays after 21a-b's history (a graph captured under deterministic
+     algorithms and released, then one captured into a shared pool) dies
+     inside ``cudaGraphLaunch`` (``cupti_repro.py``; PERF.md §6). At its
+     end the port's profiler window refuses a trace (``TraceRefused``) once
+     21d-e have made that history after 21c's traces.
   22. (run after 19) the JAX package's last modules: (a) at ptt.yaml's
      stage-0 shapes ``square_distance(exact=True)`` and ``group_all``
      torch.equal to the CPU's, ``uniform_resample_idx``'s counts equal, its
@@ -185,10 +189,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      beside phase 16 (their checks are results, not times), then
      (e) ``compile_diag`` cold and warm and (g) ``train_ablate --iters 4``
      one at a time.
-The test CLI runs of phases 11, 13b and 16 run under torch.profiler, and the
-device's launch counts must equal the wrappers' and replays' counts. Phases 14
-and 21 run right after phase 7 (late in a long process the profiler can miss
-the device's activity); ``[time]`` lines give the seconds so far.
+Every trace goes through the port's profiler window (``utils/profiling.py``
+``device_window``, which keeps CUPTI subscribed for the process); a window
+without the device's activity, which the profiler still returns now and
+then, is taken again, said and counted (``traced_window``; the counts on the
+``profiler_windows`` line). The test CLI runs of phases 11, 13b and 16 run
+in such a window, and the device's launch counts must equal the wrappers'
+and replays' counts. ``[time]`` lines give the seconds so far.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no result.
 Every process the run starts has ended when it exits, by any path: this process
@@ -199,7 +206,9 @@ whatever else is still below it, and logs what it stopped (``stop_children``).
 ``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, and
 ``--point-rank DIR`` phase 20a's, not a run;
 ``python3 chip_smoke.py --loader-start`` times the loader's start by start
-method (``loader_start``), not a run either.
+method (``loader_start``), and ``python3 chip_smoke.py --trace-cost`` what a
+trace that keeps CUPTI attached costs the graphed work after it
+(``trace_cost``), not runs either.
 """
 
 from __future__ import annotations
@@ -419,36 +428,51 @@ def queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int, names):
-    """Device time of one call by kernel, from torch.profiler: for each of
-    ``names`` the summed time of the kernels whose name contains it, per call.
-    A window in which the profiler reports no device time is taken again after
-    a pause, and said. Late in a long process the profiler can miss the
-    device activity of every window; after 20 empty windows the split by
-    kernel is None, printed as not measured (the device time of the whole
-    call is ``queued_ms``'s, by CUDA events)."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+PROFILER_RETAKES = 20  # windows a measurement takes before it reads the profiler's silence as not measured
+# this process's profiler windows, and those that came back without the device's activity: under either CUPTI
+# setting the profiler has returned such windows now and then, late in a process (PERF.md §6)
+profiler_windows = {"windows": 0, "empty": 0}
 
-    fn()
-    for window in range(20):
-        if window:
-            log(f"  the profiler reported no device time for {names} in window {window}; taken again")
+
+def traced_window(fn, what, ok=lambda window: bool(window.events), **kwargs):
+    """``fn()`` in the port's profiler window (``utils/profiling.py``
+    ``device_window(**kwargs)``), taken again after a pause, and said, while
+    the window shows no device activity (``ok``); counted in
+    ``profiler_windows``. Returns (the window, what ``fn`` returned) and
+    whether a window showed the activity, false after PROFILER_RETAKES
+    empty ones."""
+    from ptt_tpu_torch.utils.profiling import device_window
+
+    for attempt in range(PROFILER_RETAKES):
+        if attempt:
+            log(f"  the profiler saw no device activity in {what} (window {attempt}); taken again")
             time.sleep(0.5)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+        profiler_windows["windows"] += 1
+        with device_window(**kwargs) as window:
+            out = fn()
             torch.cuda.synchronize()
-        out = dict.fromkeys(names, 0.0)
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                for n in names:
-                    if n in e.key:
-                        out[n] += e.self_device_time_total / iters / 1e3
-        if any(out.values()):
-            return out
-    log(f"  the profiler reported no device time for {names} in 20 windows: not measured")
-    return None
+        if ok(window):
+            return window, out, True
+        profiler_windows["empty"] += 1
+    log(f"  the profiler saw no device activity in {what} in {PROFILER_RETAKES} windows: not measured")
+    return window, out, False
+
+
+def kernel_ms(fn, iters: int, names):
+    """Device time of one call by kernel, from the port's profiler window
+    (``traced_window``): for each of ``names`` the summed time of the kernels
+    whose name contains it, per call; None (not measured) if no window shows
+    them (the device time of the whole call is ``queued_ms``'s, by CUDA
+    events)."""
+    def by_name(window):
+        return {n: sum(e.dur_us for e in window.events if e.kind == "kernel" and n in e.name) / iters / 1e3
+                for n in names}
+
+    fn()
+    window, _, seen = traced_window(lambda: [fn() for _ in range(iters)], f"{iters} calls of {names}",
+                                    ok=lambda w: any(by_name(w).values()))
+    return by_name(window) if seen else None
 
 
 def by_kernel(parts) -> str:
@@ -801,42 +825,51 @@ TRACKER_KERNELS = ("fps_kernel", "sa_pre_kernel", "sa_kernel")
 
 
 def profile_batch(ev, tracklets, n_frames, tag="[5]", quiet=False):
-    """One batch of the tracker under torch.profiler: host time to enqueue it,
-    wall time, the device's busy and idle shares, and (unless ``quiet``) the
-    kernels by device time. Returns those numbers and the device's own count
-    of each tracker kernel's launches (``launches``), which a graph replay
-    shows as the eager loop does."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """One batch of the tracker in the port's profiler window: host time to
+    enqueue it, wall time, the device's busy and idle shares, and (unless
+    ``quiet``) the kernels by device time. Returns those numbers and the
+    device's own count of each tracker kernel's launches (``launches``), which
+    a graph replay shows as the eager loop does."""
+    def batch():
         t0 = time.perf_counter()
         handle = ev.dispatch_batch(tracklets)
         t_enqueue = time.perf_counter() - t0
         ev.finish_batch(handle)
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+        return t_enqueue, time.perf_counter() - t0
+
+    window, (t_enqueue, wall), seen = traced_window(batch, f"{tag} a batch of the tracker")
+    if not seen:
+        fail(f"{tag} the profiler saw no device time in a batch of the tracker")
+    events = window.events
+    busy_us = sum(e.dur_us for e in events)
     steps = len(tracklets[0][0]) - 1
     stats = {"wall_ms": wall * 1e3, "enqueue_ms": t_enqueue * 1e3, "busy_ms": busy_us / 1e3,
-             "idle_pct": 100 - 100 * busy_us / 1e6 / wall, "device_ops": sum(e.count for e in kernels),
-             "launches": {name: sum(e.count for e in kernels if name in e.key) for name in TRACKER_KERNELS}}
+             "idle_pct": 100 - 100 * busy_us / 1e6 / wall, "device_ops": len(events),
+             "launches": {name: sum(e.kind == "kernel" and name in e.name for e in events) for name in TRACKER_KERNELS}}
     if quiet:
         return stats
     log(f"{tag} profile of one batch ({n_frames} frames, {steps} frame steps): wall {wall * 1e3:.1f} ms, "
         f"host enqueue {t_enqueue * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / 1e6 / wall:.1f}% busy, {stats['idle_pct']:.1f}% idle), "
         f"{stats['device_ops']} device operations")
-    if busy_us == 0:
-        log("  the profiler saw no device time: busy share not measured")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
-    own = {name: [e for e in kernels if name in e.key] for name in TRACKER_KERNELS}
+    for name, (us, n) in top_names(events, 12):
+        log(f"  {us / 1e3:8.2f} ms  {n:6d}x  {name[:90]}")
+    own = {name: [e for e in events if e.kind == "kernel" and name in e.name] for name in TRACKER_KERNELS}
     log("  the port's kernels in that batch: " + ", ".join(
-        f"{name} {sum(e.self_device_time_total for e in es) / 1e3:.2f} ms in {sum(e.count for e in es)} launches "
-        f"({100 * sum(e.self_device_time_total for e in es) / max(busy_us, 1):.1f}% of the busy time)"
+        f"{name} {sum(e.dur_us for e in es) / 1e3:.2f} ms in {len(es)} launches "
+        f"({100 * sum(e.dur_us for e in es) / busy_us:.1f}% of the busy time)"
         for name, es in own.items()))
     return stats
+
+
+def top_names(events, n):
+    """The ``n`` names of device events with the most device time:
+    [(name, (microseconds, count)), ...]."""
+    by_name = {}
+    for e in events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.dur_us, count + 1)
+    return sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
 
 
 def check_device_launches(tag, counts, n_fps, steps):
@@ -1564,54 +1597,50 @@ def premade_vs_loader(tag, step, model, opt, batch, loader, n, card, warm: int =
 
 
 def busy_us(events) -> float:
-    """The union of the trace events' intervals, in the trace's microseconds."""
+    """The union of the device events' intervals, in the trace's microseconds."""
     union, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+    for a, b in sorted((e.start_us, e.start_us + e.dur_us) for e in events):
         union += max(0.0, b - max(a, end))
         end = max(end, b)
     return union
 
 
 def profile_fed_steps(tag, step, model, opt, batches):
-    """``batches`` through the Trainer's loop under torch.profiler, the trace
-    read back: each host-to-device copy, the stream it ran on and whether a
-    kernel of the compute stream ran meanwhile; the device's busy and idle
-    shares. Returns the numbers; fails if no copy ran beside a kernel on
-    another stream."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``batches`` through the Trainer's loop in the port's profiler window,
+    its device events read back: each host-to-device copy, the stream it ran
+    on and whether a kernel of the compute stream ran meanwhile; the device's
+    busy and idle shares. Returns the numbers; fails if no copy ran beside a
+    kernel on another stream."""
     from ptt_tpu_torch.train.train_step import BatchUploader
     from ptt_tpu_torch.train.trainer import pipelined_steps
 
     uploader = BatchUploader(next(model.parameters()).device)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def steps():
         t0 = time.perf_counter()
         n = len(pipelined_steps(step, model, opt, batches, uploader))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
-        with open(os.path.join(tmp, "trace.json")) as fh:
-            events = json.load(fh)["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    kernels = [e for e in device if e["cat"] == "kernel"]
-    if not kernels:
+        return n, (time.perf_counter() - t0) * 1e3
+
+    window, (n, wall), seen = traced_window(steps, f"{tag} {len(batches)} loader-fed steps")
+    if not seen:
         fail(f"{tag} the profiler's trace of the loader-fed steps holds no kernel")
+    device = window.events
+    kernels = [e for e in device if e.kind == "kernel"]
     streams = {}
     for e in kernels:
-        streams[e.get("args", {}).get("stream")] = streams.get(e.get("args", {}).get("stream"), 0) + e["dur"]
+        streams[e.stream] = streams.get(e.stream, 0) + e.dur_us
     compute = max(streams, key=streams.get)
-    busy = [(e["ts"], e["ts"] + e["dur"]) for e in kernels if e.get("args", {}).get("stream") == compute]
-    copies = [e for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
-    side = [e for e in copies if e.get("args", {}).get("stream") != compute]
-    overlapped = [e for e in side if any(a < e["ts"] + e["dur"] and b > e["ts"] for a, b in busy)]
+    busy = [(e.start_us, e.start_us + e.dur_us) for e in kernels if e.stream == compute]
+    copies = [e for e in device if e.kind == "memcpy" and "HtoD" in e.name]
+    side = [e for e in copies if e.stream != compute]
+    overlapped = [e for e in side if any(a < e.start_us + e.dur_us and b > e.start_us for a, b in busy)]
     union = busy_us(device)
-    names = sorted({e["name"] for e in copies})
+    names = sorted({e.name for e in copies})
     out = {"steps": n, "wall_ms": wall, "device_busy_ms": union / 1e3, "idle_share": 1 - union / 1e3 / wall,
            "h2d_copies": len(copies), "side_stream_copies": len(side), "copies_beside_kernels": len(overlapped),
-           "side_copy_ms": sum(e["dur"] for e in side) / 1e3, "copy_names": names,
-           "compute_stream": compute, "side_streams": sorted({e.get("args", {}).get("stream") for e in side})}
+           "side_copy_ms": sum(e.dur_us for e in side) / 1e3, "copy_names": names,
+           "compute_stream": compute, "side_streams": sorted({e.stream for e in side})}
     log(f"{tag} profile of {n} loader-fed steps of the Trainer's loop: wall {wall / n:.1f} ms a step, device busy "
         f"{union / 1e3 / n:.1f} ms a step ({100 * out['idle_share']:.1f}% idle); {len(copies)} host-to-device copies "
         f"{names}, {len(side)} on side streams {out['side_streams']} (compute stream {compute}), "
@@ -1652,8 +1681,6 @@ def upload_witness(step, model, opt, fresh, batches, device):
     terms (the forward, which has no atomics) must be equal, its grad_norm
     (the backward's gather scatters with atomics) and the later steps are
     reported beside the synchronous run twice."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     from ptt_tpu_torch.train.train_step import BatchUploader
     from ptt_tpu_torch.train.trainer import pipelined_steps
 
@@ -1664,10 +1691,8 @@ def upload_witness(step, model, opt, fresh, batches, device):
         return [step(m, o, b) for b in batches]
 
     def kernels(m, o):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            step(m, o, batches[0])
-            torch.cuda.synchronize()
-        return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        window, _, _ = traced_window(lambda: step(m, o, batches[0]), "[7] a train step", cpu=False)
+        return {e.name for e in window.events if e.kind == "kernel"}
 
     state = (model, opt)
     default_kernels = runs_from(state, fresh, batches, kernels)[0][0]
@@ -1701,31 +1726,29 @@ def upload_witness(step, model, opt, fresh, batches, device):
 
 
 def profile_train(step, model, opt, batch, n_steps=3):
-    """A few train steps under torch.profiler: wall time, device busy and idle
-    shares, and the kernels by device time."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """A few train steps in the port's profiler window: wall time, device busy
+    and idle shares, and the kernels by device time."""
+    def steps():
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step(model, opt, batch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+        return time.perf_counter() - t0
+
+    window, wall, seen = traced_window(steps, f"[7] {n_steps} train steps")
+    if not seen:
+        return
+    events = window.events
+    busy = sum(e.dur_us for e in events)
     log(f"[7] profile of {n_steps} train steps: wall {wall * 1e3 / n_steps:.1f} ms/step, device busy "
-        f"{busy_us / 1e3 / n_steps:.1f} ms/step ({100 * busy_us / 1e6 / wall:.1f}% busy, "
-        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle), {sum(e.count for e in kernels) // n_steps} device "
-        f"operations per step")
-    if busy_us == 0:
-        log("  the profiler saw no device time: busy share not measured")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.2f} ms/step  {e.count // n_steps:5d}x  {e.key[:90]}")
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+        f"{busy / 1e3 / n_steps:.1f} ms/step ({100 * busy / 1e6 / wall:.1f}% busy, "
+        f"{100 - 100 * busy / 1e6 / wall:.1f}% idle), {len(events) // n_steps} device operations per step")
+    for name, (us, n) in top_names(events, 15):
+        log(f"  {us / 1e3 / n_steps:8.2f} ms/step  {n // n_steps:5d}x  {name[:90]}")
+    ops = [r for r in window.operators() if r.self_device_us > 0]
     log("[7] the same steps by operator (device time of the kernels each operator launched itself):")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.2f} ms/step  {e.count // n_steps:5d}x  {e.key[:90]}")
+    for r in sorted(ops, key=lambda r: -r.self_device_us)[:15]:
+        log(f"  {r.self_device_us / 1e3 / n_steps:8.2f} ms/step  {r.count // n_steps:5d}x  {r.key[:90]}")
 
 
 class FpsReplay:
@@ -2088,24 +2111,24 @@ def write_nuscenes_tree(root, tracklets, category: str = "vehicle.trailer", vers
             json.dump(rows, fh)
 
 
-# Runs ``python3 -m <module> args`` under torch.profiler (device activity only)
-# and prints, after the module's own output, the device's count of each tracker
-# kernel's launches: a graph replay runs no Python wrapper, so this is the
-# count the wrappers' counters are held against.
+# Runs ``python3 -m <module> args`` in the port's profiler window (device
+# activity only) and prints, after the module's own output, the device's count
+# of each tracker kernel's launches: a graph replay runs no Python wrapper, so
+# this is the count the wrappers' counters are held against.
 PROFILED_CLI = """
 import json, runpy, sys
-from torch.profiler import DeviceType, ProfilerActivity, profile
+from ptt_tpu_torch.utils.profiling import device_window
 module = sys.argv[1]
 sys.argv = [module] + sys.argv[2:]
 code = 0
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
+with device_window(cpu=False) as window:
     try:
         runpy.run_module(module, run_name="__main__", alter_sys=True)
     except SystemExit as exc:
         code = exc.code or 0
-kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 names = %r
-print("device_launches " + json.dumps({n: sum(e.count for e in kernels if n in e.key) for n in names}), flush=True)
+kernels = [e.name for e in window.events if e.kind == "kernel"]
+print("device_launches " + json.dumps({n: sum(n in k for k in kernels) for n in names}), flush=True)
 sys.exit(code)
 """ % (TRACKER_KERNELS,)
 
@@ -2113,7 +2136,7 @@ sys.exit(code)
 def run_cli(module: str, args, timeout: float = 600, device_launches: bool = False):
     """Run ``python3 -m ptt_tpu_torch.tools.<module> args`` from the repo root and
     return (its ``summary`` record, wall seconds, its log). Fails the run when
-    the CLI fails. With ``device_launches`` the CLI runs under torch.profiler,
+    the CLI fails. With ``device_launches`` the CLI runs in the port's profiler window,
     and the record's ``device_launches`` holds the device's count of each
     tracker kernel's launches; the wrappers' counts (``launches``) must equal it."""
     return finish_cli(module, args, start_cli(module, args, device_launches), timeout, device_launches)
@@ -2790,42 +2813,26 @@ def same_runs(a, b) -> bool:
         all(torch.equal(x, y) for i in a[1] for x, y in zip(a[1][i], b[1][i]))
 
 
-def traced_run(fn, prelude) -> dict:
-    """``fn()`` under torch.profiler: wall and host ms (until ``fn`` returned),
-    the device's busy ms (the union of its kernels, copies and sets) and idle
-    share, and the launches of each training kernel. The profiler can miss
-    the device's first events of a window, so ``prelude()`` runs first in it,
-    then a marker kernel (``torch.cuda._sleep``), and only the events after the
-    marker are counted; without a marker in the trace the device's numbers
-    are None (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prelude()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+def traced_run(fn) -> dict:
+    """``fn()`` in the port's profiler window: wall and host ms (until ``fn``
+    returned), the device's busy ms (the union of its kernels, copies and
+    sets) and idle share, and the launches of each training kernel."""
+    def run():
         t0 = time.perf_counter()
         fn()
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
-        with open(os.path.join(tmp, "trace.json")) as fh:
-            events = json.load(fh)["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    marks = [e["ts"] + e["dur"] for e in device if "spin_kernel" in e["name"]]
-    out = {"wall_ms": wall * 1e3, "host_ms": host * 1e3, "busy_ms": None, "idle_share": None, "launches": None}
-    if not marks:
-        return out
-    device = [e for e in device if e["ts"] >= max(marks)]
+        return host, time.perf_counter() - t0
+
+    window, (host, wall), seen = traced_window(run, "a traced run")
+    if not seen:
+        fail("the profiler saw no device activity in a traced run")
+    device = window.events
     union = busy_us(device)
-    kernels = [e["name"] for e in device if e["cat"] == "kernel"]
-    out.update(busy_ms=union / 1e3, idle_share=1 - union / 1e3 / (wall * 1e3),
-               launches={k: sum(k in name for name in kernels) for k in TRAIN_KERNELS})
-    return out
+    kernels = [e.name for e in device if e.kind == "kernel"]
+    return {"wall_ms": wall * 1e3, "host_ms": host * 1e3, "busy_ms": union / 1e3,
+            "idle_share": 1 - union / 1e3 / (wall * 1e3),
+            "launches": {k: sum(k in name for name in kernels) for k in TRAIN_KERNELS}}
 
 
 class Scalars:
@@ -2856,8 +2863,8 @@ def train_graph_phase(device, card):
     pool, as a Trainer's are) against 4 replays of the one-step graph
     and 4 eager steps, and its table of hyperparameters against the
     optimizer's schedules; (c) ms a step of the Trainer's loop over pre-made
-    batches, eager and graphed, K = 1 and 4, alternated, each also under
-    torch.profiler (idle share), capture seconds and pool MB; (d) a graphed
+    batches, eager and graphed, K = 1 and 4, alternated, each also traced
+    (idle share, exact launches), capture seconds and pool MB; (d) a graphed
     bf16 step against an eager one, and a graphed ptt_waymo.yaml step with
     its peak memory; (e) the Trainer at STEPS_PER_DISPATCH = 4 over 5 steps an
     epoch (4 and a tail of 1), two epochs graphed and eager under
@@ -3001,26 +3008,22 @@ def train_graph_phase(device, card):
         torch.cuda.synchronize()
         ms[name].append((time.perf_counter() - t0) * 1e3 / n)
     traced = batches[:GRAPH_TRACED]
-    traces = {name: traced_run(lambda: loop(name, traced), lambda: loop(name, traced)) for name in variants}
+    traces = {name: traced_run(lambda: loop(name, traced)) for name in variants}
     for name, tr in traces.items():
-        busy = "device not measured (no marker in the trace)" if tr["launches"] is None else \
-            f"device busy {tr['busy_ms'] / GRAPH_TRACED:.1f} ({100 * tr['idle_share']:.1f}% idle), launches " \
-            f"{tr['launches']}"
         log(f"[21c] {name}: {ms[name][0]:.1f}, {ms[name][1]:.1f} ms a step (the Trainer's loop, {GRAPH_TIMED} steps "
-            f"a run); under torch.profiler ({GRAPH_TRACED} steps after {GRAPH_TRACED}): wall "
-            f"{tr['wall_ms'] / GRAPH_TRACED:.1f} ms a step, host {tr['host_ms'] / GRAPH_TRACED:.1f}, {busy}")
+            f"a run); in the profiler's window ({GRAPH_TRACED} steps): wall {tr['wall_ms'] / GRAPH_TRACED:.1f} ms a "
+            f"step, host {tr['host_ms'] / GRAPH_TRACED:.1f}, device busy {tr['busy_ms'] / GRAPH_TRACED:.1f} "
+            f"({100 * tr['idle_share']:.1f}% idle), launches {tr['launches']}")
     log(f"[21c] capture: K = 1 {g1.capture_s:.2f} s, pool {g1.pool_bytes() / 2**20:.1f} MB; K = 4 {g4.capture_s:.2f} s, "
         f"pool {g4.pool_bytes() / 2**20:.1f} MB; card {card}")
     out["c"] = {"ms": ms, "traces": traces, "capture_s": [g1.capture_s, g4.capture_s],
                 "pool_mb": [g1.pool_bytes() / 2**20, g4.pool_bytes() / 2**20], "first_dispatch_s": [first1, first4]}
-    # the device's count of a graphed run's launches; the profiler has dropped an event of a window now and then
-    # (one of 56 in a run on an H100), so a count may be short by at most a step's launches
-    a_step = {"fps_kernel": 2, "group_fwd_kernel": 7, **{k: 7 for k in BWD_KERNELS}}
-    for name in ("graph K=1", "graph K=4"):
-        counted = traces[name]["launches"]
-        if counted is not None and any(not (GRAPH_TRACED - 1) * n <= counted[k] <= GRAPH_TRACED * n
-                                       for k, n in a_step.items()):
-            fail(f"[21c] {name}: the device ran {counted} in {GRAPH_TRACED} steps, not 2 + 7 + 3 x 7 a step")
+    # the device's count of every traced run's launches, eager and graphed: 2 FPS + 7 + 3 x 7 group kernels a step
+    want = {"fps_kernel": 2 * GRAPH_TRACED, "group_fwd_kernel": 7 * GRAPH_TRACED,
+            **{k: 7 * GRAPH_TRACED for k in BWD_KERNELS}}
+    for name, tr in traces.items():
+        if tr["launches"] != want:
+            fail(f"[21c] {name}: the device ran {tr['launches']} in {GRAPH_TRACED} steps, not {want}")
 
     # (d) a graphed bf16 step against the eager one from the asset's state
     step16 = make_train_step(model_cfg, device=device, mixed_precision=True)
@@ -3160,8 +3163,23 @@ def train_graph_phase(device, card):
     torch.cuda.empty_cache()
     out["e"] = {"epochs": e12, "epoch3": e3, "launches": e_launches, "eager_equal": det_equal, "pool_mb": pool_mb}
     out["f"] = shared_pool_phase(device, card, weights, out["d_waymo"])
+    # since 21c's traces set CUPTI up, graphs were released (21d) and later ones captured into a shared pool (21e,
+    # 21f): the history after which a trace of replays has died inside cudaGraphLaunch, which the port refuses
+    from ptt_tpu_torch.utils.profiling import TraceRefused, device_window
+
+    try:
+        with device_window():
+            pass
+        out["refused"] = None
+    except TraceRefused as exc:
+        out["refused"] = str(exc)
+    log(f"[21] a trace after 21d-f's releases and shared-pool captures: refused {out['refused'] is not None} "
+        f"({out['refused']})")
+    if out["refused"] is None:
+        fail("[21] the port's profiler window opened a trace after 21d-f's history")
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"[21] phase 21 took {out['seconds']:.1f} s")
+    out["profiler_windows"] = dict(profiler_windows)
+    log(f"[21] phase 21 took {out['seconds']:.1f} s; profiler windows {out['profiler_windows']}")
     return out
 
 
@@ -3516,8 +3534,6 @@ def gemm_layers(cfg, batch, device, card, top: int = 6):
     ``per_layer_flops`` whose output positions, input and output widths are
     that product (the SA stages' layers run inside the SA kernel), and the
     device's kernels by name."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     from ptt_tpu_torch.convert import state_dict_from_npz
     from ptt_tpu_torch.nn import build_network
     from ptt_tpu_torch.utils.profiling import per_layer_flops
@@ -3532,35 +3548,30 @@ def gemm_layers(cfg, batch, device, card, top: int = 6):
             by_mkn.setdefault(mkn, []).append(name)
     with torch.no_grad():
         model(batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-            model(batch)
-            torch.cuda.synchronize()
+        window, _, seen = traced_window(lambda: model(batch), "[19b] a forward", record_shapes=True)
+    if not seen:
+        return
     products = {}
-    for e in prof.key_averages(group_by_input_shape=True):
-        shapes = [tuple(x) for x in (e.input_shapes or []) if x]
-        ms = getattr(e, "device_time_total", 0.0) / 1e3
-        if e.key == "aten::mm" and len(shapes) >= 2:
+    for r in window.operators(group_by_input_shape=True):
+        shapes, ms = r.input_shapes, r.device_us / 1e3
+        if r.key == "aten::mm" and len(shapes) >= 2:
             mkn = (shapes[0][0], shapes[0][1], shapes[1][1])
-        elif e.key == "aten::addmm" and len(shapes) >= 3:
+        elif r.key == "aten::addmm" and len(shapes) >= 3:
             mkn = (shapes[1][0], shapes[1][1], shapes[2][1])
-        elif e.key == "aten::bmm" and len(shapes) >= 2:
+        elif r.key == "aten::bmm" and len(shapes) >= 2:
             mkn = (shapes[0][0] * shapes[0][1], shapes[0][2], shapes[1][2])
         else:
             continue
-        ms_, n_ = products.get((e.key, mkn), (0.0, 0))
-        products[(e.key, mkn)] = (ms_ + ms, n_ + e.count)
+        ms_, n_ = products.get((r.key, mkn), (0.0, 0))
+        products[(r.key, mkn)] = (ms_ + ms, n_ + r.count)
     total = sum(ms for ms, _ in products.values())
-    if total == 0:
-        log("[19b] the profiler saw no device time: the matrix products' device ms not measured")
     log(f"[19b] ptt.yaml forward on the frame step's batch (B = {batch['search_points'].shape[0]}), kernel path, "
         f"eager: the matrix products, {total:.3f} ms of device time, the largest first (op, M x K x N, device ms, "
         f"calls, the linear layers of that product); card {card}")
     for (op, mkn), (ms, n) in sorted(products.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {op} {mkn[0]} x {mkn[1]} x {mkn[2]}: {ms:.3f} ms, {n} calls; layers {by_mkn.get(mkn, 'none (not a layer)')}")
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  kernel {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:100]}")
+    for name, (us, n) in top_names(window.events, top):
+        log(f"  kernel {us / 1e3:8.3f} ms {n:4d}x  {name[:100]}")
     del model
     torch.cuda.empty_cache()
 
@@ -3791,13 +3802,13 @@ PHASE21_TIMEOUT = 600  # seconds phase 21's process may take
 
 def phase21_process() -> dict:
     """Phase 21 in a process of its own (``chip_smoke.py --phase21``), its
-    output logged here and its numbers returned; the checks are the same
-    either way. Run in this process after phases 1-14, 21c's graph replays
-    under torch.profiler die of a segmentation fault inside
-    ``cudaGraphLaunch`` (also with the numpy scorer, the native library never
-    loaded), and the same replays without the profiler pass
-    (``chip_probe21.py``); alone in a fresh process the profiled replays
-    have always passed."""
+    output logged here and its numbers returned. Its history (a graph
+    captured under deterministic algorithms and released, then a graph
+    captured into a shared pool) with CUPTI set up before it, as every trace
+    of the phases before leaves it in this process, makes a later trace of
+    graph replays die inside ``cudaGraphLaunch`` (``cupti_repro.py``;
+    PERF.md §6). In its own process the first trace comes after those
+    captures."""
     gc.collect()
     torch.cuda.empty_cache()  # this process's cached blocks, which the phase's graph pools need
     t0 = time.perf_counter()
@@ -4232,6 +4243,7 @@ def main() -> int:
     log("data_parallel " + json.dumps(phase18))
     log("point_sharding " + json.dumps(phase20))
     log("train_graph " + json.dumps(phase21))
+    log("profiler_windows " + json.dumps({"main": profiler_windows, "phase 21": phase21["profiler_windows"]}))
     stop_children()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
@@ -4273,6 +4285,117 @@ def loader_start() -> int:
     return 0
 
 
+TRACE_COST_ORDER = (True, False, False, True, True, False)  # three pairs of processes, alternated; True: traced first
+TRACE_COST_TIMEOUT = 300  # seconds a process of --trace-cost may take
+
+
+def trace_cost() -> int:
+    """``python3 chip_smoke.py --trace-cost``, not a run: what a trace that
+    keeps CUPTI attached (``utils/profiling.py`` ``CUPTI_SETTINGS``) costs the
+    graphed work after it. Three pairs of fresh processes, alternated (traced
+    first, never traced; never, traced; traced, never), each
+    ``trace_cost_process``; prints each process's numbers, the medians of
+    each kind and the card."""
+    if not torch.cuda.is_available():
+        log("no CUDA device: --trace-cost measures the GPU")
+        return 1
+    adopt_orphans()
+    sys.path.insert(0, REPO)
+    from ptt_tpu_torch.ops import _build
+
+    _build.build()  # once, before the processes load it
+    card = gpu_line()
+    rows = {True: [], False: []}
+    for traced in TRACE_COST_ORDER:
+        try:
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-cost-process",
+                                  "traced" if traced else "clean"], cwd=REPO, capture_output=True, text=True,
+                                 timeout=TRACE_COST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"--trace-cost: a process took more than {TRACE_COST_TIMEOUT} s")
+        records = [json.loads(line.split(" ", 1)[1]) for line in out.stdout.splitlines()
+                   if line.startswith("trace_cost {")]
+        if out.returncode != 0 or not records:
+            log(out.stdout[-4000:] + out.stderr[-4000:])
+            fail(f"--trace-cost: a process exited with {out.returncode}")
+        rows[traced].append(records[-1])
+        log(f"{'traced first' if traced else 'never traced'}: " + json.dumps(records[-1]))
+    for traced, recs in rows.items():
+        fps_ = sorted(x for r in recs for x in r["frames_per_s"])
+        ms = sorted(x for r in recs for x in r["train_ms"])
+        log(f"{'traced first' if traced else 'never traced'}, {len(recs)} processes: ptt.yaml graphed tracker "
+            f"{', '.join(f'{x:.1f}' for x in fps_)} frames/s (median {fps_[len(fps_) // 2]:.1f}); graphed train step "
+            f"{', '.join(f'{x:.2f}' for x in ms)} ms a step (median {ms[len(ms) // 2]:.2f})")
+    log(f"card {card}")
+    stop_children()
+    return 0
+
+
+def trace_cost_process(traced: bool) -> int:
+    """One process of ``trace_cost``: ptt.yaml's graphed tracker on the
+    benchmark workload (8 x 64 frames, max_points 2048, the trained asset) and
+    ptt_synth.yaml's graphed train step (B = 48, K = 1, the Trainer's loop over
+    4 pre-made batches), each captured and run once; then, if ``traced``, one
+    tracker batch and 4 train steps in the port's profiler window, else the
+    same work untraced; then frames/s of 3 runs of 2 pipelined batches and ms
+    a step of 3 runs of 8 steps. Prints ``trace_cost {json}``."""
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    from ptt_tpu_torch.config import ptt_synth_config
+    from ptt_tpu_torch.convert import state_dict_from_npz
+    from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
+    from ptt_tpu_torch.nn import build_network
+    from ptt_tpu_torch.ops import _build
+    from ptt_tpu_torch.tools.bench_setup import agreement_setup
+    from ptt_tpu_torch.train.optim import Optimizer
+    from ptt_tpu_torch.train.train_step import BatchUploader, make_train_step
+    from ptt_tpu_torch.train.trainer import pipelined_steps
+    from ptt_tpu_torch.utils.profiling import device_window
+
+    _build.build()
+    device = torch.device("cuda")
+    cfg, model, _, _ = agreement_setup(device)
+    bench = bench_tracklets()
+    ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
+    bench_rate(ev, bench, 1)  # the capture
+    tcfg = ptt_synth_config()
+    loader, batches = train_batches(tcfg["DATA_CONFIG"], 4, seed=21, workers=0)
+    n_iters = len(loader)
+    loader.close()
+    net = build_network(tcfg["MODEL"], device=device, train=True)
+    net.load_state_dict(state_dict_from_npz(ASSET), strict=True)
+    opt = Optimizer(net.parameters(), tcfg["OPTIMIZATION"], n_iters)
+    step, uploader = make_train_step(tcfg["MODEL"], device=device), BatchUploader(device)
+    pipelined_steps(step, net, opt, batches, uploader)  # the capture, then replays
+
+    def work():
+        ev.finish_batch(ev.dispatch_batch(bench))
+        pipelined_steps(step, net, opt, batches, uploader)
+        torch.cuda.synchronize()
+
+    events = None
+    if traced:
+        with device_window() as window:
+            work()
+        events = len(window.events)
+        if not events:
+            fail("--trace-cost: the traced window holds no device activity")
+    else:
+        work()
+    rates = [bench_rate(ev, bench, 2) for _ in range(3)]
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(pipelined_steps(step, net, opt, batches * 2, uploader))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+    ev.close()
+    print("trace_cost " + json.dumps({"traced": traced, "device_events_traced": events, "frames_per_s": rates,
+                                      "train_ms": ms, "TEARDOWN_CUPTI": os.environ.get("TEARDOWN_CUPTI")}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:  # a rank of phase 18a, started by torchrun
         sys.exit(dist_train_rank(sys.argv[2]))
@@ -4282,4 +4405,8 @@ if __name__ == "__main__":
         sys.exit(loader_start())
     if sys.argv[1:2] == ["--phase21"]:  # phase 21's process, started by main
         sys.exit(phase21_only())
+    if sys.argv[1:2] == ["--trace-cost"]:
+        sys.exit(trace_cost())
+    if sys.argv[1:2] == ["--trace-cost-process"]:  # a process of --trace-cost
+        sys.exit(trace_cost_process(sys.argv[2] == "traced"))
     sys.exit(main())

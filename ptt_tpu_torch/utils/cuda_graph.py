@@ -34,6 +34,11 @@ A replay runs no Python wrapper, so the kernels' launch counters
 (``ops/fps.py`` ``launches`` and the others) are advanced by what the capture
 counted, once per replay; the capture itself launches nothing and counts
 nothing.
+
+``history`` keeps the order of two events for ``utils/profiling.py``: the
+last release of a graph, and the release that the last capture into a
+shared pool came after. A trace of replays after that sequence, with CUPTI
+set up before it, has died inside ``cudaGraphLaunch``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,22 @@ import time
 from collections import OrderedDict
 
 GRAPH_CACHE_SIZE = 4  # captured shapes a caller keeps
+
+
+class _History:
+    """Ticks of one process-wide clock: ``released``, the last release of a
+    graph; ``shared_after``, the value ``released`` had at the last capture
+    into a shared pool (a context's later graph); 0 for never."""
+
+    def __init__(self):
+        self.clock = itertools.count(1)
+        self.released = self.shared_after = 0
+
+    def tick(self) -> int:
+        return next(self.clock)
+
+
+history = _History()
 
 
 def _counters():
@@ -158,6 +179,7 @@ class StepGraph:
         self.launches = tuple(a - b for a, b in zip(counted, before))
         current.wait_stream(stream)
         if not eager:
+            history.shared_after = history.released
             self.replay()
             self.first = self.output
 
@@ -180,6 +202,7 @@ class StepGraph:
         if self.graph is not None:
             self.graph.reset()
             self.context.live -= 1
+            history.released = history.tick()
         self.graph = self.first = self.output = None
 
 

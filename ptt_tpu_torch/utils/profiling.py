@@ -8,18 +8,25 @@ package's analytic ones, 2 x out_positions x C_in x C_out for a pointwise
 linear layer and 2 x out_elements for a normalization. ``per_module_flops``
 counts each top-level stage with ``torch.utils.flop_counter.FlopCounterMode``,
 and ``train_step_flops`` a train step's forward and backward.
-``trace`` records a ``torch.profiler`` timeline.
+``device_window`` opens the port's ``torch.profiler`` sessions, with the
+CUPTI settings a process that replays CUDA graphs needs already in place, and
+reads back the device's activity; ``trace`` records a timeline through it.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
+import tempfile
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from . import cuda_graph
 
 
 def count_parameters(model: nn.Module) -> dict:
@@ -156,15 +163,154 @@ def format_layer_table(rows) -> str:
     return _table(("Layer", "Type", "Output shape", "Calls", "Params", "MFLOPs"), body, total, str.ljust)
 
 
+# Read by Kineto, the library behind torch.profiler. By default it tears CUPTI
+# (NVIDIA's tracing interface) down when a trace ends and sets it up again at
+# the next; late in a process whole windows then came back without the
+# device's activity, and with 0 (CUPTI subscribed from the first trace to the
+# end of the process) far fewer did. (PyTorch sets the same, with
+# DISABLE_CUPTI_LAZY_REINIT, for inductor's CUDA graphs only.)
+CUPTI_SETTINGS = {"TEARDOWN_CUPTI": "0"}
+
+# this process's CUDA traces: the cuda_graph.history tick of the first, and
+# the TEARDOWN_CUPTI value of the first that ended with CUPTI torn down
+_traces = {"cupti_since": None, "torn_down": None}
+
+
+class TraceRefused(RuntimeError):
+    """A CUDA trace in a state of the process where CUPTI has crashed the
+    process or lost the device's activity."""
+
+
+def refusal(cuda: bool) -> str | None:
+    """Why a trace may not start now (None if it may): the two states of
+    ``device_window``'s docstring."""
+    if not cuda:
+        return None
+    if _traces["torn_down"] is not None:
+        return (f"an earlier trace of this process ended with TEARDOWN_CUPTI={_traces['torn_down']}, so Kineto tore "
+                f"CUPTI down; a CUDA trace after that has died inside cudaGraphLaunch and missed the device's "
+                f"activity. Unset TEARDOWN_CUPTI (the port sets 0) or trace in a new process.")
+    since = _traces["cupti_since"]
+    if since is not None and cuda_graph.history.shared_after > since:
+        return ("since this process's first trace set CUPTI up, a CUDA graph was released and then another was "
+                "captured into a shared pool (utils/cuda_graph.py history); a trace of graph replays after that "
+                "has died inside cudaGraphLaunch (cupti_repro.py). Trace in a process whose first trace comes "
+                "after those captures.")
+    return None
+
+
+class DeviceEvent(NamedTuple):
+    """One activity of the device in a trace: a kernel, a copy or a set;
+    start and duration in the trace's microseconds, the stream it ran on."""
+
+    name: str
+    kind: str  # "kernel", "memcpy" or "memset"
+    start_us: float
+    dur_us: float
+    stream: int | None
+
+
+class OperatorRow(NamedTuple):
+    """One host-side operator of a trace, summed over its calls (grouped by
+    input shapes where asked): the device time of the kernels it launched
+    itself (``self_device_us``) and with its children's (``device_us``)."""
+
+    key: str
+    count: int
+    self_device_us: float
+    device_us: float
+    input_shapes: list
+
+
+_DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
+
+
+def profiler_setup() -> dict:
+    """Put ``CUPTI_SETTINGS`` in the environment where the user has not set
+    them (a value the user set stands) and return the values in force.
+    ``device_window`` calls it before each session: Kineto may read them only
+    once, at a process's first trace. The cost: CUPTI stays subscribed after
+    the trace ends, for the life of the process."""
+    for key, value in CUPTI_SETTINGS.items():
+        os.environ.setdefault(key, value)
+    return {key: os.environ[key] for key in CUPTI_SETTINGS}
+
+
+class Window:
+    """What ``device_window`` yields: ``profiler``, the ``torch.profiler``
+    session; after the block, ``events`` (the device's activity, in order of
+    start) and ``operators()``."""
+
+    def __init__(self, profiler):
+        self.profiler = profiler
+        self._events = None
+
+    @property
+    def events(self) -> list:
+        if self._events is None:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                self.profiler.export_chrome_trace(path)
+                with open(path) as fh:
+                    trace_events = json.load(fh)["traceEvents"]
+            self._events = sorted((DeviceEvent(e["name"], _DEVICE_CATS[e["cat"]], float(e["ts"]), float(e["dur"]),
+                                               e.get("args", {}).get("stream"))
+                                   for e in trace_events if e.get("cat") in _DEVICE_CATS and "dur" in e),
+                                  key=lambda e: e.start_us)
+        return self._events
+
+    def operators(self, group_by_input_shape: bool = False) -> list:
+        """The host-side operators (``aten::mm``, a module's forward, ...) of
+        the window with their device time, as ``OperatorRow``s."""
+        from torch.profiler import DeviceType
+
+        return [OperatorRow(e.key, e.count, e.self_device_time_total, getattr(e, "device_time_total", 0.0),
+                            [tuple(x) for x in (e.input_shapes or []) if x])
+                for e in self.profiler.key_averages(group_by_input_shape=group_by_input_shape)
+                if e.device_type == DeviceType.CPU]
+
+
+@contextmanager
+def device_window(cpu: bool = True, record_shapes: bool = False):
+    """A ``torch.profiler`` session over the block: the device's activity
+    where CUDA is present, the host's operators unless ``cpu`` is False.
+    ``profiler_setup`` runs first. Yields a ``Window``; its ``events`` list
+    every kernel, copy and set the device ran in the block (none without
+    CUDA).
+
+    Raises ``TraceRefused`` before a CUDA trace in two states of the process
+    in which CUPTI has crashed it inside ``cudaGraphLaunch``: after a trace
+    that ended with CUPTI torn down (the user set ``TEARDOWN_CUPTI`` to
+    another value than 0), and when, after the process's first trace set
+    CUPTI up, a port graph was released and another then captured into a
+    shared pool (``utils/cuda_graph.py`` ``history``; graphs made without
+    the port, and traces opened with ``torch.profiler`` itself, are not seen
+    here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    settings = profiler_setup()
+    cuda = torch.cuda.is_available()
+    reason = refusal(cuda)
+    if reason is not None:
+        raise TraceRefused(reason)
+    if cuda and _traces["cupti_since"] is None:
+        _traces["cupti_since"] = cuda_graph.history.tick()
+    activities = ([ProfilerActivity.CPU] if cpu or not cuda else []) + ([ProfilerActivity.CUDA] if cuda else [])
+    try:
+        with profile(activities=activities, record_shapes=record_shapes) as prof:
+            yield Window(prof)
+    finally:
+        if cuda and settings["TEARDOWN_CUPTI"] != "0" and _traces["torn_down"] is None:
+            _traces["torn_down"] = settings["TEARDOWN_CUPTI"]
+
+
 @contextmanager
 def trace(log_dir):
     """A ``torch.profiler`` timeline of the block, the device's too where CUDA
     is present, written to ``log_dir/trace.json`` (Chrome trace format, for
-    Perfetto or chrome://tracing). Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    Perfetto or chrome://tracing); opened by ``device_window``. Yields the
+    profiler."""
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(str(log_dir), "trace.json"))
+    with device_window() as window:
+        yield window.profiler
+    window.profiler.export_chrome_trace(os.path.join(str(log_dir), "trace.json"))

@@ -1,5 +1,7 @@
 """The port's profiling (``ptt_tpu_torch/utils/profiling.py``) against the JAX
-package's (``ptt_tpu/utils/profiling.py``) on the narrowed configuration, and
+package's (``ptt_tpu/utils/profiling.py``) on the narrowed configuration, its
+profiler window (the CUPTI setting in place before a session starts, the
+refusal after a teardown, the only place that imports ``torch.profiler``), and
 the port's ``train_bench`` and ``demo_tracking`` end to end on the CPU.
 
 ``per_layer_flops`` rows are held against the JAX rows after the key mapping of
@@ -9,10 +11,15 @@ packages (its weight is used, the layer is not called), and flax still calls
 the JAX ``Dense_0`` once on a (1, C_in) row of zeros to create its parameters;
 the JAX walk records that call, the port's records none."""
 
+import ast
+import contextlib
+import pathlib
+
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.profiler
 from torch import nn
 
 from ptt_tpu.nn import build_network as jbuild
@@ -21,7 +28,7 @@ from ptt_tpu_torch.config import ptt_config
 from ptt_tpu_torch.convert import torch_key
 from ptt_tpu_torch.nn import build_network
 from ptt_tpu_torch.tools import demo_tracking, train_bench
-from ptt_tpu_torch.utils import profiling
+from ptt_tpu_torch.utils import cuda_graph, profiling
 from tests.test_torch_port_cli import _sets
 from tests.test_torch_port_train import narrow_model_cfg
 
@@ -124,6 +131,145 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "trace") as prof:
         torch.ones(4) @ torch.ones(4)
     assert prof is not None and (tmp_path / "trace" / "trace.json").stat().st_size > 0
+
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def seen_env(monkeypatch):
+    """``torch.profiler.profile`` replaced by one that records the CUPTI
+    settings in the environment when it is made, then profiles as before;
+    TEARDOWN_CUPTI starts unset."""
+    seen, real = [], torch.profiler.profile
+
+    def recording(*args, **kwargs):
+        seen.append({key: profiling.os.environ.get(key) for key in profiling.CUPTI_SETTINGS})
+        return real(*args, **kwargs)
+
+    for key in profiling.CUPTI_SETTINGS:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(torch.profiler, "profile", recording)
+    return seen
+
+
+def test_the_cupti_setting_is_in_place_before_a_session_starts(seen_env, tmp_path):
+    with profiling.device_window():
+        torch.ones(2, 2) @ torch.ones(2, 2)
+    with profiling.trace(tmp_path / "trace"):
+        torch.ones(2, 2) @ torch.ones(2, 2)
+    assert seen_env == [profiling.CUPTI_SETTINGS] * 2 == [{"TEARDOWN_CUPTI": "0"}] * 2
+
+
+def test_a_value_the_user_set_stands(seen_env, monkeypatch):
+    monkeypatch.setenv("TEARDOWN_CUPTI", "1")
+    assert profiling.profiler_setup() == {"TEARDOWN_CUPTI": "1"}
+    with profiling.device_window():
+        torch.ones(2, 2) @ torch.ones(2, 2)
+    assert seen_env == [{"TEARDOWN_CUPTI": "1"}] and profiling.os.environ["TEARDOWN_CUPTI"] == "1"
+
+
+def test_device_window_has_no_device_events_on_the_cpu():
+    with profiling.device_window() as window:
+        torch.ones(3, 4) @ torch.ones(4, 5)
+    assert window.events == []
+    mm = [r for r in window.operators() if r.key == "aten::mm"]
+    assert len(mm) == 1 and mm[0].count == 1 and mm[0].self_device_us == 0
+    with profiling.device_window(cpu=False, record_shapes=True) as window:  # no CUDA: the host's activity all the same
+        torch.ones(3, 4) @ torch.ones(4, 5)
+    assert window.events == [] and ((3, 4), (4, 5)) in {tuple(r.input_shapes) for r in
+                                                       window.operators(group_by_input_shape=True)}
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """CUDA stood in for: ``is_available`` true, ``torch.profiler.profile``
+    a session that records its arguments, the port's trace state and graph
+    history fresh. Yields the sessions started."""
+    sessions = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: sessions.append(kw) or contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "_traces", {"cupti_since": None, "torn_down": None})
+    monkeypatch.setattr(cuda_graph, "history", cuda_graph._History())
+    return sessions
+
+
+def test_a_cuda_trace_after_a_teardown_is_refused(fake_cuda, monkeypatch):
+    """A window that ends with TEARDOWN_CUPTI other than 0 is recorded, and
+    the next CUDA window raises before it starts a session; with 0 (the
+    port's value) windows follow one another."""
+    monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    for _ in range(2):
+        with profiling.device_window():
+            pass
+    assert len(fake_cuda) == 2 and profiling._traces["torn_down"] is None
+    monkeypatch.setenv("TEARDOWN_CUPTI", "1")
+    with profiling.device_window():
+        pass
+    assert profiling._traces["torn_down"] == "1"
+    with pytest.raises(profiling.TraceRefused, match="TEARDOWN_CUPTI=1"):
+        with profiling.device_window():
+            pass
+    assert len(fake_cuda) == 3
+
+
+def release(history):
+    history.released = history.tick()
+
+
+def shared_capture(history):
+    history.shared_after = history.released
+
+
+def test_a_trace_after_a_release_and_a_shared_capture_is_refused(fake_cuda, monkeypatch):
+    """Releases and shared-pool captures before the first trace (a fresh
+    process's history) refuse nothing; a release after it alone, or a shared
+    capture with no release after it, neither; a release then a shared
+    capture after it, every later CUDA trace."""
+    monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    history = cuda_graph.history
+    release(history)
+    shared_capture(history)
+    with profiling.device_window():
+        pass
+    shared_capture(history)  # after no release since the first trace
+    with profiling.device_window():
+        pass
+    release(history)
+    with profiling.device_window():
+        pass
+    assert profiling.refusal(True) is None and len(fake_cuda) == 3
+    shared_capture(history)
+    assert "captured into a shared pool" in profiling.refusal(True) and profiling.refusal(False) is None
+    with pytest.raises(profiling.TraceRefused, match="cudaGraphLaunch"):
+        with profiling.device_window():
+            pass
+    assert len(fake_cuda) == 3
+
+
+def profiler_imports(path) -> list:
+    """The lines of ``path`` that import ``torch.profiler`` (or
+    ``torch.autograd.profiler``) or reach it as an attribute."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Attribute) and node.attr == "profiler":
+            names = [ast.unparse(node)]
+        else:
+            continue
+        if any(n.startswith(("torch.profiler", "torch.autograd.profiler")) for n in names):
+            found.append(node.lineno)
+    return found
+
+
+def test_only_the_profiling_module_imports_torch_profiler():
+    paths = [REPO / "chip_smoke.py", REPO / "chip_probe21.py", *sorted((REPO / "ptt_tpu_torch").rglob("*.py"))]
+    found = {str(p.relative_to(REPO)): lines for p in paths if (lines := profiler_imports(p))}
+    assert found == {"ptt_tpu_torch/utils/profiling.py": found.get("ptt_tpu_torch/utils/profiling.py")}
+    assert found["ptt_tpu_torch/utils/profiling.py"]
 
 
 def test_train_bench_and_demo_run_on_the_cpu(capsys):
