@@ -232,6 +232,8 @@ import time
 import numpy as np
 import torch
 
+from ptt_tpu_torch.utils import timer
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(REPO, "tests", "assets", "ptt_synth_trained.npz")
 
@@ -275,6 +277,15 @@ def log(msg):
 def fail(msg):
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def launch_counts(*keys) -> dict:
+    """The kernel wrappers' launch counts since the last ``timer.reset()``
+    (``tools.kernel_launches``), of ``keys`` or of every kernel."""
+    from ptt_tpu_torch.tools import kernel_launches
+
+    counts = kernel_launches()
+    return {k: counts[k] for k in keys or counts}
 
 
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
@@ -1041,7 +1052,6 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, g
     ``graph_rows``. Returns (rows by kernel, launches of one batch)."""
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
     from ptt_tpu_torch.nn import build_network, set_use_kernels
-    from ptt_tpu_torch.ops import fps, sa
 
     torch.manual_seed(SEED)
     model = build_network(cfg["MODEL"], device=device)
@@ -1059,10 +1069,10 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, g
     del calls
 
     ev = DeviceTrackingEvaluator(cfg, model, max_points=2048, batch_size=8, device=device)
-    fps.launches = sa.launches = 0
+    timer.reset()
     results = ev.track_batch(bench)
     torch.cuda.synchronize()
-    launches = {"fps": fps.launches, "sa": sa.launches}
+    launches = launch_counts("fps", "sa")
     steps = len(bench[0][0]) - 1
     centers = np.array([[b.center for b in trk] for trk in results])
     log(f"{tag} {name} tracker, one batch of the benchmark workload: launches {launches} over {steps} frame steps "
@@ -1805,7 +1815,7 @@ def train_phase(cfg, device, card):
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
     from ptt_tpu_torch.nn import build_network, set_use_kernels
-    from ptt_tpu_torch.ops import fps, group, point_ops, sa
+    from ptt_tpu_torch.ops import fps, point_ops
     from ptt_tpu_torch.train.optim import Optimizer
     from ptt_tpu_torch.train.train_step import make_train_step
     from ptt_tpu_torch.train.trainer import Trainer
@@ -1854,23 +1864,22 @@ def train_phase(cfg, device, card):
     # which differ by rounding, cannot make the two steps pick other points
     model, opt = fresh(True)
     same_model, same_opt = fresh(False)
-    fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+    timer.reset()
     kernel_losses, per_step, stepwise, checked, changed = [], [], [], [], []
     for batch in batches:
         same_model.load_state_dict(model.state_dict())
         same_opt.load_state_dict(opt.state_dict())
-        before = (fps.launches, group.fwd_launches, group.bwd_launches)
+        before = launch_counts("fps", "group_fwd", "group_bwd").values()
         with FpsReplay(fps, point_ops) as replay:
             k = step(model, opt, batch)
             replay.start()
             p = step(same_model, same_opt, batch)
-        per_step.append(tuple(a - b for a, b in zip((fps.launches, group.fwd_launches, group.bwd_launches), before)))
+        per_step.append(tuple(a - b for a, b in zip(launch_counts("fps", "group_fwd", "group_bwd").values(), before)))
         kernel_losses.append(float(k["loss"]))
         stepwise.append(tuple(abs(float(k[m]) - float(p[m])) / abs(float(p[m])) for m in ("loss", "grad_norm")))
         checked.append(replay.checked)
         changed.append(replay.changed)
-    launches = {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches,
-                "group_bwd": group.bwd_launches}
+    launches = launch_counts()
     del same_model, same_opt
     def rel(xs, ys):
         return [f"{abs(a - b) / abs(b):.1e}" for a, b in zip(xs, ys)]
@@ -2693,7 +2702,7 @@ def waymo_train_phase(device, card):
     a step, peak memory. Returns phase 6's rows at these shapes."""
     from ptt_tpu_torch.config import config_by_path, ptt_synth_config
     from ptt_tpu_torch.nn import build_network
-    from ptt_tpu_torch.ops import fps, group, sa
+    from ptt_tpu_torch.ops import group
     from ptt_tpu_torch.train.optim import Optimizer
     from ptt_tpu_torch.train.train_step import make_train_step
 
@@ -2724,9 +2733,9 @@ def waymo_train_phase(device, card):
     opt = Optimizer(model.parameters(), ptt_synth_config()["OPTIMIZATION"], len(loader))
     step = make_train_step(cfg["MODEL"], device=device, graph=False)  # eager: phase 21d takes the graphed step
     torch.cuda.reset_peak_memory_stats()
-    fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+    timer.reset()
     losses = [float(step(model, opt, b)["loss"]) for b in batches]
-    launches = {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches, "group_bwd": group.bwd_launches}
+    launches = launch_counts()
     ms = median_step_ms(step, model, opt, [batches[0]] * 5)
     peak = torch.cuda.max_memory_allocated()
     log(f"[14] the loader at 8192 / 2048 points: one train item {item_ms(loader.dataset):.2f} ms in one thread "
@@ -2876,7 +2885,6 @@ def train_graph_phase(device, card):
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
     from ptt_tpu_torch.nn import build_network
-    from ptt_tpu_torch.ops import fps, group, sa
     from ptt_tpu_torch.train.optim import Optimizer
     from ptt_tpu_torch.train.train_step import BatchUploader, make_multi_step, make_train_step, stack_batches
     from ptt_tpu_torch.train.trainer import Trainer, pipelined_steps
@@ -2897,7 +2905,7 @@ def train_graph_phase(device, card):
         return net, Optimizer(net.parameters(), optim_cfg, n_iters)
 
     def zero_counts():
-        fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+        timer.reset()
 
     # (a) the one-step graph: its key's first dispatch (the eager warm-up step, then the capture) on batch 5, the
     # state put back in place (the graph reads the parameters, statistics and moments by address), 5 replays
@@ -3207,7 +3215,6 @@ def shared_pool_phase(device, card, weights, waymo_ref) -> dict:
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
     from ptt_tpu_torch.nn import build_network
-    from ptt_tpu_torch.ops import fps, group, sa
     from ptt_tpu_torch.train.trainer import Trainer
     from ptt_tpu_torch.utils.cuda_graph import read_launches
 
@@ -3238,7 +3245,7 @@ def shared_pool_phase(device, card, weights, waymo_ref) -> dict:
         scalars = Scalars()
         trainer = Trainer(net, cfg["MODEL"], dict(cfg["OPTIMIZATION"], **optim), loader, os.path.join(out_dir, name),
                           logger, total_epochs=epochs, device=device, tb_writer=scalars, graph=graph)
-        fps.launches = sa.launches = group.fwd_launches = group.bwd_launches = 0
+        timer.reset()
         try:
             trainer.train()
         finally:
@@ -3629,9 +3636,9 @@ def point_rank(job_dir) -> int:
 
             whole, whole_sa = ops(), sa_call()
             with mesh_ctx.use_point_group(group):
-                before = mesh_ctx.gathers
+                before = timer.counter("mesh.gathers")
                 split, split_sa = ops(), sa_call()
-                gathers = mesh_ctx.gathers - before
+                gathers = timer.counter("mesh.gathers") - before
             plain = sa.fused_sa_plain(xyz, centers, None, stage.radius, stage.nsample, weights, biases)
             equal = {k: all(torch.equal(a, b) for a, b in zip(v, whole[k])) if isinstance(v, tuple)
                      else torch.equal(v, whole[k]) for k, v in split.items()}
@@ -4041,7 +4048,7 @@ def main() -> int:
     from ptt_tpu_torch.config import config_by_path, p2b_synth_config, ptt_large_config, ptt_synth_config
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
     from ptt_tpu_torch.nn import set_use_kernels
-    from ptt_tpu_torch.ops import _build, fps, sa
+    from ptt_tpu_torch.ops import _build
     from ptt_tpu_torch.tools.bench_setup import agreement_setup
 
     t_start = time.perf_counter()
@@ -4082,11 +4089,11 @@ def main() -> int:
 
     # 4. the tracker on the trained weights
     ev = DeviceTrackingEvaluator(cfg, model, max_points=1024, batch_size=8, device=device)
-    fps.launches = sa.launches = 0
+    timer.reset()
     t0 = time.perf_counter()
     results = ev.track_batch(agreement)
     torch.cuda.synchronize()
-    launches = {"fps": fps.launches, "sa": sa.launches}
+    launches = launch_counts("fps", "sa")
     s = ev.summary()
     steps = 32 - 1  # 24 frames pad to the 32-frame bucket; frame 0 is the given box
     log(f"[4] tracker: {s['frames']} frames in {time.perf_counter() - t0:.2f} s (first batch); "

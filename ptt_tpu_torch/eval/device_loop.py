@@ -36,6 +36,14 @@ on the GPU, and the evaluator says so (``graph_mode``): gloo's gathers run on
 the host and cannot be captured in a CUDA graph. The ranks draw the same
 uniforms, from the same seed at every dispatch, never one derived from the
 rank, and each dispatch checks that they hold the same clouds.
+
+The evaluator's and the frame loop's host work are spans of ``utils/timer.py``
+(recorded while tracing is on): ``evaluator.dispatch`` (request id: the
+dispatch's sequence number) with its children ``evaluator.pack``,
+``frame_loop.load`` (the draws, ``load``, ``start``) and ``frame_loop.steps``
+(the enqueue of the batch's T - 1 frame steps, its ``n``); ``evaluator.wait``
+while a batch's boxes are not yet back; ``evaluator.score`` (``n``: the frames
+scored).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import math
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,7 +60,7 @@ import torch
 from .. import native, resolve_device
 from ..core import geometry as geo
 from ..ops import mesh_ctx
-from ..utils import cuda_graph
+from ..utils import cuda_graph, timer
 from .evaluator import (aggregation_mode, anno_scene_frame, ref_box_mode, result_file_name, result_line,
                         save_candidate_pcd)
 from .metrics import Evaluator, merged_main_metrics
@@ -278,11 +287,13 @@ class FrameLoop:
         if self.ref_mode != "PREVIOUS_RESULT" and gt_boxes is None:
             raise ValueError(f"REF_BOX={self.ref_mode} needs the gt_boxes (B, T, 4) array")
         B, T, N = pcs.shape[:3]
-        s = self.allocate(B, T, N, pcs.dtype, gt_boxes is not None, pcs.device)
-        self.load(s, pcs, counts, init_boxes, wlhs, *self.draw(generator, B, T, pcs.device), gt_boxes)
-        self.start(s)
-        for _ in range(T - 1):
-            self.step(s)
+        with timer.span("frame_loop.load"):
+            s = self.allocate(B, T, N, pcs.dtype, gt_boxes is not None, pcs.device)
+            self.load(s, pcs, counts, init_boxes, wlhs, *self.draw(generator, B, T, pcs.device), gt_boxes)
+            self.start(s)
+        with timer.span("frame_loop.steps", n=T - 1):
+            for _ in range(T - 1):
+                self.step(s)
         return s.boxes, s.scores
 
 
@@ -312,6 +323,18 @@ def tracker_graph_key(pcs, has_gt: bool, model) -> tuple:
     model's ``cuda_graph.model_signature``."""
     B, T, N = pcs.shape[:3]
     return B, T, N, pcs.dtype, has_gt, cuda_graph.model_signature(model)
+
+
+class Dispatched(NamedTuple):
+    """A dispatched batch (``DeviceTrackingEvaluator.dispatch_batch``): its
+    boxes (pinned host memory on the GPU, filled once ``done`` has
+    happened), its tracklets, and the dispatch's sequence number, the request
+    id of its spans."""
+
+    boxes: torch.Tensor
+    done: object  # a torch.cuda.Event, or None on the CPU
+    tracklets: list
+    request: int
 
 
 class DeviceTrackingEvaluator:
@@ -352,6 +375,7 @@ class DeviceTrackingEvaluator:
         # captured frame steps by batch shape (GPU)
         self.graphs = cuda_graph.GraphCache(cuda_graph.GRAPH_CACHE_SIZE)
         self.generator = torch.Generator(device=self.device)  # reseeded at every dispatch
+        self.dispatches = 0
         self.evaluator = Evaluator(ref_coord=str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")))
         # the C++ scorer takes the lidar BEV footprint
         self._native_score = str(cfg["DATA_CONFIG"].get("REF_COOR", "lidar")).lower() == "lidar"
@@ -397,21 +421,25 @@ class DeviceTrackingEvaluator:
         The generator is reseeded first, so the batch's draws depend on the seed
         alone. The draws are made as the work is enqueued: an earlier batch still
         running on the device drew all of its own before this call."""
-        self.generator.manual_seed(self.seed)
         if len(tracklets) > self.batch_size:
             raise ValueError(f"dispatch_batch got {len(tracklets)} tracklets > batch_size={self.batch_size}")
-        batch = self._pack(tracklets)
-        mesh_ctx.check_same_data([v.numpy() for v in batch.values() if v is not None], "tracklets")
-        boxes = self._track(batch)
-        done = None
-        if self.device.type == "cuda":
-            # copied out in stream order, before the next batch can overwrite them,
-            # into pinned memory, so that finish_batch waits for this copy alone and
-            # not for the batches enqueued after it
-            boxes = torch.empty(boxes.shape, dtype=boxes.dtype, pin_memory=True).copy_(boxes, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        return boxes, done, tracklets
+        request = self.dispatches
+        self.dispatches += 1
+        with timer.span("evaluator.dispatch", request):
+            self.generator.manual_seed(self.seed)
+            with timer.span("evaluator.pack"):
+                batch = self._pack(tracklets)
+            mesh_ctx.check_same_data([v.numpy() for v in batch.values() if v is not None], "tracklets")
+            boxes = self._track(batch)
+            done = None
+            if self.device.type == "cuda":
+                # copied out in stream order, before the next batch can overwrite them,
+                # into pinned memory, so that finish_batch waits for this copy alone and
+                # not for the batches enqueued after it
+                boxes = torch.empty(boxes.shape, dtype=boxes.dtype, pin_memory=True).copy_(boxes, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return Dispatched(boxes, done, tracklets, request)
 
     def _pack(self, tracklets) -> dict:
         """The batch as host tensors: pcs (B, T_pad, n_pad, 3) int16 (float32
@@ -476,29 +504,36 @@ class DeviceTrackingEvaluator:
             state = self.loop.allocate(B, T, N, pcs.dtype, batch["gt_boxes"] is not None, self.device)
             entry = self.graphs.put(key, cuda_graph.GraphEntry(state))
         s = entry.state
-        self.loop.load(s, batch["pcs"], batch["counts"], batch["init_boxes"], batch["wlhs"],
-                       *self.loop.draw(self.generator, B, T, self.device), batch["gt_boxes"])
-        self.loop.start(s)
-        steps = T - 1
-        if entry.graph is None:
-            entry.graph = cuda_graph.StepGraph(lambda: self.loop.step(s), self.device)
-            steps -= 1
-        for _ in range(steps):
-            entry.graph.replay()
+        with timer.span("frame_loop.load"):
+            self.loop.load(s, batch["pcs"], batch["counts"], batch["init_boxes"], batch["wlhs"],
+                           *self.loop.draw(self.generator, B, T, self.device), batch["gt_boxes"])
+            self.loop.start(s)
+        with timer.span("frame_loop.steps", n=T - 1):
+            steps = T - 1
+            if entry.graph is None:
+                entry.graph = cuda_graph.StepGraph(lambda: self.loop.step(s), self.device)
+                steps -= 1
+            for _ in range(steps):
+                entry.graph.replay()
         return s.boxes
 
     @staticmethod
-    def boxes(handle) -> torch.Tensor:
+    def boxes(handle: Dispatched) -> torch.Tensor:
         """Wait for a dispatched batch and return its (B, T, 4) boxes on the host."""
-        boxes, done, _ = handle
-        if done is not None:
-            done.synchronize()
-        return boxes
+        if handle.done is not None and not handle.done.query():
+            with timer.span("evaluator.wait", handle.request):
+                handle.done.synchronize()
+        return handle.boxes
 
-    def finish_batch(self, handle):
+    def finish_batch(self, handle: Dispatched):
         """Wait for a dispatched batch, score it, and return per-tracklet lists of
         predicted ``Box``es."""
-        return self._score(self.boxes(handle).numpy(), handle[2])
+        boxes = self.boxes(handle)
+        with timer.span("evaluator.score", handle.request) as span:
+            results = self._score(boxes.numpy(), handle.tracklets)
+            if span is not None:
+                span.n = sum(len(r) for r in results)
+        return results
 
     def track_batch(self, tracklets):
         """Track and score ``tracklets`` in chunks of ``batch_size``."""

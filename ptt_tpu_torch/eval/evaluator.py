@@ -252,16 +252,17 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id="?", logger=None, result_dir
     which tracked its shard."""
     emit = logger.info if logger is not None else print
     emit(f"*************** EPOCH {epoch_id} EVALUATION *****************")
-    timer.reset()
+    timer.reset(counters=False)  # the table's sections; the process's counters run on
     final_dir = Path(result_dir) / "final_result" / "data" if result_dir else None
     ev = TrackingEvaluator(cfg, model, output_dir=final_dir, device=device,
                            pcd_dir=Path(result_dir) / "pcd" if result_dir else None)
     start = time.perf_counter()
-    for batch in dataloader:
-        for pcs, boxes, annos in batch:
-            ev.test_tracklet(pcs, boxes, annos)
-            emit(f"tracklet {ev.batch_num}: batch Succ/Prec {ev.evaluator.Success_batch.average:.1f}/"
-                 f"{ev.evaluator.Precision_batch.average:.1f}  ({ev.fps:.1f} fps)")
+    with timer.tracing():  # the frames' three sections, for print_stats
+        for batch in dataloader:
+            for pcs, boxes, annos in batch:
+                ev.test_tracklet(pcs, boxes, annos)
+                emit(f"tracklet {ev.batch_num}: batch Succ/Prec {ev.evaluator.Success_batch.average:.1f}/"
+                     f"{ev.evaluator.Precision_batch.average:.1f}  ({ev.fps:.1f} fps)")
     summary = ev.summary()
     ev.close()
     elapsed = time.perf_counter() - start

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from ..ops import _build
+from ..utils import timer
 
 _SRC = Path(__file__).resolve().parent / "ptt_native.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
@@ -69,6 +70,7 @@ def build() -> Path:
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     out = subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)], capture_output=True, text=True)
+    timer.count("kernels.builds")
     if out.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed to build {_SRC.name}:\n{out.stdout}{out.stderr}")

@@ -9,6 +9,7 @@ Libraries go to ``build/ptt_tpu_torch/`` beside the package (``set_build_dir``
 names another directory), named by a hash of source, the shared headers
 (``csrc/*.cuh``) and flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. The native host library (``native/``) is built there too.
+Each ``nvcc`` or ``g++`` run counts one ``kernels.builds`` (``utils/timer.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils import timer
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptt_tpu_torch"
@@ -106,6 +109,7 @@ def build(names=SOURCES) -> None:
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         build_log[name] = (time.perf_counter() - start, log)
+        timer.count("kernels.builds")
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)

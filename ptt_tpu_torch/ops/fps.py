@@ -9,10 +9,8 @@ import ctypes
 
 import torch
 
+from ..utils import timer
 from . import _build, point_ops
-
-# kernel launches made through furthest_point_sample (a run resets it to 0)
-launches = 0
 
 # The kernel's forms, (largest N, warps a row, points a thread), as csrc/fps.cu
 # states them (FPS_FORMS): a cloud runs in the first form that holds it, a thread
@@ -103,7 +101,6 @@ def furthest_point_sample_packed(xyz: torch.Tensor, npoint: int, warps: int, pts
 
 
 def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    global launches
     if xyz.device.type != "cuda":
         raise ValueError(f"furthest_point_sample: no kernel for device {xyz.device}")
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
@@ -118,7 +115,7 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     with guard:
         err = fn(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
     _build.check_launch(err, "fps")
-    launches += 1
+    timer.count("launches.fps")
     return out
 
 

@@ -20,14 +20,9 @@ import functools
 
 import torch
 
+from ..utils import timer
 from . import _build
 from .point_ops import ball_query, group_points, query_and_group, radius_sq
-
-# launches made through group_forward / group_backward (a run resets them to 0):
-# one per call each; a backward call is three kernels (CSR build, chunk sums,
-# combine of the few long segments), counted as one
-fwd_launches = 0
-bwd_launches = 0
 
 
 def fold_inputs(xyz, new_xyz, features, w1, radius: float, normalize_xyz: bool = True,
@@ -279,7 +274,6 @@ def _check(name, t, dtype=torch.float32):
 
 
 def _launch_fwd(xyz, new_xyz, z, off, radius, nsample):
-    global fwd_launches
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz), ("z", z), ("off", off)):
         _check(name, t)
     B, N, _ = xyz.shape
@@ -296,7 +290,7 @@ def _launch_fwd(xyz, new_xyz, z, off, radius, nsample):
         err = fn(xyz.data_ptr(), new_xyz.data_ptr(), z.data_ptr(), off.data_ptr(), out.data_ptr(),
                  idx.data_ptr(), B, N, M, nsample, H, radius_sq(radius), stream)
     _build.check_launch(err, "group_forward")
-    fwd_launches += 1
+    timer.count("launches.group_fwd")
     return out, idx
 
 
@@ -315,7 +309,6 @@ def _bwd_scratch(B: int, n: int, M: int, ns: int, device_index: int):
 
 
 def _launch_bwd(dd, idx, n):
-    global bwd_launches
     _check("dD", dd)
     _check("idx", idx, torch.int32)
     B, ns, M, H = dd.shape
@@ -334,7 +327,7 @@ def _launch_bwd(dd, idx, n):
         err = fn(dd.data_ptr(), idx.data_ptr(), scratch.data_ptr(), partial.data_ptr(), dz.data_ptr(),
                  B, n, M, ns, H, stream)
     _build.check_launch(err, "group_backward")
-    bwd_launches += 1
+    timer.count("launches.group_bwd")  # one a call, of three kernels (CSR build, chunk sums, long segments)
     return dz
 
 

@@ -25,10 +25,7 @@ import contextlib
 import contextvars
 from dataclasses import dataclass
 
-# gathers made by shard_pointwise and the bytes they brought in (this rank's
-# slice included); a run reads the difference
-gathers = 0
-gathered_bytes = 0
+from ..utils import timer
 
 
 @dataclass(frozen=True)
@@ -110,13 +107,13 @@ def check_same_data(arrays, what: str) -> None:
 
 def gather_rows(x, group: PointGroup):
     """The group's row slices of ``x`` gathered along dim 1 (``utils/dist.py``
-    ``all_gather_rows``), counted in ``gathers`` and ``gathered_bytes``."""
-    global gathers, gathered_bytes
+    ``all_gather_rows``), counted in ``mesh.gathers`` and, with this rank's
+    slice, ``mesh.gathered_bytes``."""
     from ..utils import dist
 
     out = dist.all_gather_rows(x, group.group)
-    gathers += 1
-    gathered_bytes += out.numel() * out.element_size()
+    timer.count("mesh.gathers")
+    timer.count("mesh.gathered_bytes", out.numel() * out.element_size())
     return out
 
 

@@ -25,14 +25,9 @@ import ctypes
 
 import torch
 
+from ..utils import timer
 from . import _build, mesh_ctx
 from .point_ops import _point_group_for, ball_query, query_and_group, radius_sq
-
-# kernel launches made through fused_sa_inference (a run resets it to 0)
-launches = 0
-# the launches above made on a slice of the centers under a point group, by the
-# stage's whole center count M (a run resets it to {})
-split_launches: dict = {}
 
 _MAX_TAIL = 4  # tail layers the kernel takes (csrc/sa.cu kMaxTail)
 _NSAMPLES = (16, 32, 64)  # a center's rows are whole warps of the kernel's 16-row fragments
@@ -129,7 +124,7 @@ def fused_sa_inference(xyz, new_xyz, features, radius: float, nsample: int, weig
                                                          dtype=torch.int32, device=xyz.device)
     out = _launch(xyz, new_xyz[:, rows].contiguous(), features, w1, b1, weights[1:], biases[1:], radius, nsample,
                   normalize_xyz, use_xyz, local_idx)[0]
-    split_launches[M] = split_launches.get(M, 0) + 1
+    timer.count(f"launches.sa_split.{M}")  # a launch on a slice of the centers, by the stage's whole M
     if idx_out is not None:
         idx_out.copy_(mesh_ctx.gather_rows(local_idx, group))
     return mesh_ctx.gather_rows(out, group)
@@ -199,7 +194,6 @@ def _launch(xyz, new_xyz, features, w1, b1, tail_w, tail_b, radius, nsample, nor
             idx_out):
     """Returns (out, Z, O): the stage's output and layer 0 over the points and
     the centers as the kernels left it (``_first_layer`` is its plain version)."""
-    global launches
     tensors = [("xyz", xyz), ("new_xyz", new_xyz), ("weights[0]", w1), ("biases[0]", b1)]
     if features is not None:
         features = features.float().contiguous()
@@ -244,5 +238,5 @@ def _launch(xyz, new_xyz, features, w1, b1, tail_w, tail_b, radius, nsample, nor
                  idx_out.data_ptr() if idx_out is not None else None,
                  B, N, M, nsample, radius_sq(radius), stream)
     _build.check_launch(err, "sa")
-    launches += 1
+    timer.count("launches.sa")
     return out, z, off

@@ -5,9 +5,10 @@
 
 Configurations are chosen by their ``tools/cfgs/`` path (``config.config_by_path``)
 and run on the GPU unless ``--device cpu`` is given. Each CLI logs, as its last
-line, ``summary`` and a JSON object of its results and the kernel launches it
-made. With ``--launcher pytorch`` each is one rank of the processes ``torchrun``
-started (``launch``).
+line, ``summary`` and a JSON object of its results, the kernel launches it
+made, the graphs it captured and the kernel libraries it built. With
+``--launcher pytorch`` each is one rank of the processes ``torchrun`` started
+(``launch``).
 
 The JAX package's other tools are modules here too, each with ``main(argv)``
 and ``--device`` (default cuda): ``train_bench``, ``demo_tracking``,
@@ -23,10 +24,18 @@ import json
 
 def kernel_launches() -> dict:
     """The launch counts of the port's CUDA kernels in this process so far."""
-    from ..ops import fps, group, sa
+    from ..utils import timer
+    from ..utils.cuda_graph import LAUNCHES
 
-    return {"fps": fps.launches, "sa": sa.launches, "group_fwd": group.fwd_launches,
-            "group_bwd": group.bwd_launches}
+    return {name.split(".", 1)[1]: timer.counter(name) for name in LAUNCHES}
+
+
+def build_counts() -> dict:
+    """The CUDA graphs captured and the kernel libraries built (``nvcc`` or
+    ``g++``) in this process so far."""
+    from ..utils import timer
+
+    return {"graph_captures": timer.counter("graph.captures"), "kernel_builds": timer.counter("kernels.builds")}
 
 
 def describe_device(device) -> str:

@@ -163,7 +163,7 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
     from ..ops.mesh_ctx import use_point_group
     from ..utils.common import create_logger, set_manual_seed
     from ..utils.dist import data_shard
-    from . import describe_process, kernel_launches, summary_line
+    from . import build_counts, describe_process, kernel_launches, summary_line
 
     check_ported(cfg, training=False)
     device = resolve_device(args.device)
@@ -186,7 +186,7 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
                                  logger=logger, training=False, num_shards=shards, shard_id=shard)
     load_seconds = time.perf_counter() - t0
     model = build_network(cfg["MODEL"], device=device)
-    before, split_before = kernel_launches(), point_split_counts()
+    before, split_before, built_before = kernel_launches(), point_split_counts(), build_counts()
     try:
         with use_point_group(group):
             if args.eval_all:
@@ -200,7 +200,8 @@ def evaluate(args, cfg: dict, rank: int, world: int) -> int:
     finally:
         loader.close()
     record.update(dataset_seconds=load_seconds,
-                  launches={key: n - before[key] for key, n in kernel_launches().items()}, world_size=world)
+                  launches={key: n - before[key] for key, n in kernel_launches().items()},
+                  **{key: n - built_before[key] for key, n in build_counts().items()}, world_size=world)
     if group is not None:
         split = point_split_counts()
         record["point_group"] = {
@@ -230,9 +231,11 @@ def point_group(cfg: dict, rank: int, world: int):
 def point_split_counts() -> dict:
     """The point-axis counters so far: gathers, the bytes they brought in, and
     the SA launches on a slice of the centers by the stage's center count."""
-    from ..ops import mesh_ctx, sa
+    from ..utils import timer
 
-    return {"gathers": mesh_ctx.gathers, "gathered_bytes": mesh_ctx.gathered_bytes, "sa_split": dict(sa.split_launches)}
+    prefix = "launches.sa_split."
+    return {"gathers": timer.counter("mesh.gathers"), "gathered_bytes": timer.counter("mesh.gathered_bytes"),
+            "sa_split": {int(name[len(prefix):]): n for name, n in timer.counters(prefix).items()}}
 
 
 if __name__ == "__main__":

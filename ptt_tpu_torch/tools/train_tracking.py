@@ -82,7 +82,7 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     from ..train.checkpoint import load_params_from_file, resolve_checkpoint_path
     from ..train.trainer import Trainer
     from ..utils.common import create_logger, set_manual_seed
-    from . import describe_process, kernel_launches, summary_line
+    from . import build_counts, describe_process, kernel_launches, summary_line
 
     check_ported(cfg, training=True)
     device = resolve_device(args.device)
@@ -151,7 +151,7 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     first_epoch, first_iter = trainer.start_epoch, trainer.accumulated_iter
 
     logger.info("**********************Start training**********************")
-    t0, before = time.perf_counter(), kernel_launches()
+    t0, before, built_before = time.perf_counter(), kernel_launches(), build_counts()
     try:
         trainer.train()
     finally:
@@ -164,6 +164,7 @@ def train(args, cfg: dict, rank: int, world: int) -> int:
     logger.info(summary_line({
         "epochs": [first_epoch, trainer.total_epochs], "steps": [first_iter, trainer.accumulated_iter],
         "train_seconds": seconds - evals["seconds"], "launches": launches, "eval_launches": evals["launches"],
+        **{key: n - built_before[key] for key, n in build_counts().items()},
         "eval": evals["results"], "checkpoints": trainer.ckpt.epochs(), "world_size": world}))
     return 0
 

@@ -49,7 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..nn.losses import compute_losses
-from ..utils import cuda_graph
+from ..utils import cuda_graph, timer
 from ..utils.dist import all_reduce_mean_, get_dist_info
 from .bn_momentum import MODEL_BN_MOMENTUM, flax_bn_factors, set_bn_factors
 
@@ -170,7 +170,11 @@ class TrainStep:
     MODEL_BN_MOMENTUM in every BatchNorm for these steps. ``metrics`` is a
     (K, len(names)) tensor on the device, this dispatch's own: the loss
     terms, ``loss`` and ``grad_norm`` (before clipping) of each step, in a
-    process group the global batch's.
+    process group the global batch's. A call is the span
+    ``train_step.dispatch`` (``utils/timer.py``; request id the optimizer's
+    count before it, ``n`` = K); a replay, the graph's launch and the copy of
+    its metrics, is its child ``train_step.replay``, so that the dispatch's
+    self time is the host's own work.
 
     With ``graphed`` (the GPU, unless ``graph_mode`` says otherwise or the
     caller passed ``graph=False``) each key's first dispatch makes its graph
@@ -223,17 +227,18 @@ class TrainStep:
         return torch.stack(rows)
 
     def __call__(self, model, optimizer, stacked: dict, bn_momentum=None) -> torch.Tensor:
-        model.train()
-        bn = flax_bn_factors(MODEL_BN_MOMENTUM if bn_momentum is None else bn_momentum)
-        hyper = optimizer.hyper_rows(self.k)
-        if self.device.type == "cuda":
-            bn = bn.pin_memory()  # so that its copy to the device does not wait for the device
-        if self.graphed:
-            out = self._replay(model, optimizer, stacked, hyper, bn)
-        else:
-            out = self.body(model, optimizer, to_device(stacked, self.device),
-                            hyper.to(self.device, non_blocking=True), bn.to(self.device, non_blocking=True))
-        optimizer.count += self.k
+        with timer.span("train_step.dispatch", optimizer.count, self.k):
+            model.train()
+            bn = flax_bn_factors(MODEL_BN_MOMENTUM if bn_momentum is None else bn_momentum)
+            hyper = optimizer.hyper_rows(self.k)
+            if self.device.type == "cuda":
+                bn = bn.pin_memory()  # so that its copy to the device does not wait for the device
+            if self.graphed:
+                out = self._replay(model, optimizer, stacked, hyper, bn)
+            else:
+                out = self.body(model, optimizer, to_device(stacked, self.device),
+                                hyper.to(self.device, non_blocking=True), bn.to(self.device, non_blocking=True))
+            optimizer.count += self.k
         return out
 
     def _replay(self, model, optimizer, stacked, hyper, bn) -> torch.Tensor:
@@ -260,8 +265,9 @@ class TrainStep:
             # graphs keeps them, so that releasing the graphs frees the whole pool
             optimizer.zero_grad()
             return entry.graph.first.clone()
-        entry.graph.replay()
-        return entry.graph.output.clone()
+        with timer.span("train_step.replay"):  # a launch, which may wait for the device
+            entry.graph.replay()
+            return entry.graph.output.clone()
 
     def metrics(self, out: torch.Tensor) -> list:
         """The K rows of a dispatch's metrics as dicts of 0-dim tensors."""

@@ -22,6 +22,13 @@ what lets K > 1 train ``ptt_large.yaml`` and ``ptt_waymo.yaml`` on one card.
 The BatchNorm momentum of a schedule is read from the device, so each graph
 serves every epoch.
 
+The loop's host work is spans of ``utils/timer.py`` (recorded while tracing
+is on): ``trainer.steps`` (the whole pass, ``n`` its steps), ``trainer.fetch``
+(the next group from the loader, which holds the loader's wait) and
+``trainer.upload`` (stacking and ``BatchUploader.put``, ``n`` the bytes
+staged), each with the index of the group's first step as its request id, as
+the step's own ``train_step.dispatch`` has.
+
 In a process group (data parallelism, ``train/train_step.py``) every rank
 starts from rank 0's parameters and buffers, broadcast at construction and
 after ``resume``; only rank 0 writes tensorboard scalars and checkpoints, and
@@ -38,6 +45,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..config import steps_per_dispatch
+from ..utils import timer
 from ..utils.cuda_graph import CaptureContext
 from ..utils.dist import broadcast_module, get_dist_info
 from .bn_momentum import bn_momentum_for_epoch
@@ -72,22 +80,36 @@ def pipelined_steps(step, model, optimizer, batches, uploader: BatchUploader, bn
     k = 1 if multi_step is None else multi_step.k
     groups = _groups(batches, k)
     history = []
+    fetched = optimizer.count  # the index of the next fetched group's first step
 
     def put():
-        group = next(groups, None)
-        return None if group is None else (len(group), uploader.put(stack_batches(group)))
+        nonlocal fetched
+        with timer.span("trainer.fetch", fetched):
+            group = next(groups, None)
+        if group is None:
+            return None
+        with timer.span("trainer.upload", fetched) as span:
+            stacked = stack_batches(group)
+            if span is not None:
+                span.n = sum(value.nbytes for value in stacked.values())
+            uploaded = uploader.put(stacked)
+        fetched += len(group)
+        return len(group), uploaded
 
-    pending = put()
-    while pending is not None:
-        n, uploaded = pending
-        stacked = uploader.take(uploaded)
-        if n == k and multi_step is not None:
-            history.extend(multi_step.metrics(multi_step(model, optimizer, stacked, bn_momentum)))
-        else:
-            for j in range(n):
-                history.append(step(model, optimizer, {key: value[j] for key, value in stacked.items()},
-                                    bn_momentum))
+    with timer.span("trainer.steps") as span:
         pending = put()
+        while pending is not None:
+            n, uploaded = pending
+            stacked = uploader.take(uploaded)
+            if n == k and multi_step is not None:
+                history.extend(multi_step.metrics(multi_step(model, optimizer, stacked, bn_momentum)))
+            else:
+                for j in range(n):
+                    history.append(step(model, optimizer, {key: value[j] for key, value in stacked.items()},
+                                        bn_momentum))
+            pending = put()
+        if span is not None:
+            span.n = len(history)
     return history
 
 

@@ -31,9 +31,11 @@ captured anew rather than replayed stale; ``train_graph_key`` adds what a
 train step depends on.
 
 A replay runs no Python wrapper, so the kernels' launch counters
-(``ops/fps.py`` ``launches`` and the others) are advanced by what the capture
-counted, once per replay; the capture itself launches nothing and counts
-nothing.
+(``LAUNCHES``: counters of ``utils/timer.py`` that each wrapper advances) are
+advanced by what the capture counted, once per replay; the capture itself
+launches nothing and counts nothing. A ``StepGraph``'s eager run and capture
+are the span ``graph.capture``, and each capture counts one
+``graph.captures``.
 
 ``history`` keeps the order of two events for ``utils/profiling.py``: the
 last release of a graph, and the release that the last capture into a
@@ -46,6 +48,8 @@ from __future__ import annotations
 import itertools
 import time
 from collections import OrderedDict
+
+from . import timer
 
 GRAPH_CACHE_SIZE = 4  # captured shapes a caller keeps
 
@@ -66,19 +70,18 @@ class _History:
 history = _History()
 
 
-def _counters():
-    from ..ops import fps, group, sa
-
-    return ((fps, "launches"), (sa, "launches"), (group, "fwd_launches"), (group, "bwd_launches"))
+# the kernel wrappers' launch counters (``ops/fps.py``, ``ops/sa.py``, ``ops/group.py``)
+LAUNCHES = ("launches.fps", "launches.sa", "launches.group_fwd", "launches.group_bwd")
 
 
 def read_launches() -> tuple:
-    return tuple(getattr(mod, name) for mod, name in _counters())
+    return tuple(timer.counter(name) for name in LAUNCHES)
 
 
-def _set_launches(values) -> None:
-    for (mod, name), value in zip(_counters(), values):
-        setattr(mod, name, value)
+def _add_launches(values) -> None:
+    for name, value in zip(LAUNCHES, values):
+        if value:
+            timer.count(name, value)
 
 
 def model_signature(model) -> tuple:
@@ -153,6 +156,11 @@ class StepGraph:
     raises."""
 
     def __init__(self, body, device, context=None):
+        with timer.span("graph.capture"):
+            self._capture(body, device, context)
+        timer.count("graph.captures")
+
+    def _capture(self, body, device, context) -> None:
         import torch
 
         self.context = CaptureContext(device) if context is None else context
@@ -173,7 +181,7 @@ class StepGraph:
                 self.output = body()
         finally:
             counted = read_launches()
-            _set_launches(before)
+            _add_launches(tuple(b - a for a, b in zip(counted, before)))
         self.context.live += 1
         self.capture_s = time.perf_counter() - t0
         self.launches = tuple(a - b for a, b in zip(counted, before))
@@ -185,7 +193,7 @@ class StepGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        _set_launches(tuple(a + b for a, b in zip(read_launches(), self.launches)))
+        _add_launches(self.launches)
 
     def pool_bytes(self) -> int:
         """Device memory reserved by the graph's pool (shared with the other

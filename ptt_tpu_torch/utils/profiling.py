@@ -10,7 +10,9 @@ counts each top-level stage with ``torch.utils.flop_counter.FlopCounterMode``,
 and ``train_step_flops`` a train step's forward and backward.
 ``device_window`` opens the port's ``torch.profiler`` sessions, with the
 CUPTI settings a process that replays CUDA graphs needs already in place, and
-reads back the device's activity; ``trace`` records a timeline through it.
+reads back the device's activity; ``trace`` records a timeline through it;
+``annotation`` is the ``record_function`` that ``utils/timer.py`` enters for
+each of its spans while a session is active.
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
-
-from . import cuda_graph
 
 
 def count_parameters(model: nn.Module) -> dict:
@@ -184,6 +184,8 @@ class TraceRefused(RuntimeError):
 def refusal(cuda: bool) -> str | None:
     """Why a trace may not start now (None if it may): the two states of
     ``device_window``'s docstring."""
+    from . import cuda_graph  # here: utils/timer.py imports this module, and cuda_graph imports timer
+
     if not cuda:
         return None
     if _traces["torn_down"] is not None:
@@ -288,6 +290,8 @@ def device_window(cpu: bool = True, record_shapes: bool = False):
     here)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from . import cuda_graph
+
     settings = profiler_setup()
     cuda = torch.cuda.is_available()
     reason = refusal(cuda)
@@ -304,12 +308,21 @@ def device_window(cpu: bool = True, record_shapes: bool = False):
             _traces["torn_down"] = settings["TEARDOWN_CUPTI"]
 
 
+def annotation(name: str):
+    """A ``record_function`` named ``name``: a host span on the trace of the
+    active session."""
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
 @contextmanager
 def trace(log_dir):
     """A ``torch.profiler`` timeline of the block, the device's too where CUDA
     is present, written to ``log_dir/trace.json`` (Chrome trace format, for
-    Perfetto or chrome://tracing); opened by ``device_window``. Yields the
-    profiler."""
+    Perfetto or chrome://tracing); opened by ``device_window``, so it holds
+    every ``utils/timer.py`` span of the block as a ``ptt.<name>`` annotation.
+    Yields the profiler."""
     os.makedirs(log_dir, exist_ok=True)
     with device_window() as window:
         yield window.profiler

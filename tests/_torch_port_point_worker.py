@@ -55,12 +55,13 @@ def run(job, rank, group):
     from ptt_tpu_torch.nn.transformer import TransformerBlock
     from ptt_tpu_torch.ops import mesh_ctx, point_ops
     from ptt_tpu_torch.parallel import sharded_ops
+    from ptt_tpu_torch.utils import timer
 
     inp = torch.load(os.path.join(job["dir"], "inputs.pt"), weights_only=False)
     q, r, feats = inp["query"], inp["ref"], inp["feats"]
     out = {}
     with mesh_ctx.use_point_group(group):
-        before = mesh_ctx.gathers
+        before = timer.counter("mesh.gathers")
         out["square_distance"] = point_ops.square_distance(q, r)
         out["ball_query"] = point_ops.ball_query(inp["radius"], 16, r, q)
         out["knn"] = point_ops.knn(16, q, r)
@@ -71,7 +72,7 @@ def run(job, rank, group):
         out["three_interpolate"] = point_ops.three_interpolate(inp["known_feats"], idx, weight)
         out["ffps_square_distance"] = point_ops.square_distance(feats, feats)
         out["ffps"] = sample_indices("ffps", q, 64, features=feats)
-        out["dispatch_gathers"] = mesh_ctx.gathers - before
+        out["dispatch_gathers"] = timer.counter("mesh.gathers") - before
         out["sharded_square_distance"] = sharded_ops.sharded_square_distance(q, r, group)
         out["sharded_knn"] = sharded_ops.sharded_knn(16, q, r, group)
         out["sharded_ball_query"] = sharded_ops.sharded_ball_query(inp["radius"], 16, r, q, group)
@@ -89,11 +90,11 @@ def run(job, rank, group):
         point_ops.MIN_SHARD_POINTS = job["min_shard_points"]
         model = build_network(inp["model_cfg"], device="cpu")
         model.load_state_dict(inp["model_state"], strict=True)
-        before = mesh_ctx.gathers
+        before = timer.counter("mesh.gathers")
         with torch.no_grad():
             pred = model(inp["batch"])
         out["forward"] = {k: pred[k] for k in ("pred_box_data", "search_inds", "template_inds")}
-        out["forward_gathers"] = mesh_ctx.gathers - before
+        out["forward_gathers"] = timer.counter("mesh.gathers") - before
     return out
 
 

@@ -354,6 +354,7 @@ def test_ptt_synth_ps_evaluates_on_one_device(narrow, cli_root):
     rec = _summary(text)
     assert np.isfinite(rec["success"]) and len((run / "final_result" / "data" / "track_result.txt")
                                                .read_text().splitlines()) == 8
+    assert rec["graph_captures"] == 0 and rec["kernel_builds"] in (0, 1)  # the CPU: no graph; the native scorer
 
 
 def _p2b_sets(narrow):
@@ -387,6 +388,7 @@ def test_train_cli_steps(narrow, cli_root, cfg_file, optimizer, precision):
     assert f"optimizer={optimizer or 'adam'} with the step lr schedule" in text
     rec = _summary(text)
     assert rec["steps"] == [0, 2] and rec["checkpoints"] == [1]
+    assert rec["graph_captures"] == rec["kernel_builds"] == 0  # the CPU: the eager step, no kernel
     assert np.isfinite(float(text.split("  loss ")[-1].split()[0]))
 
 
