@@ -188,7 +188,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      --seed-out`` (refused), side by side with phase 19's ``demo_tracking``
      beside phase 16 (their checks are results, not times), then
      (e) ``compile_diag`` cold and warm and (g) ``train_ablate --iters 4``
-     one at a time.
+     one at a time;
+  23. (run after 3) ``csrc/tf32x3.cu``, the eval-mode float32 product, at the
+     eight products of a frame step (B = 8): error against float64 within
+     twice cuBLAS float32's, ms of the kernel, its plain version and the
+     library layer (cuBLAS GEMM, BatchNorm, ReLU), its bound, device time of
+     its two kernels, and the crossover against the library layer; phase 4
+     also counts its 8 launches a frame step.
 Every trace goes through the port's profiler window (``utils/profiling.py``
 ``device_window``, which keeps CUPTI subscribed for the process); a window
 without the device's activity, which the profiler still returns now and
@@ -205,6 +211,7 @@ tracker (which would otherwise outlive it by a moment), then ends and reaps
 whatever else is still below it, and logs what it stopped (``stop_children``).
 ``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, and
 ``--point-rank DIR`` phase 20a's, not a run;
+``python3 chip_smoke.py --tf32x3`` runs the build and phase 23 alone;
 ``python3 chip_smoke.py --loader-start`` times the loader's start by start
 method (``loader_start``), and ``python3 chip_smoke.py --trace-cost`` what a
 trace that keeps CUPTI attached costs the graphed work after it
@@ -2401,7 +2408,7 @@ def kitti_train_phase(model, batch, device, card):
                 f"CLI wall {wall:.1f} s; card {card}")
             if rec["epochs"] != [first, epochs] or rec["checkpoints"] != list(range(1, epochs + 1)):
                 fail(f"[12] --epochs {epochs}: epochs {rec['epochs']}, checkpoints {rec['checkpoints']}")
-            if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n} or \
+            if rec["launches"] != {"fps": 2 * n, "sa": 0, "group_fwd": 7 * n, "group_bwd": 7 * n, "tf32x3": 0} or \
                     n != KITTI_TRAIN_STEPS * (epochs - first):
                 fail(f"[12] {n} steps with launches {rec['launches']}, not {KITTI_TRAIN_STEPS} steps an epoch of "
                      f"2 FPS + 7 + 7 group")
@@ -2596,7 +2603,7 @@ def dist_train_phase(device, card, tmp):
         fail(f"[18a] steps 1-2 of the ranks differ from one process beyond rel {DIST_FAULT_RTOL}")
     if not equal or ranks[0]["metrics"] != ranks[1]["metrics"]:
         fail("[18a] the two ranks' states differ after training")
-    want = {"fps": 2 * DIST_STEPS, "sa": 0, "group_fwd": 7 * DIST_STEPS, "group_bwd": 7 * DIST_STEPS}
+    want = {"fps": 2 * DIST_STEPS, "sa": 0, "group_fwd": 7 * DIST_STEPS, "group_bwd": 7 * DIST_STEPS, "tf32x3": 0}
     if any(r["launches"] != want for r in ranks):
         fail(f"[18a] launches a rank {[r['launches'] for r in ranks]}, not {want}")
     # 21f: under a process group the train step stays eager (gloo's collectives run from the host)
@@ -2747,7 +2754,7 @@ def waymo_train_phase(device, card):
         f"({peak / 2**30:.2f} GiB); card {card}")
     if not all(np.isfinite(losses)):
         fail("[14] ptt_waymo training: non-finite loss")
-    if launches != {"fps": 6, "sa": 0, "group_fwd": 21, "group_bwd": 21}:
+    if launches != {"fps": 6, "sa": 0, "group_fwd": 21, "group_bwd": 21, "tf32x3": 0}:
         fail(f"[14] ptt_waymo training launches {launches}, not 2 FPS and 7 + 7 group a step")
     del model, opt
     torch.cuda.empty_cache()
@@ -2941,7 +2948,7 @@ def train_graph_phase(device, card):
     out["a_launches"] = replays
     if len(set(losses)) != 5:
         fail("[21a] the 5 replays' losses are not 5 values (a replay's output read after the next)")
-    if g1.launches != (2, 0, 7, 7) or replays != {"fps": 10, "sa": 0, "group_fwd": 35, "group_bwd": 35}:
+    if g1.launches != (2, 0, 7, 7, 0) or replays != {"fps": 10, "sa": 0, "group_fwd": 35, "group_bwd": 35}:
         fail(f"[21a] launches a replay {g1.launches}, over 5 replays {replays}: not 2 FPS + 7 + 7 group a step")
     # under deterministic algorithms (the gather's backward without atomics) graph and eager are one arithmetic
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2992,7 +2999,7 @@ def train_graph_phase(device, card):
         fail("[21b] the K = 4 graph's table is not the optimizer's schedules")
     if tuple(g4.pool) != tuple(g1.pool):
         fail("[21b] the K = 4 graph is not in the one-step graph's pool")
-    if g4.launches != (8, 0, 28, 28):
+    if g4.launches != (8, 0, 28, 28, 0):
         fail(f"[21b] launches a K = 4 replay {g4.launches}, not 4 x (2 FPS + 7 + 7 group)")
 
     # (c) the Trainer's loop over pre-made batches, eager and graphed, K = 1 and 4, alternated
@@ -3075,7 +3082,7 @@ def train_graph_phase(device, card):
         f"{peak_reserved / 2**30:.2f} GiB reserved (phase 14's line gives its eager steps'); card {card}")
     out["d_waymo"] = {"losses": wlosses, "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
                       "pool_gib": gw.pool_bytes() / 2**30, "capture_s": gw.capture_s}
-    if not all(np.isfinite(wlosses)) or gw.launches != (2, 0, 7, 7):
+    if not all(np.isfinite(wlosses)) or gw.launches != (2, 0, 7, 7, 0):
         fail("[21d] the graphed ptt_waymo step is not finite or does not launch 2 FPS + 7 + 7 group a step")
     wstep.steps.close()
     del wmodel, wopt, wstep, gw
@@ -3356,7 +3363,7 @@ def shared_pool_phase(device, card, weights, waymo_ref) -> dict:
         fail("[21f] ptt_waymo: not 3 finite steps")
     if graphed["captures"] != [1, 1] or len(graphed["pools"]) != 1:
         fail(f"[21f] ptt_waymo: captures {graphed['captures']}, pools {graphed['pools']}")
-    if graphed["graph_launches"] != {1: (2, 0, 7, 7), 2: (4, 0, 14, 14)} or \
+    if graphed["graph_launches"] != {1: (2, 0, 7, 7, 0), 2: (4, 0, 14, 14, 0)} or \
             graphed["launches"] != {"fps": 6, "sa": 0, "group_fwd": 21, "group_bwd": 21}:
         fail(f"[21f] ptt_waymo: launches {graphed['graph_launches']}, {graphed['launches']}: not 2, 0, 7, 7 a step")
     if not all(step0.values()):
@@ -3581,6 +3588,134 @@ def gemm_layers(cfg, batch, device, card, top: int = 6):
         log(f"  kernel {us / 1e3:8.3f} ms {n:4d}x  {name[:100]}")
     del model
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- the float32 product kernel (phase 23)
+
+PEAK_TF32X3 = 495e12 / 3  # float32 operations a second: dense TF32 over the three passes of the split product
+TF32X3_ERR_FACTOR = 2.0  # the kernel's error against float64 at most this times cuBLAS float32's
+TF32X3_TIMED = 20  # calls a timing
+# the eight products of a ptt.yaml frame step at B = 8: (layers, M, K, N, epilogue)
+TF32X3_SHAPES = [(f"{head} {layer}", m, 512, 512, epi) for head, m in (("centroid", 16384), ("box", 8192))
+                 for layer, epi in (("fc_delta.2", "bias"), ("fc_gamma.0", "bias+relu"), ("fc_gamma.2", "bias"))] + \
+                [(f"similarity mlp.{i}", 65536, 256, 256, "bn+relu") for i in (1, 2)]
+# (K, N) and M of the crossover sweep against cuBLAS
+TF32X3_SWEEP = [((512, 512), (1024, 2048, 3072, 4096, 8192)), ((256, 256), (2048, 4096, 6144, 8192, 16384))]
+
+
+def tf32x3_operands(m, k, n, epilogue, device, seed=0):
+    """x (m, k) >= 0 (a ReLU's output, as these layers' inputs), a Linear's (n, k)
+    weight and the epilogue's bias or eval BatchNorm vectors, seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.relu(torch.randn(m, k, generator=gen)).to(device)
+    w = (torch.randn(n, k, generator=gen) / k ** 0.5).to(device)
+    bias = bn = None
+    if epilogue.startswith("bias"):
+        bias = (0.1 * torch.randn(n, generator=gen)).to(device)
+    elif epilogue.startswith("bn"):
+        bn = tuple(t.to(device) for t in (torch.rand(n, generator=gen) + 0.5, 0.1 * torch.randn(n, generator=gen),
+                                          0.1 * torch.randn(n, generator=gen), torch.rand(n, generator=gen) + 0.5))
+        bn = bn + (1e-5,)
+    return x, w, bias, bn, epilogue.endswith("relu")
+
+
+def tf32x3_library(x, w, bias, bn, relu):
+    """The same layer as the port ran it before the kernel: cuBLAS's float32
+    GEMM (``F.linear``), then eval BatchNorm and ReLU as separate kernels."""
+    import torch.nn.functional as F
+
+    y = F.linear(x, w, bias)
+    if bn is not None:
+        y = F.batch_norm(y, bn[2], bn[3], bn[0], bn[1], False, 0.0, bn[4])
+    return torch.relu(y) if relu else y
+
+
+def tf32x3_float64(x, w, bias, bn, relu):
+    y = x.double() @ w.double().t()
+    if bias is not None:
+        y = y + bias.double()
+    if bn is not None:
+        y = (y - bn[2].double()) / torch.sqrt(bn[3].double() + bn[4]) * bn[0].double() + bn[1].double()
+    return torch.relu(y) if relu else y
+
+
+def tf32x3_err(got, ref) -> float:
+    """|got - ref| over |ref|, Frobenius norms."""
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+def tf32x3_phase(card) -> dict:
+    """Phase 23: ``csrc/tf32x3.cu`` at the eight products of a ptt.yaml frame
+    step (B = 8): error against float64 beside cuBLAS float32's on the same
+    inputs (at most TF32X3_ERR_FACTOR times it) and the plain version's; ms a
+    call by events with the host's enqueue hidden (``queued_ms``) for the
+    kernel, the plain version on the card and the library layer (cuBLAS GEMM,
+    BatchNorm, ReLU: ``library_ms``); the bound (three-pass operations at
+    165 TFLOP/s or bytes at 3.35 TB/s); the device time of the split and main
+    kernels by the profiler; then the crossover against the library layer
+    that ``ops/linear.py`` ``MIN_ROWS`` rests on."""
+    from ptt_tpu_torch.ops import linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    rows, calls = [], []
+    for name, m, k, n, epi in TF32X3_SHAPES:
+        x, w, bias, bn, relu = tf32x3_operands(m, k, n, epi, device)
+        ref = tf32x3_float64(x, w, bias, bn, relu)
+        err = {path: tf32x3_err(fn(x, w, bias, bn, relu), ref) for path, fn in
+               (("kernel", linear.linear_tf32x3), ("library", tf32x3_library), ("plain", linear.linear_tf32x3_plain))}
+        ms = {path: queued_ms(lambda fn=fn: fn(x, w, bias, bn, relu), TF32X3_TIMED) for path, fn in
+              (("kernel", linear.linear_tf32x3), ("library", tf32x3_library), ("plain", linear.linear_tf32x3_plain))}
+        nbytes = 4 * (m * k + n * k + m * n + (4 if bn is not None else 1) * n)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * m * k * n / PEAK_TF32X3 * 1e3
+        bms, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        rows.append({"layers": name, "shape": [m, k, n], "epilogue": epi, "err": err["kernel"],
+                     "library_err": err["library"], "plain_err": err["plain"], "ms": ms["kernel"],
+                     "library_ms": ms["library"], "plain_ms": ms["plain"], "bound_ms": bms, "bound_by": by})
+        calls.append((x, w, bias, bn, relu))
+        log(f"[23] {name} {m} x {k} x {n} ({epi}): rel err vs float64 kernel {err['kernel']:.3e}, cuBLAS "
+            f"{err['library']:.3e}, plain {err['plain']:.3e}; ms kernel {ms['kernel']:.4f}, library "
+            f"{ms['library']:.4f}, plain {ms['plain']:.4f}, bound {bms:.4f} ({by}, {100 * bms / ms['kernel']:.1f}%)")
+    timer.reset()
+    parts = kernel_ms(lambda: [linear.linear_tf32x3(*c) for c in calls], 5, ("tf32x3_split", "tf32x3_gemm"))
+    launches = timer.counter("launches.tf32x3")
+    total = {key: sum(r[key] for r in rows) for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    log(f"[23] the eight products: kernel {total['ms']:.4f} ms, library {total['library_ms']:.4f}, plain "
+        f"{total['plain_ms']:.4f}, bound {total['bound_ms']:.4f} ({100 * total['bound_ms'] / total['ms']:.1f}% of it); "
+        f"device ms of the eight by kernel: {by_kernel(parts)}; launches counted {launches}; card {card}")
+    bad = [r["layers"] for r in rows if not r["err"] <= TF32X3_ERR_FACTOR * r["library_err"]]
+    if bad:
+        fail(f"[23] the kernel's error is above {TF32X3_ERR_FACTOR} x cuBLAS float32's at {bad}")
+    if launches == 0 or launches % len(calls):
+        fail(f"[23] launches.tf32x3 counted {launches}, not a multiple of the {len(calls)} calls made at a time")
+    sweep = []
+    for (k, n), ms_ in TF32X3_SWEEP:
+        for m in ms_:
+            x, w, bias, bn, relu = tf32x3_operands(m, k, n, "bias", device)
+            kern = queued_ms(lambda: linear.linear_tf32x3(x, w, bias, bn, relu), TF32X3_TIMED)
+            lib = queued_ms(lambda: tf32x3_library(x, w, bias, bn, relu), TF32X3_TIMED)
+            sweep.append({"shape": [m, k, n], "ms": kern, "library_ms": lib,
+                          "routed": linear.takes_kernel(m, k, n, torch.float32, device, False)})
+    log("[23] crossover (M x K x N: kernel / library ms, routed to the kernel): " + "; ".join(
+        f"{r['shape'][0]} x {r['shape'][1]} x {r['shape'][2]}: {r['ms']:.4f} / {r['library_ms']:.4f}"
+        f"{' (kernel)' if r['routed'] else ''}" for r in sweep))
+    return {"rows": rows, "total": total, "device_ms": parts, "sweep": sweep}
+
+
+def tf32x3_only() -> int:
+    """``--tf32x3``: the build and phase 23 alone."""
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke.py runs on a GPU")
+        return 1
+    from ptt_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    card = gpu_line()
+    _build.build()
+    out = tf32x3_phase(card)
+    log(f"[time] build and phase 23: {time.perf_counter() - t_start:.1f} s")
+    print("tf32x3 " + json.dumps(out), flush=True)
+    return 0
 
 
 # ------------------------------------------------------------ point sharding (phase 20)
@@ -4086,6 +4221,9 @@ def main() -> int:
 
     # 3. whole forward, kernel path against plain path
     check_forward(model, batch, "[3]", trained=True)
+    # 23. the eval-mode float32 product kernel at the frame step's eight products
+    phase23 = tf32x3_phase(card)
+    log(f"[time] phases 1-3 and 23: {time.perf_counter() - t_start:.1f} s")
 
     # 4. the tracker on the trained weights
     ev = DeviceTrackingEvaluator(cfg, model, max_points=1024, batch_size=8, device=device)
@@ -4093,7 +4231,7 @@ def main() -> int:
     t0 = time.perf_counter()
     results = ev.track_batch(agreement)
     torch.cuda.synchronize()
-    launches = launch_counts("fps", "sa")
+    launches = launch_counts("fps", "sa", "tf32x3")
     s = ev.summary()
     steps = 32 - 1  # 24 frames pad to the 32-frame bucket; frame 0 is the given box
     log(f"[4] tracker: {s['frames']} frames in {time.perf_counter() - t0:.2f} s (first batch); "
@@ -4106,8 +4244,8 @@ def main() -> int:
         fail("tracker: wrong frame count or non-finite boxes")
     if s["success"] < 50.0:
         fail(f"tracker: Success {s['success']:.2f} < 50")
-    if launches != {"fps": 2 * steps, "sa": 7 * steps}:
-        fail(f"tracker: launches {launches}, expected 2 and 7 per frame step over {steps} steps")
+    if launches != {"fps": 2 * steps, "sa": 7 * steps, "tf32x3": 8 * steps}:
+        fail(f"tracker: launches {launches}, expected 2, 7 and 8 per frame step over {steps} steps")
     device_launches = profile_batch(ev, agreement, s["frames"], "[4]", quiet=True)["launches"]
     check_device_launches("[4]", device_launches, 2, steps)
     ev.close()
@@ -4246,6 +4384,14 @@ def main() -> int:
              "device_ms": r[f"{pre}_device_ms"], "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound"],
              "bound_by": r[f"{pre}_by"], **({"library_ms": r["lib_ms"]} if pre == "bwd" else {})}
             for config, rs_ in (("ptt_synth.yaml", group_rows), ("ptt_waymo.yaml", waymo_group_rows)) for r in rs_]
+    rows23 = phase23["rows"]
+    record["kernels"].append({
+        "name": "tf32x3", "route": "cuda", "source": "ptt_tpu_torch/csrc/tf32x3.cu", "replaces": None,
+        "launches": launches["tf32x3"], "max_rel_err": max(r["err"] for r in rows23),
+        "ms": phase23["total"]["ms"], "plain_ms": phase23["total"]["plain_ms"], "bound_ms": phase23["total"]["bound_ms"],
+        "bound_by": "operations", "library_ms": phase23["total"]["library_ms"], "device_ms": phase23["device_ms"],
+        "launches_by_path": {"ptt.yaml tracker (agreement batch)": launches["tf32x3"]},
+        "shapes": [{"config": "ptt.yaml", **r} for r in rows23], "crossover": phase23["sweep"]})
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log("data_parallel " + json.dumps(phase18))
     log("point_sharding " + json.dumps(phase20))
@@ -4414,6 +4560,8 @@ if __name__ == "__main__":
         sys.exit(phase21_only())
     if sys.argv[1:2] == ["--trace-cost"]:
         sys.exit(trace_cost())
+    if sys.argv[1:2] == ["--tf32x3"]:
+        sys.exit(tf32x3_only())
     if sys.argv[1:2] == ["--trace-cost-process"]:  # a process of --trace-cost
         sys.exit(trace_cost_process(sys.argv[2] == "traced"))
     sys.exit(main())

@@ -31,6 +31,15 @@ autocast: a linear layer computes in the promoted type of its input and
 weights (``Linear``, ``matmul``: bf16 weights under a float32 input compute in
 float32), BatchNorm takes its statistics in float32 and returns the promoted
 type of its input and parameters, and the running statistics stay float32.
+
+Eval-mode products on the card: a ``Linear`` call that ``ops/linear.py``
+``takes_kernel`` accepts (CUDA float32, no autograd, K and N on the kernel's
+tiles, M at or above its crossover), in eval mode with ``use_kernels`` on
+(``nn.set_use_kernels``), is one launch of ``csrc/tf32x3.cu`` with the bias in
+its epilogue; so is ``mlp2``'s Linear -> ReLU, and ``SharedMLP``'s Linear ->
+eval BatchNorm -> ReLU, the ReLU and the BatchNorm's scale and shift in the
+epilogue too. Every other call runs as before (``F.linear``, then the
+BatchNorm and ReLU modules); a CUDA float32 one counts ``linear.plain``.
 """
 
 from __future__ import annotations
@@ -41,20 +50,48 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import linear as linear_ops
 from ..ops.sa import fold_bn
+from ..utils import timer
 from ..utils.dist import all_reduce_sum, get_dist_info
 
 BN_EPS = 1e-5
 
 
+def _takes_kernel(lin: nn.Linear, x: torch.Tensor, bn=None) -> bool:
+    """Whether ``lin`` on ``x``, then ``bn`` if given, is one launch of the
+    eval-mode product kernel (module docstring). Counts ``linear.plain`` for a
+    CUDA float32 call that it leaves to ``F.linear``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        return False
+    k = lin.in_features
+    if (lin.use_kernels and not lin.training and (bn is None or (not bn.training and lin.bias is None))
+            and lin.weight.dtype == torch.float32 and x.is_contiguous()
+            and linear_ops.takes_kernel(x.numel() // k, k, lin.out_features, x.dtype, x.device,
+                                        torch.is_grad_enabled())):
+        return True
+    timer.count("linear.plain")
+    return False
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` whose input, weight and bias meet in their promoted type,
-    as in flax's Dense (a float32 input under bf16 weights computes in float32)."""
+    as in flax's Dense (a float32 input under bf16 weights computes in float32).
+    ``bn`` (a ``BatchNorm``) and ``relu`` follow the product, in the kernel's
+    epilogue where the call takes it (module docstring)."""
 
-    def forward(self, x):
+    use_kernels = True
+
+    def forward(self, x, bn=None, relu: bool = False):
+        if _takes_kernel(self, x, bn):
+            vectors = None if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+            return linear_ops.linear_tf32x3(x, self.weight, self.bias, bn=vectors, relu=relu)
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        y = F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        if bn is not None:
+            y = bn(y)
+        return torch.relu(y) if relu else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -125,9 +162,17 @@ class BatchNorm(nn.BatchNorm1d):
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
+class MLP2(nn.Sequential):
+    """Linear -> ReLU -> Linear, submodules ``0``, ``1``, ``2``; the ReLU is
+    applied by the first Linear, in its epilogue where it takes the kernel."""
+
+    def forward(self, x):
+        return self[2](self[0](x, relu=True))
+
+
 def mlp2(c_in: int, hidden: int, c_out: int) -> nn.Sequential:
     """Linear -> ReLU -> Linear (the JAX package's MLP2)."""
-    return nn.Sequential(Linear(c_in, hidden), nn.ReLU(), Linear(hidden, c_out))
+    return MLP2(Linear(c_in, hidden), nn.ReLU(), Linear(hidden, c_out))
 
 
 class SharedMLP(nn.Module):
@@ -146,15 +191,13 @@ class SharedMLP(nn.Module):
         (in, out) weight, for callers that compute layer 0 in a cheaper
         decomposed form (CosineSimAug). Layer 0 is bias-free under BatchNorm."""
         for i, lin in enumerate(self.linears):
+            bn = self.bns[i] if self.bn else None
             if i == 0 and first_linear_apply is not None:
                 if not self.bn:
                     raise ValueError("first_linear_apply needs the bias-free layer 0 of a BatchNorm stack")
-                x = first_linear_apply(lin.weight.t())
+                x = torch.relu(bn(first_linear_apply(lin.weight.t())))
             else:
-                x = lin(x)
-            if self.bn:
-                x = self.bns[i](x)
-            x = torch.relu(x)
+                x = lin(x, bn=bn, relu=True)
         return x
 
     def folded(self):

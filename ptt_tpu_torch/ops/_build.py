@@ -28,7 +28,7 @@ from ..utils import timer
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptt_tpu_torch"
-SOURCES = ("fps", "sa", "group")
+SOURCES = ("fps", "sa", "group", "tf32x3")
 NVCC_FLAGS = [
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -58,6 +58,8 @@ _FUNCTIONS = {
     "group_backward_scratch": ("group", [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)]),
     "group_backward_order": ("group", [_i, ctypes.POINTER(_i), ctypes.POINTER(_i), ctypes.POINTER(_i)]),
     "group_csr_ranges": ("group", [_i, ctypes.POINTER(_i)]),
+    "tf32x3_linear": ("tf32x3", [_p, _p, _p, _p, _p, _p, _p, ctypes.c_float, _p, _p, _p, _i, _i, _i, _i, _p]),
+    "tf32x3_prep_floats": ("tf32x3", [_i, _i]),
 }
 
 _loaded: dict = {}  # entry point -> its ctypes function; "native" -> the host library

@@ -70,8 +70,8 @@ class _History:
 history = _History()
 
 
-# the kernel wrappers' launch counters (``ops/fps.py``, ``ops/sa.py``, ``ops/group.py``)
-LAUNCHES = ("launches.fps", "launches.sa", "launches.group_fwd", "launches.group_bwd")
+# the kernel wrappers' launch counters (``ops/fps.py``, ``ops/sa.py``, ``ops/group.py``, ``ops/linear.py``)
+LAUNCHES = ("launches.fps", "launches.sa", "launches.group_fwd", "launches.group_bwd", "launches.tf32x3")
 
 
 def read_launches() -> tuple:

@@ -297,7 +297,7 @@ def test_graph_capture_span_and_counter(monkeypatch):
     the capture counted."""
     def capture(self, body, device, context):
         self.first = self.output = body()
-        self.launches = (2, 7, 0, 0)
+        self.launches = (2, 7, 0, 0, 8)
         self.graph = type("G", (), {"replay": lambda g: None})()
 
     monkeypatch.setattr(cuda_graph.StepGraph, "_capture", capture)
@@ -307,8 +307,8 @@ def test_graph_capture_span_and_counter(monkeypatch):
     for _ in range(3):
         g.replay()
     assert build_counts() == {"graph_captures": 1, "kernel_builds": 0}
-    assert kernel_launches() == {"fps": 6, "sa": 21, "group_fwd": 0, "group_bwd": 0}
-    assert cuda_graph.read_launches() == (6, 21, 0, 0)
+    assert kernel_launches() == {"fps": 6, "sa": 21, "group_fwd": 0, "group_bwd": 0, "tf32x3": 24}
+    assert cuda_graph.read_launches() == (6, 21, 0, 0, 24)
 
 
 # ----------------------------------------------------------------- counters
@@ -318,18 +318,18 @@ def test_kernel_launches_and_split_counts_read_as_before():
     """``tools.kernel_launches``, ``cuda_graph.read_launches`` and the test
     CLI's ``point_split_counts`` keep their keys and values over the
     registry's counters; ``timer.reset`` zeroes them."""
-    assert kernel_launches() == {"fps": 0, "sa": 0, "group_fwd": 0, "group_bwd": 0}
+    assert kernel_launches() == {"fps": 0, "sa": 0, "group_fwd": 0, "group_bwd": 0, "tf32x3": 0}
     assert point_split_counts() == {"gathers": 0, "gathered_bytes": 0, "sa_split": {}}
     for name, n in (("launches.fps", 2), ("launches.sa", 7), ("launches.group_fwd", 7), ("launches.group_bwd", 7),
-                    ("launches.sa_split.1024", 2), ("launches.sa_split.2048", 1), ("mesh.gathers", 4),
+                    ("launches.tf32x3", 8), ("launches.sa_split.1024", 2), ("launches.sa_split.2048", 1), ("mesh.gathers", 4),
                     ("mesh.gathered_bytes", 4096)):
         timer.count(name, n)
-    assert kernel_launches() == {"fps": 2, "sa": 7, "group_fwd": 7, "group_bwd": 7}
-    assert cuda_graph.read_launches() == (2, 7, 7, 7)
+    assert kernel_launches() == {"fps": 2, "sa": 7, "group_fwd": 7, "group_bwd": 7, "tf32x3": 8}
+    assert cuda_graph.read_launches() == (2, 7, 7, 7, 8)
     assert point_split_counts() == {"gathers": 4, "gathered_bytes": 4096, "sa_split": {1024: 2, 2048: 1}}
     assert timer.counters("launches.sa_split.") == {"launches.sa_split.1024": 2, "launches.sa_split.2048": 1}
     timer.reset()
-    assert kernel_launches() == {"fps": 0, "sa": 0, "group_fwd": 0, "group_bwd": 0}
+    assert kernel_launches() == {"fps": 0, "sa": 0, "group_fwd": 0, "group_bwd": 0, "tf32x3": 0}
 
 
 def test_native_build_counts_a_kernel_build(monkeypatch, tmp_path):
