@@ -155,7 +155,7 @@ class Track:
 
     def _inputs(self, pool_idx, cache):
         if pool_idx not in cache:
-            packed = ref_frame.pack(self.pool[pool_idx], self._n_pad())
+            packed = ref_frame.pack(self.pool[pool_idx], self._n_pad(), self.ctx.seed)
             cache[pool_idx] = ref_frame.FrameInputs(packed, self.ctx.config["DATA_CONFIG"], self.ctx.config["TEST"],
                                                     self.device)
         return cache[pool_idx]

@@ -35,9 +35,12 @@ def box_vec(box) -> np.ndarray:
     return np.array([*box.center, yaw], np.float32)
 
 
-def pack(tracklets, n_pad: int) -> dict:
+def pack(tracklets, n_pad: int, seed: int) -> dict:
     """A batch of equal-length tracklets on the upload's grid: pcs (B, T, n_pad,
-    3) int16, counts (B, T), init (B, 4), wlhs (B, 3), gt (B, T, 4)."""
+    3) int16, counts (B, T), init (B, 4), wlhs (B, 3), gt (B, T, 4). A frame
+    of more than ``n_pad`` points keeps ``n_pad`` of them, drawn without
+    replacement as the tracker draws them: a ``np.random.default_rng(seed)``
+    for each tracklet, ``seed`` the tracker's, one draw for each frame cut."""
     B, T = len(tracklets), len(tracklets[0][0])
     pcs = np.zeros((B, T, n_pad, 3), np.int16)
     counts = np.zeros((B, T), np.int32)
@@ -45,8 +48,11 @@ def pack(tracklets, n_pad: int) -> dict:
     wlhs = np.zeros((B, 3), np.float32)
     gt = np.zeros((B, T, 4), np.float32)
     for b, (clouds, boxes, _) in enumerate(tracklets):
+        rng = np.random.default_rng(seed)
         for t, pc in enumerate(clouds):
             pc = np.asarray(pc, np.float32)
+            if len(pc) > n_pad:
+                pc = pc[rng.choice(len(pc), n_pad, replace=False)]
             pcs[b, t, :len(pc)] = np.clip(np.round(pc / QUANT_SCALE), -32768, 32767)
             counts[b, t] = len(pc)
         init[b] = box_vec(boxes[0])

@@ -11,7 +11,11 @@ and that the reference therefore keeps: 'sequence' center sampling (the first
 npoint points), the flax BatchNorm rule in train mode (biased batch variance),
 ball query padded with the first hit, and every point distance summed in the
 fixed order ((x*x + y*y) + z*z), which is what makes FPS and the neighbour
-sets exact on exact inputs.
+sets exact on exact inputs. The transformer blocks are PTT's TransformerBlock
+(kNN vector attention) and MulTransformerBlock (its multi-head form with
+LayerNorms, ``mul_transformer``), the latter with LayerNorm's epsilon at 1e-6,
+as the configurations' implementations declare it, where PyTorch's default
+is 1e-5; dropout is 0 in every configuration and left out.
 
 This module imports torch only: nothing of the program under test.
 """
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+LN_EPS = 1e-6
 # the last layer of the vote residual and of the proposal head start at this
 # share of their init, so that a tracker on random weights keeps to the cloud
 HEAD_SCALE = 0.1
@@ -72,9 +77,45 @@ def _transformer(specs, name, d_points, d_model):
     _linear(specs, f"{name}.fc2", d_model, d_points, True, "plain")
 
 
+def _layer_norm(specs, name, c):
+    specs.append((f"{name}.weight", (c,), "bn_weight", c))
+    specs.append((f"{name}.bias", (c,), "bn_bias", c))
+
+
+def _mul_transformer(specs, name, d_points, d_model, heads, layers):
+    h = d_model // heads
+    for i in range(layers):
+        n = f"{name}.layers.{i}"
+        _linear(specs, f"{n}.fc1", d_points, d_model, True, "plain")
+        for q in ("w_qs", "w_ks", "w_vs"):
+            _linear(specs, f"{n}.{q}", d_model, d_model, False, "plain")
+        _linear(specs, f"{n}.fc_delta.0", 3, d_model, True, "plain")
+        _linear(specs, f"{n}.fc_delta.2", d_model, d_model, True, "plain")
+        _linear(specs, f"{n}.fc_gamma.0", h, h, True, "plain")
+        _linear(specs, f"{n}.fc_gamma.2", h, h, True, "plain")
+        _linear(specs, f"{n}.proj", d_model, d_model, False, "plain")
+        _layer_norm(specs, f"{n}.norm1", d_model)
+        _linear(specs, f"{n}.fc2", d_model, d_points, True, "plain")
+        _layer_norm(specs, f"{n}.norm2", d_points)
+
+
 def _check_transformer(cfg):
-    if cfg["ENABLE"] and cfg["NAME"] != "TransformerBlock":
-        raise NotImplementedError(f"reference: transformer {cfg['NAME']!r}")
+    if not cfg["ENABLE"] or cfg["NAME"] == "TransformerBlock":
+        return
+    if cfg["NAME"] == "MulTransformerBlock" and int(cfg["DIM_MODEL"]) % int(cfg["N_HEADS"]) == 0:
+        return
+    raise NotImplementedError(f"reference: transformer {cfg['NAME']!r}")
+
+
+def _block_specs(specs, name, cfg):
+    _check_transformer(cfg)
+    if not cfg["ENABLE"]:
+        return
+    if cfg["NAME"] == "MulTransformerBlock":
+        _mul_transformer(specs, name, int(cfg["DIM_INPUT"]), int(cfg["DIM_MODEL"]), int(cfg["N_HEADS"]),
+                         int(cfg["N_LAYERS"]))
+    else:
+        _transformer(specs, name, int(cfg["DIM_INPUT"]), int(cfg["DIM_MODEL"]))
 
 
 def param_specs(model_cfg: dict) -> list:
@@ -93,20 +134,14 @@ def param_specs(model_cfg: dict) -> list:
         raise NotImplementedError("reference: CONV.BN False")
     _conv_stack(specs, "similarity_module.conv", sim["CONV"]["CHANNELS"])
     ch = model_cfg["CENTROID_HEAD"]
-    _check_transformer(ch["TRANSFORMER_BLOCK"])
-    if ch["TRANSFORMER_BLOCK"]["ENABLE"]:
-        tb = ch["TRANSFORMER_BLOCK"]
-        _transformer(specs, "centroid_voting_head.transformer_block", int(tb["DIM_INPUT"]), int(tb["DIM_MODEL"]))
+    _block_specs(specs, "centroid_voting_head.transformer_block", ch["TRANSFORMER_BLOCK"])
     _conv_stack(specs, "centroid_voting_head.cls_fc", ch["CLS_FC"]["CHANNELS"])
     _conv_stack(specs, "centroid_voting_head.reg_fc", ch["REG_FC"]["CHANNELS"], last_kind="head")
     bh = model_cfg["BOX_HEAD"]
     ch_va = list(bh["SA_CONFIG"]["MLPS"])
     ch_va[0] += 3
     _shared_mlp(specs, "box_voting_head.vote_aggregation.mlp", ch_va)
-    _check_transformer(bh["TRANSFORMER_BLOCK"])
-    if bh["TRANSFORMER_BLOCK"]["ENABLE"]:
-        tb = bh["TRANSFORMER_BLOCK"]
-        _transformer(specs, "box_voting_head.transformer_block", int(tb["DIM_INPUT"]), int(tb["DIM_MODEL"]))
+    _block_specs(specs, "box_voting_head.transformer_block", bh["TRANSFORMER_BLOCK"])
     _conv_stack(specs, "box_voting_head.fc", bh["FC"], last_kind="head")
     return specs
 
@@ -229,6 +264,13 @@ def batch_norm(P, name, x, train: bool):
     return (x - mean) / torch.sqrt(var + BN_EPS) * w + b
 
 
+def layer_norm(P, name, x):
+    """Over the last axis, biased variance, epsilon LN_EPS."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) / torch.sqrt(var + LN_EPS) * P[f"{name}.weight"] + P[f"{name}.bias"]
+
+
 def shared_mlp(P, name, x, layers: int, train: bool, bn: bool = True):
     for i in range(layers):
         x = linear(P, f"{name}.linears.{i}", x)
@@ -273,6 +315,46 @@ def transformer(P, name, xyz, features, d_model: int, k: int):
     logits = linear(P, f"{name}.fc_gamma.2", torch.relu(linear(P, f"{name}.fc_gamma.0", g)))
     attn = torch.softmax(logits / math.sqrt(d_model), dim=-2)
     return linear(P, f"{name}.fc2", (attn * (v + pos)).sum(dim=-2)) + features
+
+
+def mul_transformer(P, name, xyz, features, d_model: int, k: int, heads: int, layers: int):
+    """PTT's MulTransformerBlock: ``layers`` layers of kNN vector attention
+    with the d_model channels split into ``heads`` heads of h = d_model /
+    heads. Each layer: x = fc1(f); per head, the logits fc_gamma(q_i - k_j +
+    delta_ij) of one h -> h -> h MLP shared by the heads, softmaxed over the
+    neighbours j per channel at scale 1 / sqrt(h), weight the values v_j +
+    delta_ij; the heads concatenated in order, then norm1(proj(.)) and f <-
+    norm2(fc2(.)) + f. The neighbours (self included) depend on ``xyz`` alone,
+    so every layer has the same."""
+    idx = knn(k, xyz)
+    rel = xyz[:, :, None] - gather(xyz, idx)
+    h = d_model // heads
+
+    def split(t):  # (B, N, k or 1, d_model) -> (B, N, k or 1, heads, h)
+        return t.reshape(*t.shape[:-1], heads, h)
+
+    for i in range(layers):
+        n = f"{name}.layers.{i}"
+        x = linear(P, f"{n}.fc1", features)
+        q = linear(P, f"{n}.w_qs", x)[:, :, None]
+        kk = gather(linear(P, f"{n}.w_ks", x), idx)
+        v = gather(linear(P, f"{n}.w_vs", x), idx)
+        pos = linear(P, f"{n}.fc_delta.2", torch.relu(linear(P, f"{n}.fc_delta.0", rel)))
+        logits = linear(P, f"{n}.fc_gamma.2", torch.relu(linear(P, f"{n}.fc_gamma.0", split(q - kk + pos))))
+        attn = torch.softmax(logits / math.sqrt(h), dim=2)
+        r = (attn * split(v + pos)).sum(dim=2).flatten(-2)
+        y = layer_norm(P, f"{n}.norm1", linear(P, f"{n}.proj", r))
+        features = layer_norm(P, f"{n}.norm2", linear(P, f"{n}.fc2", y)) + features
+    return features
+
+
+def transformer_block(P, name, xyz, features, cfg: dict):
+    """The block that TRANSFORMER_BLOCK ``cfg`` names."""
+    _check_transformer(cfg)
+    if cfg["NAME"] == "MulTransformerBlock":
+        return mul_transformer(P, name, xyz, features, int(cfg["DIM_MODEL"]), int(cfg["KNN"]), int(cfg["N_HEADS"]),
+                               int(cfg["N_LAYERS"]))
+    return transformer(P, name, xyz, features, int(cfg["DIM_MODEL"]), int(cfg["KNN"]))
 
 
 # ----------------------------------------------------------------------- model
@@ -321,8 +403,7 @@ def forward(P, model_cfg: dict, search, template, train: bool = False, calls=Non
     ch = model_cfg["CENTROID_HEAD"]
     tb = ch["TRANSFORMER_BLOCK"]
     if tb["ENABLE"]:
-        fusion = transformer(P, "centroid_voting_head.transformer_block", s_xyz, fusion, int(tb["DIM_MODEL"]),
-                             int(tb["KNN"]))
+        fusion = transformer_block(P, "centroid_voting_head.transformer_block", s_xyz, fusion, tb)
     if ch.get("CLS_USE_SEARCH_XYZ", False):
         raise NotImplementedError("reference: CLS_USE_SEARCH_XYZ")
     cls = conv_stack(P, "centroid_voting_head.cls_fc", fusion, len(ch["CLS_FC"]["CHANNELS"]) - 1, train)[..., 0]
@@ -341,8 +422,7 @@ def forward(P, model_cfg: dict, search, template, train: bool = False, calls=Non
                             float(va["RADIUS"]), int(va["NSAMPLE"]), len(va["MLPS"]) - 1, train, calls)
     tb = bh["TRANSFORMER_BLOCK"]
     if tb["ENABLE"]:
-        props = transformer(P, "box_voting_head.transformer_block", centers, props, int(tb["DIM_MODEL"]),
-                            int(tb["KNN"]))
+        props = transformer_block(P, "box_voting_head.transformer_block", centers, props, tb)
     off = conv_stack(P, "box_voting_head.fc", props, len(bh["FC"]) - 1, train)
     return {"search_inds": s_inds, "pred_centroids_cls": cls, "pred_centroids_votes": vote_xyz,
             "pred_box_center": centers,
