@@ -41,9 +41,12 @@ The evaluator's and the frame loop's host work are spans of ``utils/timer.py``
 (recorded while tracing is on): ``evaluator.dispatch`` (request id: the
 dispatch's sequence number) with its children ``evaluator.pack``,
 ``frame_loop.load`` (the draws, ``load``, ``start``) and ``frame_loop.steps``
-(the enqueue of the batch's T - 1 frame steps, its ``n``); ``evaluator.wait``
-while a batch's boxes are not yet back; ``evaluator.score`` (``n``: the frames
-scored).
+(the enqueue of the batch's T - 1 frame steps, its ``n``); inside the pack,
+``evaluator.subsample`` (a tracklet's draws and gathers of its frames above
+``max_points``, ``n`` those frames); ``evaluator.wait`` while a batch's boxes
+are not yet back; ``evaluator.score`` (``n``: the frames scored). Counters:
+``frame_loop.frame_steps``, one a frame step run, eager or replayed, and
+``evaluator.subsampled_frames``.
 """
 
 from __future__ import annotations
@@ -281,6 +284,7 @@ class FrameLoop:
         s.boxes.index_copy_(1, t, new_boxes[:, None])
         s.scores.index_copy_(1, t, best[:, 4:5])
         t.add_(1)
+        timer.count("frame_loop.frame_steps")
 
     @torch.no_grad()
     def __call__(self, pcs, counts, init_boxes, wlhs, generator=None, gt_boxes=None):
@@ -402,13 +406,17 @@ class DeviceTrackingEvaluator:
         return np.array([*box.center, yaw], np.float32)
 
     def _pad_tracklet(self, pcs, T_pad, n_pad):
-        rng = np.random.default_rng(self.seed)
+        pcs = [np.asarray(pc, np.float32) for pc in pcs]
+        over = [t for t, pc in enumerate(pcs) if pc.shape[0] > n_pad]
+        if over:
+            rng = np.random.default_rng(self.seed)
+            with timer.span("evaluator.subsample", n=len(over)):
+                for t in over:
+                    pcs[t] = pcs[t][rng.choice(pcs[t].shape[0], n_pad, replace=False)]
+            timer.count("evaluator.subsampled_frames", len(over))
         out = np.zeros((T_pad, n_pad, 3), np.int16 if self.quantize else np.float32)
         counts = np.zeros((T_pad,), np.int32)
         for t, pc in enumerate(pcs):
-            pc = np.asarray(pc, np.float32)
-            if pc.shape[0] > n_pad:
-                pc = pc[rng.choice(pc.shape[0], n_pad, replace=False)]
             out[t, : pc.shape[0]] = np.clip(np.round(pc / QUANT_SCALE), -32768, 32767) if self.quantize else pc
             counts[t] = pc.shape[0]
         return out, counts

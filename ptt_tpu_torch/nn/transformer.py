@@ -9,25 +9,43 @@ Every block but ``TransformerBlockBackbone`` returns ``(features, attn)``.
 Submodule names are the flax names (``fc1``, ``w_qs``, ``fc_gamma``,
 ``layers.<i>``, ``norm1``, ...), which ``convert.py`` maps both ways.
 LayerNorm takes flax's epsilon, 1e-6 (torch's default is 1e-5).
+
+Every block's forward is the span ``transformer.block`` of ``utils/timer.py``
+(``n``: the points it attends over, batch included), recorded where the
+forward runs eagerly (a captured graph's replay runs no Python); each kNN
+search counts one ``launches.knn``, which a replay advances too.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
 
 from ..ops.point_ops import group_points, knn
+from ..utils import timer
 from .layers import LayerNorm, Linear, matmul, mlp2
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+def _traced(forward):
+    """A block's ``forward(xyz, ...)`` inside the span ``transformer.block``."""
+    @functools.wraps(forward)
+    def traced(self, xyz, *args):
+        with timer.span("transformer.block", n=xyz.shape[0] * xyz.shape[1]):
+            return forward(self, xyz, *args)
+
+    return traced
 
 
 def _neighbourhood(xyz, k):
     """kNN of every point among the points (self included): (idx (B, N, k),
     their xyz (B, N, k, 3))."""
     idx = knn(k, xyz, xyz)
+    timer.count("launches.knn")
     return idx, group_points(xyz, idx)
 
 
@@ -70,6 +88,7 @@ class TransformerBlock(_QKV):
         self.fc_gamma = mlp2(d_model, d_model, d_model)
         self.fc2 = Linear(d_model, d_points)
 
+    @_traced
     def forward(self, xyz, features):
         """(B, N, 3), (B, N, d_points) -> (features (B, N, d_points), attn (B, N, k, d_model))."""
         _, q, k, v, pos_enc = self.qkv(xyz, features)
@@ -85,6 +104,7 @@ class TransformerBlockMLP(_QKV):
         self.fc_gamma = mlp2(d_model, d_model, d_model)
         self.fc2 = mlp2(d_model, d_model, d_points)
 
+    @_traced
     def forward(self, xyz, features):
         _, q, k, v, pos_enc = self.qkv(xyz, features)
         attn, res = _attend(self.fc_gamma(q[:, :, None] - k + pos_enc), v + pos_enc, self.d_model)
@@ -99,6 +119,7 @@ class TransformerBlockOffset(_QKV):
         self.fc_gamma = mlp2(d_model, d_model, d_model)
         self.fc2 = Linear(d_model, d_points)
 
+    @_traced
     def forward(self, xyz, features):
         x, q, k, v, pos_enc = self.qkv(xyz, features)
         attn, res = _attend(self.fc_gamma(q[:, :, None] - k + pos_enc), v + pos_enc, self.d_model)
@@ -115,6 +136,7 @@ class TransformerBlockCosine(_QKV):
         self.fc_gamma = mlp2(d_model, d_model, d_model)
         self.fc2 = Linear(d_model, d_points)
 
+    @_traced
     def forward(self, xyz, features):
         _, q, k, v, pos_enc = self.qkv(xyz, features)
         q = q[:, :, None]
@@ -134,6 +156,7 @@ class TransformerBlockBackbone(_QKV):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
 
+    @_traced
     def forward(self, new_xyz, grouped_xyz, grouped_idx, features):
         x = self.fc1(features)
         q = self.w_qs(x)
@@ -154,6 +177,7 @@ class CrossAttentionBlock(_QKV):
         self.fc_gamma = mlp2(d_model, d_model, d_model)
         self.fc3 = Linear(d_model, d_points)
 
+    @_traced
     def forward(self, xyz, search_feat, template_feat):
         idx, knn_xyz = _neighbourhood(xyz, self.k)
         s = self.fc1(search_feat)
@@ -183,6 +207,7 @@ class _Global(nn.Module):
 class TransformerBlockSTD(_Global):
     """Global scalar attention: softmax(q k^T / sqrt(d)) over all points."""
 
+    @_traced
     def forward(self, xyz, features):
         x = self.fc1(features)
         q, k, v = self.w_qs(x), self.w_ks(x), self.w_vs(x)
@@ -199,6 +224,7 @@ class TransformerBlockALL(_Global):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
 
+    @_traced
     def forward(self, xyz, features):
         x = self.fc1(features)
         q, k, v = self.w_qs(x), self.w_ks(x), self.w_vs(x)
@@ -246,6 +272,7 @@ class MulTransformerBlock(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(MulHeadTransformerLayer(d_points, d_model, k, heads) for _ in range(layers))
 
+    @_traced
     def forward(self, xyz, features):
         attn = None
         for layer in self.layers:

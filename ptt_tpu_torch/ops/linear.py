@@ -19,7 +19,9 @@ near the bytes ridge (64 operations a byte against the card's 49), the
 can observe: CUDA, float32, no autograd, K and N on the kernel's tiles, and M
 at or above ``min_rows(N)``, the crossover against cuBLAS's float32 GEMM
 measured on the card (``chip_smoke.py`` phase 23). Each launch counts one
-``launches.tf32x3`` (a CUDA graph's replay adds its capture's).
+``launches.tf32x3`` and one ``launches.tf32x3.<M>x<K>x<N>`` of its shape (a
+CUDA graph's replay adds its capture's), so that a reader can price each
+shape's product.
 """
 
 from __future__ import annotations
@@ -116,4 +118,5 @@ def linear_tf32x3(x, weight, bias=None, bn=None, relu: bool = False):
                  m, k, n, int(relu), stream)
     _build.check_launch(err, "tf32x3")
     timer.count("launches.tf32x3")
+    timer.count(f"launches.tf32x3.{m}x{k}x{n}")
     return out

@@ -30,8 +30,9 @@ parameters moved, or whose kernels were switched off (``set_use_kernels``), is
 captured anew rather than replayed stale; ``train_graph_key`` adds what a
 train step depends on.
 
-A replay runs no Python wrapper, so the kernels' launch counters
-(``LAUNCHES``: counters of ``utils/timer.py`` that each wrapper advances) are
+A replay runs no Python wrapper, so the counters of ``utils/timer.py`` that
+the body advances (``REPLAYED``: every ``launches.`` counter, the kernels'
+launches, by kernel and by shape, and the frame loop's frame steps) are
 advanced by what the capture counted, once per replay; the capture itself
 launches nothing and counts nothing. A ``StepGraph``'s eager run and capture
 are the span ``graph.capture``, and each capture counts one
@@ -72,14 +73,21 @@ history = _History()
 
 # the kernel wrappers' launch counters (``ops/fps.py``, ``ops/sa.py``, ``ops/group.py``, ``ops/linear.py``)
 LAUNCHES = ("launches.fps", "launches.sa", "launches.group_fwd", "launches.group_bwd", "launches.tf32x3")
+# the counters a replay advances: those whose name starts with one of these
+REPLAYED = ("launches.", "frame_loop.frame_steps")
 
 
 def read_launches() -> tuple:
     return tuple(timer.counter(name) for name in LAUNCHES)
 
 
-def _add_launches(values) -> None:
-    for name, value in zip(LAUNCHES, values):
+def _replayed_counts() -> dict:
+    """The counters a replay advances, by name."""
+    return {name: value for name, value in timer.counters().items() if name.startswith(REPLAYED)}
+
+
+def _add_counts(counts: dict) -> None:
+    for name, value in counts.items():
         if value:
             timer.count(name, value)
 
@@ -174,17 +182,18 @@ class StepGraph:
                 self.first = body()
             stream.synchronize()
             torch.cuda.empty_cache()  # the eager run's cached blocks, which the capture's pool cannot take
-        before = read_launches()
+        before = _replayed_counts()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(self.graph, pool=self.pool, stream=stream, capture_error_mode="thread_local"):
                 self.output = body()
         finally:
-            counted = read_launches()
-            _add_launches(tuple(b - a for a, b in zip(counted, before)))
+            self.counts = {name: value - before.get(name, 0) for name, value in _replayed_counts().items()
+                           if value != before.get(name, 0)}
+            _add_counts({name: -value for name, value in self.counts.items()})
         self.context.live += 1
         self.capture_s = time.perf_counter() - t0
-        self.launches = tuple(a - b for a, b in zip(counted, before))
+        self.launches = tuple(self.counts.get(name, 0) for name in LAUNCHES)
         current.wait_stream(stream)
         if not eager:
             history.shared_after = history.released
@@ -193,7 +202,7 @@ class StepGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        _add_launches(self.launches)
+        _add_counts(self.counts)
 
     def pool_bytes(self) -> int:
         """Device memory reserved by the graph's pool (shared with the other

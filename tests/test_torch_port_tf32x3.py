@@ -274,7 +274,8 @@ def test_kernel_within_twice_cublas_error(cuda_device, name, m, k, n, epilogue):
     timer.reset()
     got = linear.linear_tf32x3(x, w, bias, bn, relu)
     torch.cuda.synchronize()
-    assert timer.counter("launches.tf32x3") == 1
+    assert timer.counter("launches.tf32x3") == 1 and timer.counters("launches.tf32x3.") == {
+        f"launches.tf32x3.{m}x{k}x{n}": 1}
     y = F.linear(x, w, bias)
     if bn is not None:
         y = F.batch_norm(y, bn[2], bn[3], bn[0], bn[1], False, 0.0, bn[4])
@@ -313,8 +314,9 @@ def test_captured_frame_loop_bit_equal_to_eager(tracker):
 
 @pytest.mark.chip
 def test_frame_step_launches_eight_and_a_train_step_none(tracker, cuda_device):
-    """A frame step adds 8 to ``launches.tf32x3`` (its two FPS calls add 2 to
-    ``launches.fps``), replays included; a train step adds none."""
+    """A frame step adds 8 to ``launches.tf32x3`` and to its shape counters
+    together (its two FPS calls add 2 to ``launches.fps``) and 1 to
+    ``frame_loop.frame_steps``, replays included; a train step adds none."""
     from ptt_tpu_torch.config import ptt_synth_config
     from ptt_tpu_torch.data.loader import DataLoader
     from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset
@@ -328,6 +330,8 @@ def test_frame_step_launches_eight_and_a_train_step_none(tracker, cuda_device):
         ev.boxes(ev.dispatch_batch(tracklets))
         steps = timer.counter("launches.fps") // 2
         assert steps > 0 and timer.counter("launches.tf32x3") == 8 * steps
+        assert sum(timer.counters("launches.tf32x3.").values()) == 8 * steps
+        assert timer.counter("frame_loop.frame_steps") == steps
     cfg = ptt_synth_config()
     model = build_network(cfg["MODEL"], device=cuda_device, train=True)
     loader = DataLoader(SyntheticTrackingDataset(cfg["DATA_CONFIG"]), 4, shuffle=True, drop_last=True, num_workers=0)

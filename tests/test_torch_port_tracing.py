@@ -2,11 +2,13 @@
 nothing recorded and no ``record_function`` entered or clock read while
 tracing is off; each span a ``ptt.`` annotation of a profiler's trace, on its
 clock; parents, request ids, self time, the buffer's bound; the spans of the
-device evaluator, the frame loop, the trainer's loop, the train step and a
-graph's capture; the host evaluator's table; and the counters behind
-``tools.kernel_launches`` and the CLIs' summaries."""
+device evaluator, its host subsample, the frame loop, the trainer's loop, the
+train step, the transformer blocks and a graph's capture; the host
+evaluator's table; the counters behind ``tools.kernel_launches`` and the
+CLIs' summaries; and the counters a graph's replay advances."""
 
 import collections
+import contextlib
 import json
 import logging
 import time
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from ptt_tpu_torch import native
-from ptt_tpu_torch.config import ptt_config, ptt_synth_config
+from ptt_tpu_torch.config import config_by_path, ptt_config, ptt_synth_config
 from ptt_tpu_torch.data.loader import DataLoader
 from ptt_tpu_torch.data.synthetic import SyntheticTrackingDataset, make_tracklets
 from ptt_tpu_torch.eval import device_loop as tdl
@@ -34,8 +36,11 @@ from tests.test_torch_port_train import narrow_model_cfg, small_data_cfg
 torch.set_num_threads(1)
 
 T_PAD = 32  # the tracklets below pad to one frame bucket
-EVALUATOR_SPANS = {"evaluator.dispatch", "evaluator.pack", "frame_loop.load", "frame_loop.steps", "evaluator.score"}
+# every frame of the ``tracklets`` below (1120 points) is above the evaluator's 512
+EVALUATOR_SPANS = {"evaluator.dispatch", "evaluator.pack", "evaluator.subsample", "frame_loop.load", "frame_loop.steps",
+                   "evaluator.score"}
 TRAINER_SPANS = {"trainer.steps", "trainer.fetch", "trainer.upload", "train_step.dispatch"}
+BLOCK_SPANS = {"transformer.block"}  # the narrow model's two blocks, in its eager train steps
 
 
 class ConstOffsetModel(torch.nn.Module):
@@ -138,7 +143,7 @@ def test_profiler_trace_holds_each_span_on_its_clock(tmp_path, tracklets, train_
         if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("ptt."):
             notes[e["name"][4:]].append(e["ts"] + base_us)
     spans = timer.spans()
-    assert {s.name for s in spans} == (EVALUATOR_SPANS if path == "evaluator" else TRAINER_SPANS)
+    assert {s.name for s in spans} == (EVALUATOR_SPANS if path == "evaluator" else TRAINER_SPANS | BLOCK_SPANS)
     for name in {s.name for s in spans}:
         starts = sorted(s.start_ns / 1e3 for s in spans if s.name == name)
         assert len(starts) == len(notes[name])
@@ -198,6 +203,8 @@ def test_device_evaluator_spans(tracklets):
     for d in dispatches:
         children = sorted((s.name, s.n) for s in spans if s.parent == d.id)
         assert children == [("evaluator.pack", None), ("frame_loop.load", None), ("frame_loop.steps", T_PAD - 1)]
+        pack = next(s for s in spans if s.parent == d.id and s.name == "evaluator.pack")
+        assert [(s.name, s.n) for s in spans if s.parent == pack.id] == [("evaluator.subsample", 6)] * 2
         assert all(by_id[s.parent].request == s.request for s in spans if s.parent == d.id)
     scores = [s for s in spans if s.name == "evaluator.score"]
     assert [s.request for s in scores] == [0, 1, 2] and all(s.parent is None for s in scores)
@@ -238,8 +245,10 @@ def test_pipelined_steps_spans(train_setup, k):
     spans = timer.spans()
     steps = [s for s in spans if s.name == "trainer.steps"]
     assert len(steps) == 1 and steps[0].n == len(history) == len(batches) == opt.count
-    inside = [s for s in spans if s.name != "trainer.steps"]
+    inside = [s for s in spans if s.name in TRAINER_SPANS - {"trainer.steps"}]
     assert all(s.parent == steps[0].id for s in inside)
+    dispatch_ids = {s.id for s in spans if s.name == "train_step.dispatch"}
+    assert all(s.parent in dispatch_ids for s in spans if s.name in BLOCK_SPANS)
     groups = [0, 2] if k == 2 else [0, 1, 2]  # three batches: one K = 2 dispatch and a tail step
     assert [s.request for s in spans if s.name == "trainer.fetch"] == groups + [len(batches)]
     uploads = [s for s in spans if s.name == "trainer.upload"]
@@ -297,7 +306,7 @@ def test_graph_capture_span_and_counter(monkeypatch):
     the capture counted."""
     def capture(self, body, device, context):
         self.first = self.output = body()
-        self.launches = (2, 7, 0, 0, 8)
+        self.counts = {"launches.fps": 2, "launches.sa": 7, "launches.tf32x3": 8}
         self.graph = type("G", (), {"replay": lambda g: None})()
 
     monkeypatch.setattr(cuda_graph.StepGraph, "_capture", capture)
@@ -309,6 +318,105 @@ def test_graph_capture_span_and_counter(monkeypatch):
     assert build_counts() == {"graph_captures": 1, "kernel_builds": 0}
     assert kernel_launches() == {"fps": 6, "sa": 21, "group_fwd": 0, "group_bwd": 0, "tf32x3": 24}
     assert cuda_graph.read_launches() == (6, 21, 0, 0, 24)
+
+
+def test_transformer_block_spans_and_knn_counts():
+    """One eager ``ptt_waymo`` forward at its published widths (clouds a
+    little above stage 0's centers): a ``transformer.block`` span for each
+    head's MulTransformerBlock, ``n`` its batch's points (the centroid head's
+    256 seeds, the box head's 128 proposals), and one ``launches.knn`` a
+    layer of each, 2 heads x 2 layers."""
+    torch.manual_seed(0)
+    model = build_network(config_by_path("kitti_models/ptt_waymo.yaml")["MODEL"], device="cpu").eval()
+    g = torch.Generator().manual_seed(1)
+    search, template = torch.randn(1, 2048 + 256, 3, generator=g), torch.randn(1, 1024 + 128, 3, generator=g)
+    with timer.tracing(), torch.no_grad():
+        model({"search_points": search, "template_points": template})
+    blocks = [s for s in timer.spans() if s.name == "transformer.block"]
+    assert sorted(s.n for s in blocks) == [128, 256] and all(s.parent is None for s in blocks)
+    assert timer.counter("launches.knn") == 4
+
+
+def test_subsample_span_only_for_frames_above_max_points():
+    """The host subsample is the span ``evaluator.subsample`` inside
+    ``evaluator.pack``, one a tracklet with a frame above ``max_points``
+    (``n`` its frames above), and ``evaluator.subsampled_frames`` counts
+    them; a batch whose frames all fit has neither."""
+    tracklets = make_tracklets({"NUM_TRACKLETS": 2, "FRAMES_PER_TRACKLET": 6})  # 1120 points a frame
+    clouds = tracklets[0][0]
+    for t in (1, 4):
+        clouds[t] = clouds[t][:900]
+    for max_points, expected in ((1024, [4, 6]), (2048, [])):
+        timer.reset()
+        ev = tdl.DeviceTrackingEvaluator(ptt_config(), ConstOffsetModel(), max_points=max_points, batch_size=2,
+                                         device="cpu")
+        with timer.tracing():
+            ev.finish_batch(ev.dispatch_batch(tracklets))
+        spans = timer.spans()
+        pack = next(s for s in spans if s.name == "evaluator.pack")
+        subsample = [s for s in spans if s.name == "evaluator.subsample"]
+        assert [s.n for s in subsample] == expected and all(s.parent == pack.id for s in subsample)
+        assert timer.counter("evaluator.subsampled_frames") == sum(expected)
+        assert timer.counter("frame_loop.frame_steps") == T_PAD - 1
+
+
+class _FakeCuda:
+    """What ``StepGraph`` asks of ``torch.cuda``, without a card: the body
+    runs at the eager run and at the capture, and a replay runs nothing."""
+
+    class Stream:
+        def __init__(self, *args):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+        def synchronize(self):
+            pass
+
+    class CUDAGraph:
+        def replay(self):
+            pass
+
+        def reset(self):
+            pass
+
+    @staticmethod
+    def graph(*args, **kwargs):
+        return contextlib.nullcontext()
+
+
+def test_replay_advances_every_replayed_counter(monkeypatch):
+    """A capture's counts of the counters under ``launches.`` (by kernel and
+    by shape) and of ``frame_loop.frame_steps`` are taken back at the
+    capture and added at every replay; the eager run counts once; a counter
+    outside those is counted by each run of the body and never by a
+    replay."""
+    fake = _FakeCuda()
+    for name, value in (("graph_pool_handle", lambda: (0, 1)), ("Stream", fake.Stream),
+                        ("current_stream", lambda device=None: fake.Stream()),
+                        ("stream", lambda s: contextlib.nullcontext()), ("CUDAGraph", fake.CUDAGraph),
+                        ("graph", fake.graph), ("empty_cache", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, value)
+
+    def body():
+        timer.count("launches.tf32x3", 2)
+        timer.count("launches.tf32x3.16384x256x256", 2)
+        timer.count("launches.knn", 4)
+        timer.count("frame_loop.frame_steps")
+        timer.count("graph.other")
+
+    g = cuda_graph.StepGraph(body, "cpu")
+    assert g.launches == (0, 0, 0, 0, 2)
+    assert g.counts == {"launches.tf32x3": 2, "launches.tf32x3.16384x256x256": 2, "launches.knn": 4,
+                        "frame_loop.frame_steps": 1}
+    assert timer.counters("launches.") == {"launches.tf32x3": 2, "launches.tf32x3.16384x256x256": 2,
+                                           "launches.knn": 4}
+    for _ in range(3):
+        g.replay()
+    assert timer.counters("launches.") == {"launches.tf32x3": 8, "launches.tf32x3.16384x256x256": 8,
+                                           "launches.knn": 16}
+    assert timer.counter("frame_loop.frame_steps") == 4 and timer.counter("graph.other") == 2
 
 
 # ----------------------------------------------------------------- counters
