@@ -20,7 +20,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      of its captured CUDA graph) on 8 x 24 synthetic tracklets with the trained
      weights: Success/Precision, launch counts (by the wrappers' counters, which
      a replay advances by what its capture counted, then by the device under
-     the profiler in a batch of replays), then frames/s over pipelined
+     the profiler in a batch of replays; the vector attention's fused calls,
+     2 a frame step, equal to the kNN searches, none refused), then frames/s
+     over pipelined
      batches of the benchmark workload (8 x 64 frames);
   5. a profile of one tracker batch: device busy and idle shares, top kernels,
      the device's launch counts;
@@ -51,9 +53,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      4-head transformers) on the port's own seeded init: its 2 FPS and 7 SA
      calls against their plain versions (SA also on the two hard weight sets),
      the forward against the plain path, the tracker on the benchmark workload
-     with 2 FPS and 7 SA launches a frame step, frames/s and a profile;
+     with 2 FPS, 7 SA and 4 fused vector-attention launches a frame step (one
+     a transformer layer, equal to the kNN searches), frames/s and a profile;
   9. the same for ``p2b_synth.yaml`` (P2B: no transformers, 'sequence' sampling
-     in the backbone, so 1 FPS and 7 SA launches a step);
+     in the backbone, so 1 FPS, 7 SA and no vector-attention launches a step);
   10. on the trained weights and the agreement tracklets, every TEST.REF_BOX x
      TEST.SHAPE_AGGREGATION mode through ``eval_one_epoch_device``, and the host
      evaluator (``eval_one_epoch``), each on the kernel and the plain path from
@@ -195,6 +198,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      library layer (cuBLAS GEMM, BatchNorm, ReLU), its bound, device time of
      its two kernels, and the crossover against the library layer; phase 4
      also counts its 8 launches a frame step.
+  24. (run after 23) ``csrc/vattn.cu``, the blocks' eval vector attention
+     around fc_gamma, at the four calls of the cells' frame steps (B = 8):
+     A equal to the plain version, res and attn within 1e-6 of it, ms of the
+     two kernels, of the plain versions and of the blocks' glue as the
+     library layers ran it, the bytes bound, and the two kernels' device time.
 Every trace goes through the port's profiler window (``utils/profiling.py``
 ``device_window``, which keeps CUPTI subscribed for the process); a window
 without the device's activity, which the profiler still returns now and
@@ -211,7 +219,8 @@ tracker (which would otherwise outlive it by a moment), then ends and reaps
 whatever else is still below it, and logs what it stopped (``stop_children``).
 ``python3 chip_smoke.py --train-rank DIR`` is phase 18a's rank, and
 ``--point-rank DIR`` phase 20a's, not a run;
-``python3 chip_smoke.py --tf32x3`` runs the build and phase 23 alone;
+``python3 chip_smoke.py --tf32x3`` runs the build and phase 23 alone,
+``--vattn`` the build and phase 24 alone;
 ``python3 chip_smoke.py --loader-start`` times the loader's start by start
 method (``loader_start``), and ``python3 chip_smoke.py --trace-cost`` what a
 trace that keeps CUPTI attached costs the graphed work after it
@@ -293,6 +302,22 @@ def launch_counts(*keys) -> dict:
 
     counts = kernel_launches()
     return {k: counts[k] for k in keys or counts}
+
+
+def vattn_counts() -> dict:
+    """The blocks' vector-attention route since the last ``timer.reset()``
+    (``ops/vattn.py``): its fused calls, the kNN searches of the blocks, and
+    the CUDA float32 eval-mode calls it refused."""
+    return {"vattn": timer.counter("launches.vattn"), "knn": timer.counter("launches.knn"),
+            "vattn.plain": timer.counter("vattn.plain")}
+
+
+def check_vattn_counts(tag, counts, per_step, steps):
+    """``vattn_counts()`` of a tracker batch: ``per_step`` fused calls a frame
+    step, as many as kNN searches, none refused."""
+    if counts != {"vattn": per_step * steps, "knn": per_step * steps, "vattn.plain": 0}:
+        fail(f"{tag} tracker: vector attention {counts}, expected {per_step} fused calls and kNN searches a frame "
+             f"step over {steps} steps and none refused")
 
 
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
@@ -1048,15 +1073,16 @@ def check_forward(model, batch, tag, trained=False):
              f"{replay.changed}, max |pred_box_data| difference {free_err:.3e})")
 
 
-def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, graph_rows):
+def config_phase(tag, name, cfg, device, card, clock, n_fps, n_vattn, agreement, bench, graph_rows):
     """Phases 8 and 9: one more configuration at its full published width, on
     the port's own seeded init (no trained weights exist for it): every FPS
     and SA call of the first frame step's forward against its plain version,
     the forward against the plain path, then the tracker on the benchmark
     workload: launches per frame step (counted by the wrappers and the
-    replays, then by the device in a profiled batch), frames/s, a profile of
-    one batch; then phase 17's graph-against-eager rows, appended to
-    ``graph_rows``. Returns (rows by kernel, launches of one batch)."""
+    replays, then by the device in a profiled batch; ``n_vattn`` fused
+    vector-attention calls a step), frames/s, a profile of one batch; then
+    phase 17's graph-against-eager rows, appended to ``graph_rows``. Returns
+    (rows by kernel, launches of one batch, ``vattn`` among them)."""
     from ptt_tpu_torch.eval.device_loop import DeviceTrackingEvaluator
     from ptt_tpu_torch.nn import build_network, set_use_kernels
 
@@ -1079,13 +1105,16 @@ def config_phase(tag, name, cfg, device, card, clock, n_fps, agreement, bench, g
     timer.reset()
     results = ev.track_batch(bench)
     torch.cuda.synchronize()
-    launches = launch_counts("fps", "sa")
+    launches, attention = launch_counts("fps", "sa"), vattn_counts()
     steps = len(bench[0][0]) - 1
     centers = np.array([[b.center for b in trk] for trk in results])
-    log(f"{tag} {name} tracker, one batch of the benchmark workload: launches {launches} over {steps} frame steps "
-        f"({n_fps} FPS and 7 SA calls a step expected); boxes finite {bool(np.isfinite(centers).all())}")
+    log(f"{tag} {name} tracker, one batch of the benchmark workload: launches {launches}, vector attention "
+        f"{attention} over {steps} frame steps ({n_fps} FPS, 7 SA and {n_vattn} fused vector-attention calls a step "
+        f"expected); boxes finite {bool(np.isfinite(centers).all())}")
     if launches != {"fps": n_fps * steps, "sa": 7 * steps}:
         fail(f"{tag} {name} tracker: launches {launches}, expected {n_fps} and 7 per frame step over {steps} steps")
+    check_vattn_counts(f"{tag} {name}", attention, n_vattn, steps)
+    launches["vattn"] = attention["vattn"]
     if not np.isfinite(centers).all():
         fail(f"{tag} {name} tracker: non-finite boxes")
     rates = [bench_rate(ev, bench, 2) for _ in range(3)]
@@ -3718,6 +3747,126 @@ def tf32x3_only() -> int:
     return 0
 
 
+# the four vector-attention calls of the cells' frame steps at B = 8: (config, layer, queries a row, heads)
+VATTN_SHAPES = [("ptt.yaml", "centroid", 128, 1), ("ptt.yaml", "box", 64, 1),
+                ("ptt_waymo.yaml", "centroid", 256, 4), ("ptt_waymo.yaml", "box", 128, 4)]
+VATTN_LAYERS = {"ptt.yaml": 1, "ptt_waymo.yaml": 2}  # layers a block
+VATTN_RTOL = 1e-6
+VATTN_TIMED = 20  # calls a timing
+
+
+def vattn_operands(n, device, seed=0, k=16, d=512):
+    """q, kproj, vproj (8, n, d), idx (8, n, k) int32, pos and logits (8, n, k, d), seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, kp, vp = (torch.randn(8, n, d, generator=gen).to(device) for _ in range(3))
+    idx = torch.randint(0, n, (8, n, k), generator=gen, dtype=torch.int32).to(device)
+    pos, logits = torch.randn(8, n, k, d, generator=gen).to(device), (8 * torch.randn(8, n, k, d, generator=gen)).to(device)
+    return q, kp, vp, idx, pos, logits
+
+
+def vattn_library(q, kp, vp, idx, pos, logits, heads, scale):
+    """The blocks' glue as the port ran it before the kernels (``nn/transformer.py``):
+    the gathers, q - k + pos, and ``_attend`` of the logits and v + pos, with a
+    multi-head layer's permutes, its permuted input made contiguous (the copy
+    F.linear made) and its result's transpose."""
+    from ptt_tpu_torch.nn.transformer import _attend
+    from ptt_tpu_torch.ops.point_ops import group_points
+
+    B, N, d = q.shape
+    k, v = group_points(kp, idx), group_points(vp, idx)
+    if heads == 1:
+        a = q[:, :, None] - k + pos
+        _, res = _attend(logits, v + pos, scale)
+        return a, res
+    hd = d // heads
+
+    def split(t):
+        return t.reshape(B, N, t.shape[2], heads, hd).permute(0, 3, 1, 2, 4)
+
+    a = (q.reshape(B, N, heads, hd).transpose(1, 2)[:, :, :, None] - split(k) + split(pos)).contiguous()
+    _, res = _attend(split(logits), split(v) + split(pos), scale)
+    return a, res.transpose(1, 2).reshape(B, N, d)
+
+
+def vattn_phase(card) -> dict:
+    """Phase 24: ``csrc/vattn.cu`` at the four vector-attention calls of the
+    cells' frame steps (B = 8, k 16, d 512): A equal to the plain version, res
+    and attn within VATTN_RTOL of it (``relerr``); ms a call of the two
+    kernels, of the plain versions on the card and of the library layers (the
+    blocks' glue before the kernels, ``vattn_library``), by events with the
+    host's enqueue hidden (``queued_ms``); the bytes bound
+    (``benchmark/counts/vattn.py``'s least bytes at 3.35 TB/s); the two
+    kernels' device time by the profiler; then each configuration's frame
+    step."""
+    from ptt_tpu_torch.ops import vattn
+
+    device = torch.device("cuda")
+    rows, calls = [], []
+    for config, layer, n, heads in VATTN_SHAPES:
+        q, kp, vp, idx, pos, logits = vattn_operands(n, device)
+        scale = 512 // heads
+        a = vattn.vattn_in(q, kp, idx, pos)
+        res, attn = vattn.vattn_out(logits, vp, idx, pos, scale, want_attn=True)
+        pa = vattn.vattn_in_plain(q, kp, idx, pos)
+        pres, pattn = vattn.vattn_out_plain(logits, vp, idx, pos, scale, want_attn=True)
+        _, lres = vattn_library(q, kp, vp, idx, pos, logits, heads, scale)
+        torch.cuda.synchronize()
+        err = {"res": relerr(res, pres), "attn": relerr(attn, pattn), "library_res": relerr(lres, pres)}
+        a_equal = bool(torch.equal(a, pa))
+
+        def kern():
+            vattn.vattn_out(vattn.vattn_in(q, kp, idx, pos), vp, idx, pos, scale)
+
+        def plain():
+            vattn.vattn_out_plain(vattn.vattn_in_plain(q, kp, idx, pos), vp, idx, pos, scale)
+
+        ms = {"kernel": queued_ms(kern, VATTN_TIMED), "plain": queued_ms(plain, VATTN_TIMED),
+              "library": queued_ms(lambda: vattn_library(q, kp, vp, idx, pos, logits, heads, scale), VATTN_TIMED)}
+        Q = 8 * n
+        nbytes = 4 * (4 * Q * 16 * 512 + 4 * Q * 512 + 2 * Q * 16)
+        bms = nbytes / PEAK_BYTES * 1e3
+        rows.append({"config": config, "layer": layer, "shape": [Q, 16, 512], "heads": heads, "a_equal": a_equal,
+                     **{f"{key}_err": value for key, value in err.items()}, "ms": ms["kernel"],
+                     "plain_ms": ms["plain"], "library_ms": ms["library"], "bound_ms": bms, "bound_by": "bytes"})
+        calls.append(kern)
+        log(f"[24] {config} {layer} Q {Q} H {heads}: A equal {a_equal}, rel err res {err['res']:.3e} attn "
+            f"{err['attn']:.3e} (library's res {err['library_res']:.3e}); ms kernels {ms['kernel']:.4f}, plain "
+            f"{ms['plain']:.4f}, library {ms['library']:.4f}, bound {bms:.4f} (bytes, {100 * bms / ms['kernel']:.1f}%)")
+    timer.reset()
+    parts = kernel_ms(lambda: [c() for c in calls], 5, ("vattn_in_kernel", "vattn_out_kernel"))
+    steps = {config: {key: VATTN_LAYERS[config] * sum(r[key] for r in rows if r["config"] == config)
+                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")} for config in VATTN_LAYERS}
+    for config, st in steps.items():
+        log(f"[24] {config} frame step ({VATTN_LAYERS[config]} layer(s) a block): kernels {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.4f}, library {st['library_ms']:.4f}, bound {st['bound_ms']:.4f} "
+            f"({100 * st['bound_ms'] / st['ms']:.1f}% of it)")
+    log(f"[24] device ms of the four calls by kernel: {by_kernel(parts)}; card {card}")
+    bad = [(r["config"], r["layer"]) for r in rows
+           if not (r["a_equal"] and r["res_err"] <= VATTN_RTOL and r["attn_err"] <= VATTN_RTOL)]
+    if bad:
+        fail(f"[24] the kernels differ from the plain versions at {bad}")
+    return {"rows": rows, "steps": steps, "device_ms": parts}
+
+
+def vattn_only() -> int:
+    """``--vattn``: the build and phase 24 alone."""
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke.py runs on a GPU")
+        return 1
+    from ptt_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    card = gpu_line()
+    _build.build()
+    if "vattn" in _build.build_log:
+        secs, nvcc_out = _build.build_log["vattn"]
+        log(f"[24] nvcc vattn.cu ({secs:.1f} s):\n{nvcc_out}")
+    out = vattn_phase(card)
+    log(f"[time] build and phase 24: {time.perf_counter() - t_start:.1f} s")
+    print("vattn " + json.dumps(out), flush=True)
+    return 0
+
+
 # ------------------------------------------------------------ point sharding (phase 20)
 
 POINT_RANKS = 2  # one point group of two gloo ranks sharing the card (NCCL refuses two ranks on one device)
@@ -4223,7 +4372,9 @@ def main() -> int:
     check_forward(model, batch, "[3]", trained=True)
     # 23. the eval-mode float32 product kernel at the frame step's eight products
     phase23 = tf32x3_phase(card)
-    log(f"[time] phases 1-3 and 23: {time.perf_counter() - t_start:.1f} s")
+    # 24. the vector-attention kernels at the cells' four calls
+    phase24 = vattn_phase(card)
+    log(f"[time] phases 1-3, 23 and 24: {time.perf_counter() - t_start:.1f} s")
 
     # 4. the tracker on the trained weights
     ev = DeviceTrackingEvaluator(cfg, model, max_points=1024, batch_size=8, device=device)
@@ -4231,14 +4382,14 @@ def main() -> int:
     t0 = time.perf_counter()
     results = ev.track_batch(agreement)
     torch.cuda.synchronize()
-    launches = launch_counts("fps", "sa", "tf32x3")
+    launches, attention = launch_counts("fps", "sa", "tf32x3"), vattn_counts()
     s = ev.summary()
     steps = 32 - 1  # 24 frames pad to the 32-frame bucket; frame 0 is the given box
     log(f"[4] tracker: {s['frames']} frames in {time.perf_counter() - t0:.2f} s (first batch); "
         f"Success {s['success']:.2f} Precision {s['precision']:.2f}; recorded host "
         f"{meta['host_success']:.2f}/{meta['host_precision']:.2f} "
         f"(delta {s['success'] - meta['host_success']:+.2f}/{s['precision'] - meta['host_precision']:+.2f}); "
-        f"launches {launches} over {steps} frame steps")
+        f"launches {launches}, vector attention {attention} over {steps} frame steps")
     centers = np.array([[b.center for b in trk] for trk in results])
     if s["frames"] != 192 or not np.isfinite(centers).all():
         fail("tracker: wrong frame count or non-finite boxes")
@@ -4246,6 +4397,8 @@ def main() -> int:
         fail(f"tracker: Success {s['success']:.2f} < 50")
     if launches != {"fps": 2 * steps, "sa": 7 * steps, "tf32x3": 8 * steps}:
         fail(f"tracker: launches {launches}, expected 2, 7 and 8 per frame step over {steps} steps")
+    check_vattn_counts("[4]", attention, 2, steps)
+    launches["vattn"] = attention["vattn"]
     device_launches = profile_batch(ev, agreement, s["frames"], "[4]", quiet=True)["launches"]
     check_device_launches("[4]", device_launches, 2, steps)
     ev.close()
@@ -4282,9 +4435,9 @@ def main() -> int:
     # 8 and 9: ptt_large.yaml and p2b_synth.yaml at full width
     check_sa_limit(device)
     large_rows, large_launches = config_phase("[8]", "ptt_large.yaml", ptt_large_config(), device, card, clock, 2,
-                                              agreement, bench, graph_rows)
+                                              4, agreement, bench, graph_rows)
     p2b_rows, p2b_launches = config_phase("[9]", "p2b_synth.yaml (P2B)", p2b_synth_config(), device, card, clock, 1,
-                                          agreement, bench, graph_rows)
+                                          0, agreement, bench, graph_rows)
     log(f"[time] phases 8 and 9: {time.perf_counter() - t_start:.1f} s")
 
     # 10. every tracking mode and the host evaluator on the trained weights
@@ -4308,7 +4461,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         waymo_rows, waymo_launches = config_phase("[13]", "ptt_waymo.yaml", config_by_path("kitti_models/ptt_waymo.yaml"),
-                                                  device, card, clock, 2, agreement, bench, graph_rows)
+                                                  device, card, clock, 2, 4, agreement, bench, graph_rows)
         phase13b = waymo_cli_phase(os.path.join(tmp, "sweeps"), card)
         log(f"[time] phases 13 and 13b: {time.perf_counter() - t_start:.1f} s")
         # 20. POINT_SHARDING: two ranks on the one card as one point group
@@ -4392,6 +4545,15 @@ def main() -> int:
         "bound_by": "operations", "library_ms": phase23["total"]["library_ms"], "device_ms": phase23["device_ms"],
         "launches_by_path": {"ptt.yaml tracker (agreement batch)": launches["tf32x3"]},
         "shapes": [{"config": "ptt.yaml", **r} for r in rows23], "crossover": phase23["sweep"]})
+    record["kernels"].append({
+        "name": "vattn", "route": "cuda", "source": "ptt_tpu_torch/csrc/vattn.cu", "replaces": None,
+        "launches": launches["vattn"],
+        "launches_by_path": {"ptt.yaml tracker (agreement batch)": launches["vattn"],
+                             "ptt_large.yaml tracker (benchmark batch)": large_launches["vattn"],
+                             "p2b_synth.yaml tracker (benchmark batch)": p2b_launches["vattn"],
+                             "ptt_waymo.yaml tracker (benchmark batch)": waymo_launches["vattn"]},
+        "max_rel_err": max(max(r["res_err"], r["attn_err"]) for r in phase24["rows"]),
+        "bound_by": "bytes", "device_ms": phase24["device_ms"], "steps": phase24["steps"], "shapes": phase24["rows"]})
     log("graphs " + json.dumps({"benchmark": graph_rows, **phase17}))
     log("data_parallel " + json.dumps(phase18))
     log("point_sharding " + json.dumps(phase20))
@@ -4562,6 +4724,8 @@ if __name__ == "__main__":
         sys.exit(trace_cost())
     if sys.argv[1:2] == ["--tf32x3"]:
         sys.exit(tf32x3_only())
+    if sys.argv[1:2] == ["--vattn"]:
+        sys.exit(vattn_only())
     if sys.argv[1:2] == ["--trace-cost-process"]:  # a process of --trace-cost
         sys.exit(trace_cost_process(sys.argv[2] == "traced"))
     sys.exit(main())

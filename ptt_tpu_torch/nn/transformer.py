@@ -14,6 +14,18 @@ Every block's forward is the span ``transformer.block`` of ``utils/timer.py``
 (``n``: the points it attends over, batch included), recorded where the
 forward runs eagerly (a captured graph's replay runs no Python); each kNN
 search counts one ``launches.knn``, which a replay advances too.
+
+Eval-mode vector attention on the card: in ``TransformerBlock`` and
+``MulHeadTransformerLayer``, a call that ``ops/vattn.py`` ``takes_kernel``
+accepts (CUDA float32 tensors, contiguous; no autograd, eval mode, kernels on
+(``nn.set_use_kernels``); at most 16 neighbours and a width that is a
+multiple of 4; under a point group too, where only the kNN search splits)
+runs the kNN vector attention as
+``csrc/vattn.cu``'s two kernels around ``fc_gamma``: the gathered ``q - k +
+pos_enc`` in, contiguous, so that ``fc_gamma.0`` takes the product kernel
+(``nn/layers.py``) in the multi-head layer too; the softmax-weighted sum of
+``v + pos_enc`` out. That route returns ``attn`` None (the heads discard it).
+Every other call, and every other block, runs the plain path.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops import vattn
 from ..ops.point_ops import group_points, knn
 from ..utils import timer
 from .layers import LayerNorm, Linear, matmul, mlp2
@@ -71,18 +84,23 @@ class _QKV(nn.Module):
         self.w_vs = Linear(d_model, d_model, bias=False)
         self.fc_delta = mlp2(3, d_model, d_model)
 
+    def projections(self, xyz, features):
+        """-> (idx (B, N, k), x = fc1(features), q, and the key and value
+        projections (B, N, d) at every point, pos_enc (B, N, k, d))."""
+        idx, knn_xyz = _neighbourhood(xyz, self.k)
+        x = self.fc1(features)
+        return idx, x, self.w_qs(x), self.w_ks(x), self.w_vs(x), self.fc_delta(xyz[:, :, None] - knn_xyz)
+
     def qkv(self, xyz, features):
         """-> (x = fc1(features), q (B, N, d), k and v (B, N, k, d) at the
         neighbours, pos_enc (B, N, k, d))."""
-        idx, knn_xyz = _neighbourhood(xyz, self.k)
-        x = self.fc1(features)
-        q = self.w_qs(x)
-        k = group_points(self.w_ks(x), idx)
-        v = group_points(self.w_vs(x), idx)
-        return x, q, k, v, self.fc_delta(xyz[:, :, None] - knn_xyz)
+        idx, x, q, kp, vp, pos_enc = self.projections(xyz, features)
+        return x, q, group_points(kp, idx), group_points(vp, idx), pos_enc
 
 
 class TransformerBlock(_QKV):
+    use_kernels = True  # the vector attention's kernels (module docstring)
+
     def __init__(self, d_points: int, d_model: int, k: int):
         super().__init__(d_points, d_model, k)
         self.fc_gamma = mlp2(d_model, d_model, d_model)
@@ -90,9 +108,14 @@ class TransformerBlock(_QKV):
 
     @_traced
     def forward(self, xyz, features):
-        """(B, N, 3), (B, N, d_points) -> (features (B, N, d_points), attn (B, N, k, d_model))."""
-        _, q, k, v, pos_enc = self.qkv(xyz, features)
-        attn, res = _attend(self.fc_gamma(q[:, :, None] - k + pos_enc), v + pos_enc, self.d_model)
+        """(B, N, 3), (B, N, d_points) -> (features (B, N, d_points), attn (B, N,
+        k, d_model), or None where the kernels ran)."""
+        idx, _, q, kp, vp, pos_enc = self.projections(xyz, features)
+        if vattn.takes_kernel(self, q, kp, vp, idx, pos_enc):
+            res, attn = vattn.vector_attention(q, kp, vp, idx, pos_enc, self.fc_gamma, self.d_model), None
+        else:
+            k, v = group_points(kp, idx), group_points(vp, idx)
+            attn, res = _attend(self.fc_gamma(q[:, :, None] - k + pos_enc), v + pos_enc, self.d_model)
         return self.fc2(res) + features, attn
 
 
@@ -238,7 +261,12 @@ class MulHeadTransformerLayer(_QKV):
     ``heads`` heads of head_dim, one fc_gamma MLP (head_dim -> head_dim) shared
     by all heads, then a bias-free proj, LayerNorm, fc2 and a second LayerNorm
     before the residual. (The JAX package's dropout after proj is 0 and off in
-    eval mode; it is left out.)"""
+    eval mode; it is left out.) Where the kernels run (module docstring),
+    ``fc_gamma`` reads the (B, N, k, d_model) input of ``csrc/vattn.cu`` as
+    rows of head_dim, and ``attn`` is None; otherwise ``attn`` is (B, heads,
+    N, k, head_dim)."""
+
+    use_kernels = True
 
     def __init__(self, d_points: int, d_model: int, k: int, heads: int):
         super().__init__(d_points, d_model, k)
@@ -251,22 +279,30 @@ class MulHeadTransformerLayer(_QKV):
         self.norm2 = LayerNorm(d_points, eps=LN_EPS)
 
     def forward(self, xyz, features):
-        _, q, k, v, pos_enc = self.qkv(xyz, features)
+        idx, _, q, kp, vp, pos_enc = self.projections(xyz, features)
         B, N, _ = q.shape
+        if vattn.takes_kernel(self, q, kp, vp, idx, pos_enc):
+            res, attn = vattn.vector_attention(q, kp, vp, idx, pos_enc, self._heads_gamma, self.head_dim), None
+        else:
+            def split(t):  # (B, N, K, H * hd) -> (B, H, N, K, hd)
+                return t.reshape(B, N, t.shape[2], self.heads, self.head_dim).permute(0, 3, 1, 2, 4)
 
-        def split(t):  # (B, N, K, H * hd) -> (B, H, N, K, hd)
-            return t.reshape(B, N, t.shape[2], self.heads, self.head_dim).permute(0, 3, 1, 2, 4)
-
-        qh = q.reshape(B, N, self.heads, self.head_dim).transpose(1, 2)
-        kh, vh, ph = split(k), split(v), split(pos_enc)
-        attn, res = _attend(self.fc_gamma(qh[:, :, :, None] - kh + ph), vh + ph, self.head_dim)
-        res = self.norm1(self.proj(res.transpose(1, 2).reshape(B, N, self.d_model)))
+            qh = q.reshape(B, N, self.heads, self.head_dim).transpose(1, 2)
+            kh, vh, ph = split(group_points(kp, idx)), split(group_points(vp, idx)), split(pos_enc)
+            attn, res = _attend(self.fc_gamma(qh[:, :, :, None] - kh + ph), vh + ph, self.head_dim)
+            res = res.transpose(1, 2).reshape(B, N, self.d_model)
+        res = self.norm1(self.proj(res))
         return self.norm2(self.fc2(res)) + features, attn
+
+    def _heads_gamma(self, a):
+        """``fc_gamma`` on each head's channels of ``a`` (..., d_model): its rows
+        of head_dim, the same memory, and back."""
+        return self.fc_gamma(a.reshape(*a.shape[:-1], self.heads, self.head_dim)).reshape(a.shape)
 
 
 class MulTransformerBlock(nn.Module):
     """A stack of ``layers`` MulHeadTransformerLayers; returns the last
-    layer's features and attention."""
+    layer's features and attention (None where the kernels ran)."""
 
     def __init__(self, d_points: int, d_model: int, k: int, heads: int, layers: int):
         super().__init__()

@@ -28,7 +28,7 @@ from ..utils import timer
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptt_tpu_torch"
-SOURCES = ("fps", "sa", "group", "tf32x3")
+SOURCES = ("fps", "sa", "group", "tf32x3", "vattn")
 NVCC_FLAGS = [
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -60,6 +60,8 @@ _FUNCTIONS = {
     "group_csr_ranges": ("group", [_i, ctypes.POINTER(_i)]),
     "tf32x3_linear": ("tf32x3", [_p, _p, _p, _p, _p, _p, _p, ctypes.c_float, _p, _p, _p, _i, _i, _i, _i, _p]),
     "tf32x3_prep_floats": ("tf32x3", [_i, _i]),
+    "vattn_in": ("vattn", [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]),
+    "vattn_out": ("vattn", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, ctypes.c_float, _p]),
 }
 
 _loaded: dict = {}  # entry point -> its ctypes function; "native" -> the host library
